@@ -1,0 +1,238 @@
+"""Execution backends for the approximate-arithmetic engine (the port of
+``repro.ax.backends``).
+
+A backend is a named execution target for the registered adders:
+
+- ``"torch"``  the plain PyTorch versions of the kernels, eager, on any
+               device: int64 lanes holding the unsigned pattern.  The
+               counterpart of the reference's ``"jax"`` backend, and what
+               the CPU tests run.
+- ``"cuda"``   the hand-written CUDA kernels of
+               :mod:`repro_torch.kernels` on CUDA tensors only.  The
+               counterpart of ``"pallas_tpu"``, and the default.
+
+Orthogonal to the backend, every add-shaped primitive takes an execution
+*strategy*: ``"reference"`` (the registered bit-level oracle) or
+``"fused"`` (the registered fused form, bit-identical).  ``"lut"`` is
+accepted by name and raises ``NotImplementedError`` everywhere until the
+compiled tables (``ax/lut.py``) are ported.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Tuple, Union
+
+import torch
+
+from repro_torch.core.specs import AdderSpec
+
+#: Legal execution strategies for the add-shaped primitives.
+STRATEGIES = ("reference", "fused", "lut")
+
+#: Placeholder accepted everywhere a strategy is: resolves to the
+#: backend's preferred concrete strategy at engine construction.
+AUTO_STRATEGY = "auto"
+
+
+def check_strategy(strategy: str) -> str:
+    if strategy not in STRATEGIES and strategy != AUTO_STRATEGY:
+        raise ValueError(
+            f"unknown strategy {strategy!r}; one of "
+            f"{STRATEGIES + (AUTO_STRATEGY,)}")
+    return strategy
+
+
+def resolve_strategy(strategy, fast: bool) -> str:
+    """The mapping from the back-compat ``fast`` flag to a strategy name:
+    an explicit ``strategy`` wins, else ``fast`` picks fused."""
+    if strategy is None:
+        strategy = "fused" if fast else "reference"
+    return check_strategy(strategy)
+
+
+def check_lut(strategy: str, what: str) -> None:
+    if strategy == "lut":
+        raise NotImplementedError(
+            f"the lut strategy is not ported yet ({what}); use "
+            f"strategy='reference' or 'fused'")
+
+
+def _fast(strategy: str, what: str) -> bool:
+    """The ``fast`` flag the adder models and kernels take."""
+    if strategy == AUTO_STRATEGY:
+        raise ValueError(
+            "strategy='auto' is resolved at engine construction "
+            "(make_engine); Backend methods take one of "
+            f"{STRATEGIES}")
+    check_lut(strategy, what)
+    return strategy == "fused"
+
+
+class FilterStage(NamedTuple):
+    """One separable-filter pass of a :meth:`Backend.filter_chain`:
+    replicate-padded taps at ``offsets`` along ``axis``, exact integer
+    ``weights``, one weighted approximate accumulation, then an exact
+    rounding right-``shift`` (the pass's normalization)."""
+
+    axis: int
+    offsets: Tuple[int, ...]
+    weights: Tuple[int, ...]
+    shift: int = 0
+
+
+def edge_taps(q: torch.Tensor, axis: int, offsets):
+    """Replicate-padded shifted views of a filter tap, as a list: the
+    j-th view satisfies ``out[j][..., i] = q[..., clamp(i + offsets[j])]``
+    along ``axis`` — replicate padding written as a clamped gather."""
+    axis = axis % q.ndim
+    n = q.shape[axis]
+    base = torch.arange(n, device=q.device)
+    return [q.index_select(axis, (base + o).clamp(0, n - 1))
+            for o in offsets]
+
+
+def run_stages(q: torch.Tensor, spec: AdderSpec, stages,
+               fold: Callable) -> torch.Tensor:
+    """THE per-stage filter chain on signed int32 containers: for each
+    stage, stack its edge taps, mask them to N bits, ``fold(taps,
+    weights)`` them (one weighted approximate accumulation), sign-extend
+    and apply the stage's rounding shift."""
+    mask = (1 << spec.n_bits) - 1
+    sign = 1 << (spec.n_bits - 1)
+    for st in stages:
+        taps = torch.stack(edge_taps(q, st.axis, st.offsets))
+        s = fold(taps & mask, st.weights)
+        s = (s ^ sign) - sign
+        if st.shift:
+            s = (s + (1 << (st.shift - 1))) >> st.shift
+        q = s
+    return q
+
+
+class Backend:
+    """Abstract execution engine for approximate-arithmetic primitives.
+
+    Array-valued methods take int32 *container* tensors: N-bit unsigned
+    patterns (or, for :meth:`filter_chain`, signed values)."""
+
+    name = "abstract"
+
+    def available(self) -> bool:
+        return True
+
+    def preferred_strategy(self, spec: AdderSpec) -> str:
+        """What ``strategy="auto"`` resolves to: the fused forms."""
+        return "fused"
+
+    def add(self, a, b, spec: AdderSpec, *, strategy: str = "reference"):
+        """Elementwise approximate add reduced mod 2^N (int32 container)."""
+        raise NotImplementedError
+
+    def accumulate(self, terms, spec: AdderSpec, *, weights=None,
+                   strategy: str = "reference"):
+        """Weighted K-term fold through the approximate adder, mod 2^N,
+        in one dispatch; ``weights`` are K static ints applied as exact
+        multiplies before the K-1 approximate adds."""
+        raise NotImplementedError
+
+    def filter_chain(self, q, spec: AdderSpec, stages, *,
+                     strategy: str = "reference"):
+        """Chained separable-filter passes on SIGNED int32 containers;
+        by default one :meth:`accumulate` dispatch per stage."""
+        _fast(strategy, "filter_chain")
+        return run_stages(q, spec, stages,
+                          lambda taps, ws: self.accumulate(
+                              taps, spec, weights=ws, strategy=strategy))
+
+    def __repr__(self):  # pragma: no cover - cosmetic
+        return f"<ax backend {self.name!r}>"
+
+
+class TorchBackend(Backend):
+    """The kernels' plain versions, eager, on any device."""
+
+    name = "torch"
+
+    def add(self, a, b, spec, *, strategy="reference"):
+        from repro_torch.kernels.approx_add import approx_add_plain
+        return approx_add_plain(a, b, spec, _fast(strategy, "add"))
+
+    def accumulate(self, terms, spec, *, weights=None, strategy="reference"):
+        from repro_torch.kernels.accumulate import accumulate_plain
+        return accumulate_plain(terms, spec, weights,
+                                _fast(strategy, "accumulate"))
+
+
+class CudaBackend(Backend):
+    """The hand-written CUDA kernels; CUDA tensors only."""
+
+    name = "cuda"
+
+    def available(self) -> bool:
+        return torch.cuda.is_available()
+
+    @staticmethod
+    def _require_cuda(what: str, *tensors) -> None:
+        for t in tensors:
+            if t.device.type != "cuda":
+                raise ValueError(
+                    f"the 'cuda' backend's {what} takes CUDA tensors; got "
+                    f"one on {t.device} (use backend='torch' for the CPU)")
+
+    def add(self, a, b, spec, *, strategy="reference"):
+        from repro_torch.kernels.approx_add import approx_add
+        fast = _fast(strategy, "add")
+        self._require_cuda("add", a, b)
+        return approx_add(a.contiguous(), b.contiguous(), spec, fast=fast)
+
+    def accumulate(self, terms, spec, *, weights=None, strategy="reference"):
+        from repro_torch.kernels.accumulate import accumulate
+        fast = _fast(strategy, "accumulate")
+        self._require_cuda("accumulate", terms)
+        return accumulate(terms.contiguous(), spec, weights=weights,
+                          fast=fast)
+
+    def filter_chain(self, q, spec, stages, *, strategy="reference"):
+        from repro_torch.kernels.conv_chain import filter_chain
+        fast = _fast(strategy, "filter_chain")
+        self._require_cuda("filter_chain", q)
+        return filter_chain(q.contiguous(), spec, tuple(stages), fast=fast)
+
+
+# --------------------------------------------------------------- registry --
+
+_BACKENDS: Dict[str, Backend] = {}
+
+#: The backend ``backend=None`` resolves to: the kernels, on the card.
+DEFAULT_BACKEND = "cuda"
+
+
+def register_backend(backend: Backend) -> Backend:
+    """Register a backend instance under ``backend.name``."""
+    if backend.name in _BACKENDS:
+        raise ValueError(f"backend {backend.name!r} already registered")
+    _BACKENDS[backend.name] = backend
+    return backend
+
+
+def get_backend(backend: Union[str, Backend, None] = None) -> Backend:
+    """Resolve a backend by name; ``None`` is :data:`DEFAULT_BACKEND`."""
+    if backend is None:
+        backend = DEFAULT_BACKEND
+    if isinstance(backend, Backend):
+        return backend
+    try:
+        return _BACKENDS[backend]
+    except KeyError:
+        raise ValueError(
+            f"unknown backend {backend!r}; registered: "
+            f"{sorted(_BACKENDS)}") from None
+
+
+def available_backends() -> Dict[str, bool]:
+    """name -> availability on this host."""
+    return {name: be.available() for name, be in sorted(_BACKENDS.items())}
+
+
+register_backend(TorchBackend())
+register_backend(CudaBackend())

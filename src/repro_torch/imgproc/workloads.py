@@ -1,0 +1,137 @@
+"""Workload registry: named image-processing tasks over the port's
+engines (the port of ``repro.imgproc.workloads``).
+
+A workload maps a batch of uint8 images to processed uint8 images (a host
+array) for a given adder kind/backend/device, paired with the ideal
+reference output the corpus scores against.  Two sources register here:
+
+- every operator in :mod:`repro_torch.imgproc.ops`, run once on the
+  whole batch, and
+- every stock pipeline in :data:`repro_torch.imgproc.plan.PIPELINES`.
+
+Binary operators pair each image with the next one in the batch
+(``roll(imgs, 1)``).  The reference's ``conv3x3`` (MAC engine) and
+``fft_reconstruct`` (butterfly) workloads are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Tuple
+
+import numpy as np
+
+from repro_torch.imgproc import ops as ops_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class Workload:
+    """One registered task.
+
+    Attributes:
+      name: registry key.
+      run: ``(imgs, kind, backend, fast, strategy, device, **kw) -> uint8
+        batch`` (host array).
+      reference: ``(imgs, **kw) -> uint8 batch`` (ideal float path).
+    """
+
+    name: str
+    run: Callable
+    reference: Callable
+
+
+WORKLOADS: Dict[str, Workload] = {}
+
+
+def register_workload(workload: Workload) -> Workload:
+    if workload.name in WORKLOADS:
+        raise ValueError(f"workload {workload.name!r} already registered")
+    WORKLOADS[workload.name] = workload
+    return workload
+
+
+def get_workload(name: str) -> Workload:
+    try:
+        return WORKLOADS[name]
+    except KeyError:
+        raise KeyError(f"unknown workload {name!r}; registered: "
+                       f"{sorted(WORKLOADS)}") from None
+
+
+def workload_names() -> Tuple[str, ...]:
+    return tuple(sorted(WORKLOADS))
+
+
+# ------------------------------------------------- operator workloads --
+
+def _pair(imgs):
+    """Second operand for binary operators: each image with the next."""
+    return np.roll(np.asarray(imgs), 1, axis=0)
+
+
+def _operator_workload(op: ops_lib.ImageOp) -> Workload:
+    def run(imgs, kind="haloc_axa", backend=None, fast=False,
+            strategy=None, device=None, **kw):
+        ax = ops_lib.make_image_engine(kind, backend=backend, fast=fast,
+                                       strategy=strategy, device=device)
+        imgs = np.asarray(imgs)
+        if op.n_inputs == 2:
+            out = op.fn(imgs, _pair(imgs), ax, **kw)
+        else:
+            out = op.fn(imgs, ax, **kw)
+        return out.cpu().numpy()
+
+    def reference(imgs, **kw):
+        imgs = np.asarray(imgs)
+        if op.n_inputs == 2:
+            return op.reference(imgs, _pair(imgs), **kw)
+        return op.reference(imgs, **kw)
+
+    return Workload(name=op.name, run=run, reference=reference)
+
+
+for _op in ops_lib.OPERATORS.values():
+    register_workload(_operator_workload(_op))
+
+
+# ------------------------------------------------ pipeline workloads --
+
+def _pipeline_workload(name: str, stages) -> Workload:
+    def _reject_kw(kw):
+        # Pipeline options belong to their stage spec; a flat kwarg can't
+        # name its stage, so dropping it silently would skew the cell.
+        if kw:
+            raise ValueError(
+                f"pipeline workload {name!r} takes no per-call kwargs "
+                f"(got {sorted(kw)}); bake options into the stage "
+                f"specs of repro_torch.imgproc.plan.PIPELINES")
+
+    def run(imgs, kind="haloc_axa", backend=None, fast=False,
+            strategy=None, device=None, requant="stage", **kw):
+        from repro_torch.imgproc.plan import run_pipeline
+        _reject_kw(kw)
+        return run_pipeline(stages, imgs, kind=kind, backend=backend,
+                            fast=fast, strategy=strategy, requant=requant,
+                            device=device)
+
+    def reference(imgs, requant="stage", **kw):
+        # requant is an execution knob: both modes score against the
+        # SAME golden.
+        del requant
+        _reject_kw(kw)
+        x = np.asarray(imgs)
+        for st in stages:
+            op_name, okw = (st, {}) if isinstance(st, str) else st
+            x = ops_lib.get_operator(op_name).reference(x, **okw)
+        return x
+
+    return Workload(name=name, run=run, reference=reference)
+
+
+def _register_pipelines():
+    from repro_torch.imgproc.plan import PIPELINES
+    for name, stages in PIPELINES.items():
+        register_workload(_pipeline_workload(name, stages))
+
+
+_register_pipelines()

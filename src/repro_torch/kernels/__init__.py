@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version (the counterparts of the reference's Pallas kernels):
+
+- :mod:`~repro_torch.kernels.approx_add`  <- ``approx_add_pallas``
+- :mod:`~repro_torch.kernels.accumulate`  <- ``accumulate_pallas``
+- :mod:`~repro_torch.kernels.conv_chain`  <- ``filter_chain_pallas``
+
+Sources live in ``repro_torch/csrc``; :mod:`~repro_torch.kernels._build`
+compiles them with ``nvcc`` for ``sm_90a`` on first use.  Nothing here
+builds or imports a compiler when the module is imported.
+"""

@@ -1,0 +1,170 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled on first use into its own shared
+library with a plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -D... -o <build>/lib<name>-<hash>.so <name>.cu
+
+and loaded with ``ctypes``.  ``<hash>`` covers the source, the shared
+header and the flags, so an edited source is rebuilt and a stale library
+is never loaded.  :func:`build_all` starts one ``nvcc`` per source at
+once.
+
+The ``-D`` flags carry the two tables the kernels and their wrappers
+share, so each is stated once, here: the adder kinds' ids
+(:data:`DEVICE_KINDS`, the cases of ``approx_add`` in ``adders.cuh``)
+and the sizes of the parameter structs (:data:`MAX_TERMS`,
+:data:`MAX_STAGES`, :data:`MAX_TAPS`).
+
+``<build>`` is ``$REPRO_TORCH_BUILD_DIR`` when that is set, else
+``build/repro_torch/`` at the root of the source checkout the package
+lies in (listed in ``.gitignore``); an installed copy of the package
+needs ``REPRO_TORCH_BUILD_DIR``.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises when that is not 0, so a refused launch (too many
+threads, too much shared memory) is never silent.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Iterable, Tuple
+
+PACKAGE = pathlib.Path(__file__).resolve().parent.parent
+CSRC = PACKAGE / "csrc"
+SOURCES = ("approx_add", "accumulate", "conv_chain")
+HEADERS = ("adders.cuh",)
+
+#: Kind -> id of its device function in ``csrc/adders.cuh``.
+DEVICE_KINDS = {
+    "accurate": 0, "loa": 1, "loawa": 2, "oloca": 3, "herloa": 4,
+    "m_herloa": 5, "haloc_axa": 6, "eta": 7,
+}
+#: Most terms one accumulate launch folds (its struct's weight array).
+MAX_TERMS = 16
+#: Most stages of one filter chain, and most taps of one stage.
+MAX_STAGES, MAX_TAPS = 4, 9
+
+DEFINES = tuple(f"-DKIND_{kind.upper()}={kid}"
+                for kind, kid in DEVICE_KINDS.items()) + (
+    f"-DMAX_TERMS={MAX_TERMS}", f"-DMAX_STAGES={MAX_STAGES}",
+    f"-DMAX_TAPS={MAX_TAPS}")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v") + DEFINES
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+#: nvcc's diagnostics (``-Xptxas -v``: registers, shared memory, spills)
+#: from the builds of this process, by source name.
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        cand = pathlib.Path("/usr/local/cuda/bin/nvcc")
+        if cand.exists():
+            path = str(cand)
+    if path is None:
+        raise RuntimeError(
+            "nvcc not found (on PATH or under /usr/local/cuda/bin): the "
+            "CUDA kernels of repro_torch are built from source on first use")
+    return path
+
+
+def build_dir() -> pathlib.Path:
+    """Where the libraries go: ``$REPRO_TORCH_BUILD_DIR``, else
+    ``build/repro_torch`` in the source checkout holding the package."""
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return pathlib.Path(env)
+    root = PACKAGE.parent.parent
+    if PACKAGE.parent.name != "src" or not (root / "pyproject.toml").is_file():
+        raise RuntimeError(
+            f"repro_torch at {PACKAGE} is not in the src/ of a source "
+            f"checkout; set REPRO_TORCH_BUILD_DIR to a directory for its "
+            f"built CUDA kernels")
+    return root / "build" / "repro_torch"
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    h = hashlib.sha256()
+    for part in (f"{name}.cu",) + HEADERS:
+        h.update((CSRC / part).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library exists; returns
+    (target, tmp, process) or None."""
+    target = _lib_path(name)
+    if target.exists():
+        return None
+    target.parent.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return target, tmp, proc
+
+
+def _finish(name: str, started) -> None:
+    target, tmp, proc = started
+    out, _ = proc.communicate()
+    BUILD_LOGS[name] = out
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{out}")
+    # Atomic publish: a concurrent builder of the same hash writes the
+    # same bytes, so whichever rename lands last is correct.
+    os.replace(tmp, target)
+
+
+def build_all(names: Iterable[str] = SOURCES) -> float:
+    """Compile every source that has no current library, one ``nvcc``
+    each, all started together; returns the wall seconds taken."""
+    t0 = time.perf_counter()
+    started = {n: _start(n) for n in names}
+    for n, st in started.items():
+        if st is not None:
+            _finish(n, st)
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            st = _start(name)
+            if st is not None:
+                _finish(name, st)
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            _LIBS[name] = lib
+        return lib
+
+
+def bind(name: str, symbol: str, argtypes: Tuple) -> ctypes._CFuncPtr:
+    """``symbol`` of ``csrc/<name>.cu`` with its argument types set (every
+    pointer and the stream as ``c_void_p``) and an int return."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
