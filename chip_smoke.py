@@ -29,6 +29,28 @@ Phases (any failure exits non-zero before the result line):
    then the megapixel chain's MPix/s, and a ``torch.profiler`` breakdown
    of the stage-mode chain by kernel with the device's idle share.
 
+The Fig-5 FFT and lut slice adds to phases 3-5:
+
+3b. ``butterfly`` against its plain version at every stage shape of the
+   512 x 512 reconstruction (block 16 and whole image), full-range and
+   +-2^24 values, every kind, both forms, forward and inverse, at N=32
+   and N=16; ``lut_add`` against its plain version and the ``approx_add``
+   kernel on 4096 x 4096 at n16m8k4 and n32m10k5, and exhaustively at
+   N=8 for every valid (m, k);
+4b. the slice's own path, with the counts set to 0 just before and read
+   just after: ``reconstruct(synthetic_image(512), paper_spec(kind))``
+   for the seven Table-1 kinds (block 16), once at block 0 and once at
+   N=16 (the six-add route), ``run_corpus(include_fft=True,
+   workloads=("fft_reconstruct",))`` on the 4 x 1024 x 1024 batch, and
+   ``strategy="lut"`` adds through ``engine.add_signed`` (N=16) and
+   ``engine.add`` (N=32).  Every output must equal the port's CPU path;
+   the paper's quality ordering must hold on ``synthetic_image(128)``,
+   reconstructed on the card (the size ``tests/test_image.py`` asserts
+   it at);
+5b. both kernels' times and bounds, ``lut_add`` beside ``approx_add`` on
+   the same inputs, and the wall time and profile of ``reconstruct`` and
+   of the ``fft_reconstruct`` workload.
+
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 run from a directory without ``src/repro_torch``, it exits non-zero and
@@ -59,9 +81,20 @@ OPS_PER_ADD = 17
 #: (multiply and mask; a weight of 1 passes the term through); a
 #: stage's sign extension; its rounding shift (when it has one).
 OPS_PER_MASK, OPS_PER_SCALE, OPS_SIGN_EXTEND, OPS_ROUND_SHIFT = 1, 2, 2, 2
+#: One Q1.14 twiddle product (a 32 x 32 -> 64 multiply-add of the
+#: rounding constant, then the 64-bit shift to its low word); one exact
+#: negate; one inverse-stage halving (add, shift).
+OPS_PER_Q14_PRODUCT, OPS_PER_NEGATE, OPS_PER_HALVE = 2, 1, 2
+#: One lut add: the two low masks, the index shift and or, the two high
+#: shifts, the high add and its shift, the entry add and the N-bit mask
+#: (the gather itself is counted in bytes: the table is read once).
+OPS_PER_LUT_ADD = 10
 
 FULL_SIZE = 1024
 N_IMAGES = 4
+#: The paper's Fig-5 image size, and the size ``tests/test_image.py``
+#: asserts the quality ordering at.
+FFT_SIZE, ORDERING_SIZE = 512, 128
 
 
 def fail(msg):
@@ -88,6 +121,29 @@ def nvidia_smi(fields):
 
 # ------------------------------------------------------------- phase 3 --
 
+def compare_into(torch, errs, name, got, want, what):
+    """Fail unless ``got`` equals ``want``; keep the largest |difference|
+    of ``name`` in ``errs``."""
+    d = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+        if got.numel() and got.shape == want.shape else 0
+    errs[name] = max(errs[name], d)
+    check(got.shape == want.shape and torch.equal(got, want),
+          f"{name} kernel != plain version on {what} (max |d| {d})")
+
+
+def containers(torch, np, rng, shape, n_bits, dev):
+    """Random N-bit patterns in int32 containers on ``dev``."""
+    u = rng.integers(0, 1 << n_bits, shape, dtype=np.uint64)
+    return torch.as_tensor(u.astype(np.uint32).view(np.int32), device=dev)
+
+
+def spec_at(kind, n_bits):
+    """The kind at n16m8k4 or the paper's n32m10k5."""
+    from repro_torch.core import specs
+    m, k = (8, 4) if n_bits == 16 else (10, 5)
+    return specs.AdderSpec(kind, n_bits, m, k)
+
+
 def check_kernels(torch, np, dev, errs):
     """Every kernel against its plain version on the card, exact."""
     from repro_torch.ax import FilterStage
@@ -99,20 +155,12 @@ def check_kernels(torch, np, dev, errs):
     rng = np.random.default_rng(0)
 
     def rand_containers(shape, n_bits):
-        u = rng.integers(0, 1 << n_bits, shape, dtype=np.uint64)
-        return torch.as_tensor(u.astype(np.uint32).view(np.int32),
-                               device=dev)
+        return containers(torch, np, rng, shape, n_bits, dev)
 
     def compare(name, got, want, what):
-        d = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
-            if got.numel() else 0
-        errs[name] = max(errs[name], d)
-        check(got.shape == want.shape and torch.equal(got, want),
-              f"{name} kernel != plain version on {what} (max |d| {d})")
+        compare_into(torch, errs, name, got, want, what)
 
-    def spec(kind, n_bits):
-        m, k = (8, 4) if n_bits == 16 else (10, 5)
-        return specs.AdderSpec(kind, n_bits, m, k)
+    spec = spec_at
 
     t0 = time.perf_counter()
     kinds = specs.ALL_KINDS
@@ -212,6 +260,102 @@ def check_kernels(torch, np, dev, errs):
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
 
 
+def stage_planes(torch, np, rng, rows, half, lim, dev):
+    """A stage's four (rows, half) input planes as the FFT hands them to
+    the butterfly: the even and odd halves, strided views of two
+    (rows, 2 * half) buffers; full-range int32 values unless ``lim``."""
+    lo, hi = (-(1 << 31), 1 << 31) if lim is None else (-lim, lim)
+    x_re, x_im = (torch.as_tensor(rng.integers(lo, hi, (rows, 2 * half))
+                                  .astype(np.int32), device=dev)
+                  for _ in range(2))
+    return (x_re[:, :half], x_im[:, :half], x_re[:, half:], x_im[:, half:])
+
+
+def check_fft_lut_kernels(torch, np, dev, errs):
+    """butterfly and lut_add against their plain versions on the card,
+    exact (and lut_add against the approx_add kernel too)."""
+    from repro_torch.core import specs
+    from repro_torch.image.fft import stage_twiddles
+    from repro_torch.kernels import approx_add as add_k
+    from repro_torch.kernels import butterfly as bf_k
+    from repro_torch.kernels import lut_add as lut_k
+
+    rng = np.random.default_rng(3)
+    kinds = specs.ALL_KINDS
+    t0 = time.perf_counter()
+
+    def stage(planes, half, s, what):
+        for inverse in (False, True):
+            w_re, w_im = stage_twiddles(half, inverse, dev)
+            for fast in (False, True):
+                got = bf_k.butterfly(*planes, w_re, w_im, s,
+                                     inverse=inverse, fast=fast)
+                want = bf_k.butterfly_plain(*planes, w_re, w_im, s,
+                                            inverse=inverse, fast=fast)
+                for g, w in zip(got, want):
+                    compare_into(torch, errs, "butterfly", g, w,
+                                 f"{s.short_name} {what} half={half} "
+                                 f"inverse={inverse} fast={fast}")
+
+    # Every stage of the 512 x 512 reconstruction moves 131072 pairs:
+    # halves 1..8 at block 16, 1..256 for the whole image.
+    pairs = FFT_SIZE * FFT_SIZE // 2
+    halves = tuple(1 << i for i in range(9))
+    for lim, what in ((None, "full-range"), (1 << 24, "+-2^24")):
+        for half in halves:
+            planes = stage_planes(torch, np, rng, pairs // half, half, lim,
+                                  dev)
+            for kind in kinds:
+                stage(planes, half, spec_at(kind, 32), what)
+    for half in (7, 1, 8):
+        planes = stage_planes(torch, np, rng, 1001, half, None, dev)
+        for kind in kinds:
+            stage(planes, half, spec_at(kind, 32), "ragged 1001 rows")
+            stage(planes, half, spec_at(kind, 16), "ragged 1001 rows")
+    for half in (1, 8):
+        planes = stage_planes(torch, np, rng, pairs // half, half, None, dev)
+        for kind in kinds:
+            stage(planes, half, spec_at(kind, 16), "N=16 residues")
+    log(f"  butterfly: {len(kinds)} kinds x 2 forms x forward/inverse at "
+        f"the {len(halves)} stage shapes (131072 pairs, strided halves), "
+        f"full-range and +-2^24 at N=32, N=16 residues, 1001 ragged rows: "
+        f"equal")
+
+    def lut_case(a, b, s, what):
+        got = lut_k.lut_add(a, b, s)
+        compare_into(torch, errs, "lut_add", got, lut_k.lut_add_plain(a, b, s),
+                     f"{s.short_name} {what}")
+        compare_into(torch, errs, "lut_add", got,
+                     add_k.approx_add(a, b, s, fast=False),
+                     f"{s.short_name} {what} (against approx_add)")
+
+    approx = [k for k in kinds if k != "accurate"]
+    for n_bits in (16, 32):
+        a = containers(torch, np, rng, (4096, 4096), n_bits, dev)
+        b = containers(torch, np, rng, (4096, 4096), n_bits, dev)
+        for kind in approx:
+            lut_case(a, b, spec_at(kind, n_bits), "4096x4096")
+    a8, b8 = torch.meshgrid(torch.arange(256, device=dev, dtype=torch.int32),
+                            torch.arange(256, device=dev, dtype=torch.int32),
+                            indexing="ij")
+    a8, b8 = a8.contiguous(), b8.contiguous()
+    cells = 0
+    for kind in approx:
+        for m in range(1, 9):
+            for k in range(0, m + 1):
+                try:
+                    s = specs.AdderSpec(kind, 8, m, k)
+                except ValueError:
+                    continue
+                lut_case(a8, b8, s, "exhaustive")
+                cells += 1
+    torch.cuda.synchronize()
+    log(f"  lut_add: {len(approx)} kinds at n16m8k4 and n32m10k5 on "
+        f"4096x4096, {cells} (kind, m, k) cells exhaustive at N=8: equal to "
+        f"the plain version and to the approx_add kernel")
+    log(f"  phase 3b took {time.perf_counter() - t0:.1f} s")
+
+
 # ------------------------------------------------------------- phase 4 --
 
 def run_main_path(torch, np, batch, backend=None, device=None, corpus=True):
@@ -250,12 +394,38 @@ def run_main_path(torch, np, batch, backend=None, device=None, corpus=True):
     return outs, rows
 
 
+#: The kernels each path must launch: the 16-bit image path's, and the
+#: Fig-5 FFT and lut path's (approx_add carries its N=16 six-add route).
+MAIN_PATH_KERNELS = ("approx_add", "accumulate", "filter_chain")
+FFT_PATH_KERNELS = ("butterfly", "lut_add", "approx_add")
+
+
 def counters():
     from repro_torch.kernels import accumulate as acc_k
     from repro_torch.kernels import approx_add as add_k
+    from repro_torch.kernels import butterfly as bf_k
     from repro_torch.kernels import conv_chain as chain_k
+    from repro_torch.kernels import lut_add as lut_k
     return {"approx_add": add_k.approx_add, "accumulate": acc_k.accumulate,
-            "filter_chain": chain_k.filter_chain}
+            "filter_chain": chain_k.filter_chain, "lut_add": lut_k.lut_add,
+            "butterfly": bf_k.butterfly}
+
+
+def run_counted(torch, counts, kernels, fn, what):
+    """Set every count to 0, run ``fn``, read the counts; fail unless each
+    of ``kernels`` launched.  Returns (fn's result, the counts)."""
+    for f in counts.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {name: f.launches for name, f in counts.items()}
+    log(f"  {what} on the card: {time.perf_counter() - t0:.1f} s, "
+        f"launches {launches}")
+    for name in kernels:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the {what}")
+    return out, launches
 
 
 def check_outputs(torch, np, outs, cpu_outs, rows, size):
@@ -301,6 +471,76 @@ def check_corpus(np, head):
         check(same, f"run_corpus on the card != CPU path: {g} vs {c}")
 
 
+def run_fft_lut_path(torch, np, img, batch, backend=None, device=None,
+                     corpus=True, fft_images=None):
+    """The Fig-5 and lut slice through the entry points a user calls;
+    returns the outputs and the corpus rows (None without ``corpus``).
+    The fft_reconstruct workload runs on the first ``fft_images`` images
+    of ``batch`` (all by default)."""
+    from repro_torch.ax import make_engine
+    from repro_torch.core.specs import TABLE1_KINDS, AdderSpec, paper_spec
+    from repro_torch.image.pipeline import reconstruct
+    from repro_torch.imgproc import get_workload, run_corpus
+    from repro_torch.numerics.fixed_point import FixedPointFormat
+
+    where = dict(backend=backend, device=device)
+    outs = {}
+    for kind in TABLE1_KINDS:
+        outs[("reconstruct", kind, 16)] = reconstruct(img, paper_spec(kind),
+                                                      block=16, **where)
+    outs[("reconstruct", "haloc_axa", 0)] = reconstruct(
+        img, paper_spec("haloc_axa"), block=0, **where)
+    outs[("reconstruct n16m8k4", "haloc_axa", 16)] = reconstruct(
+        img, AdderSpec("haloc_axa", 16, 8, 4), frac_bits=0, **where)
+    outs[("fft_reconstruct", "haloc_axa")] = torch.as_tensor(
+        get_workload("fft_reconstruct").run(batch[:fft_images],
+                                            kind="haloc_axa", **where))
+    eng16 = make_engine("haloc_axa", fmt=FixedPointFormat(16, 6),
+                        strategy="lut", **where)
+    x = eng16.tensor(batch).to(torch.int32)
+    pair = torch.roll(x, 1, dims=0)
+    outs[("lut add_signed n16",)] = eng16.add_signed(x << 6, pair << 6)
+    eng32 = make_engine(paper_spec("haloc_axa"), strategy="lut", **where)
+    rng = np.random.default_rng(5)
+    a32, b32 = (rng.integers(0, 1 << 32, batch.shape, dtype=np.uint64)
+                .astype(np.uint32).view(np.int32) for _ in range(2))
+    outs[("lut add n32",)] = eng32.add(a32, b32)
+    rows = run_corpus(batch=batch, include_fft=True,
+                      workloads=("fft_reconstruct",), **where) \
+        if corpus else None
+    return outs, rows
+
+
+def check_fft_outputs(torch, np, outs, cpu_outs):
+    """The card's outputs equal the CPU path's (the fft_reconstruct batch
+    on the image the CPU path ran: image 0)."""
+    for key, want in cpu_outs.items():
+        got = outs[key]
+        check(got.device.type == "cuda" or key[0] == "fft_reconstruct",
+              f"{key} did not run on the card")
+        if key[0] == "fft_reconstruct":
+            got = got[:want.shape[0]]
+        check(tuple(got.shape) == tuple(want.shape)
+              and torch.equal(got.cpu(), want),
+              f"{key}: the card's output differs from the CPU path")
+
+
+def check_ordering(np, img, recs, what):
+    """PSNR/SSIM per kind; fail unless the paper's ordering holds (Fig 5/6,
+    as ``tests/test_image.py`` asserts it)."""
+    from repro_torch.image.quality import psnr, ssim
+    s = {}
+    for kind, rec in recs.items():
+        s[kind] = ssim(img, rec)
+        log(f"    {kind:10s} PSNR {psnr(img, rec):8.4f} dB  SSIM {s[kind]:.6f}")
+    held = (s["herloa"] > s["haloc_axa"] > s["loa"]
+            and s["m_herloa"] > s["haloc_axa"] and s["loa"] > s["loawa"]
+            and abs(s["loa"] - s["oloca"]) < 0.08 and s["haloc_axa"] > 0.7)
+    log(f"    paper ordering HERLOA ~ M-HERLOA > HALOC-AxA > LOA ~ OLOCA > "
+        f"LOAWA {'holds' if held else 'does NOT hold'} ({what})")
+    return held
+
+
 # ------------------------------------------------------------- phase 5 --
 
 def fold_ops(weights):
@@ -334,20 +574,42 @@ def time_launches(torch, fns, reps):
     return ts[len(ts) // 2]
 
 
-def measure(torch, np, dev, launches, errs):
-    from repro_torch.ax import FilterStage
-    from repro_torch.core.specs import AdderSpec
-    from repro_torch.kernels import accumulate as acc_k
-    from repro_torch.kernels import approx_add as add_k
-    from repro_torch.kernels import conv_chain as chain_k
+def butterfly_ops(inverse):
+    """Least operations of one butterfly pair: six adds, four Q1.14
+    products, three negates, and four halvings when inverse."""
+    return (6 * OPS_PER_ADD + 4 * OPS_PER_Q14_PRODUCT + 3 * OPS_PER_NEGATE
+            + (4 * OPS_PER_HALVE if inverse else 0))
 
+
+def int32_rate(torch, dev):
+    """The card's int32 operations per second: SMs x lanes x max clock."""
     props = torch.cuda.get_device_properties(dev)
     clock = nvidia_smi("clocks.max.sm").split()[0]
-    int32_ops_per_s = props.multi_processor_count * INT32_LANES_PER_SM \
+    rate = props.multi_processor_count * INT32_LANES_PER_SM \
         * float(clock) * 1e6
     log(f"  int32 rate for the bound: {props.multi_processor_count} SMs x "
-        f"{INT32_LANES_PER_SM} lanes x {clock} MHz = "
-        f"{int32_ops_per_s / 1e12:.2f} Tops/s")
+        f"{INT32_LANES_PER_SM} lanes x {clock} MHz = {rate / 1e12:.2f} "
+        f"Tops/s")
+    return rate
+
+
+def bound(w, int32_ops_per_s):
+    """(bound ms, bytes ms, operations ms) of one timed function."""
+    bytes_ms = w["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = w["ops"] / int32_ops_per_s * 1e3
+    return max(bytes_ms, ops_ms), bytes_ms, ops_ms
+
+
+def measure(torch, np, dev, launches, errs):
+    from repro_torch.ax import FilterStage
+    from repro_torch.core.specs import AdderSpec, paper_spec
+    from repro_torch.kernels import accumulate as acc_k
+    from repro_torch.kernels import approx_add as add_k
+    from repro_torch.kernels import butterfly as bf_k
+    from repro_torch.kernels import conv_chain as chain_k
+    from repro_torch.kernels import lut_add as lut_k
+
+    int32_ops_per_s = int32_rate(torch, dev)
     rng = np.random.default_rng(1)
     spec = AdderSpec("haloc_axa", 16, 8, 4)
     shape = (N_IMAGES, FULL_SIZE, FULL_SIZE)
@@ -395,18 +657,28 @@ def measure(torch, np, dev, launches, errs):
             plain=[lambda q=q: chain_k.filter_chain_plain(q, spec, gauss)
                    for q in planes],
             bytes=2 * 4 * n, ops=chain_ops(gauss) * n),
+        "lut_add": dict(
+            source="src/repro_torch/csrc/lut_add.cu",
+            replaces="src/repro/kernels/lut_add.py:39",
+            what=f"haloc_axa n16m8k4 lut, int32 pair {shape}",
+            kernel=[lambda a=a, b=b: lut_k.lut_add(a, b, spec)
+                    for a, b in adds],
+            plain=[lambda a=a, b=b: lut_k.lut_add_plain(a, b, spec)
+                   for a, b in adds],
+            bytes=3 * 4 * n + 2 * (1 << 16), ops=OPS_PER_LUT_ADD * n),
     }
+    work["butterfly"] = butterfly_work(torch, np, rng, dev, bf_k,
+                                       FFT_SIZE * FFT_SIZE // 2, 8)
     entries = []
     for name, w in work.items():
         ms = time_launches(torch, w["kernel"], 40)
         plain_ms = time_launches(torch, w["plain"], 20)
-        bytes_ms = w["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = w["ops"] / int32_ops_per_s * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
+        bound_ms, bytes_ms, ops_ms = bound(w, int32_ops_per_s)
+        units = w.get("units", n)
         log(f"  {name:12s} {w['what']}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes "
-            f"{bytes_ms:.4f} ms, ops {ops_ms:.4f} ms at {w['ops'] // n} "
-            f"per element) = "
+            f"{bytes_ms:.4f} ms, ops {ops_ms:.4f} ms at {w['ops'] // units} "
+            f"per {w.get('unit', 'element')}) = "
             f"{bound_ms / ms * 100:.1f}% of bound")
         entries.append({
             "name": name, "route": "cuda", "source": w["source"],
@@ -415,7 +687,76 @@ def measure(torch, np, dev, launches, errs):
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "shape": w["what"]})
+    # lut_add beside approx_add at the paper's N=32 (the 2 MiB m=10
+    # table), and the butterfly at the other stage shapes of the path.
+    ms_of = {e["name"]: e["ms"] for e in entries}
+    spec32 = paper_spec("haloc_axa")
+    adds32 = [tuple(torch.as_tensor(
+        rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+        .view(np.int32), device=dev) for _ in range(2))
+        for _ in range(copies)]
+    lut_ms = time_launches(torch, [lambda a=a, b=b: lut_k.lut_add(a, b,
+                                                                  spec32)
+                                   for a, b in adds32], 40)
+    add_ms = time_launches(torch, [lambda a=a, b=b: add_k.approx_add(
+        a, b, spec32) for a, b in adds32], 40)
+    add_fast_ms = time_launches(torch, [lambda a=a, b=b: add_k.approx_add(
+        a, b, spec32, fast=True) for a, b in adds32], 40)
+    log(f"  lut_add vs approx_add, haloc_axa n32m10k5, int32 pair {shape}: "
+        f"lut {lut_ms:.4f} ms, approx_add reference {add_ms:.4f} ms, "
+        f"fused {add_fast_ms:.4f} ms (and at n16m8k4 above: lut "
+        f"{ms_of['lut_add']:.4f} ms, approx_add {ms_of['approx_add']:.4f} "
+        f"ms)")
+    for pairs, half, what in ((FFT_SIZE * FFT_SIZE // 2, 1, "512 block 16"),
+                              (FFT_SIZE * FFT_SIZE // 2, 4, "512 block 16"),
+                              (FFT_SIZE * FFT_SIZE // 2, 256, "512 whole"),
+                              (N_IMAGES * FULL_SIZE * FULL_SIZE // 2, 8,
+                               "4 x 1024 x 1024 block 16")):
+        w = butterfly_work(torch, np, rng, dev, bf_k, pairs, half)
+        ms = time_launches(torch, w["kernel"], 40)
+        bound_ms, _, _ = bound(w, int32_ops_per_s)
+        log(f"  butterfly stage {what}, {w['what']}: kernel {ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms = {bound_ms / ms * 100:.1f}% of bound")
     return entries
+
+
+def butterfly_work(torch, np, rng, dev, bf_k, pairs, half):
+    """A forward butterfly stage of ``pairs`` pairs at ``half``, haloc_axa
+    at the paper's spec, fused form (as the cuda backend runs it), on
+    strided halves; enough input sets rotated to pass the 50 MB L2."""
+    from repro_torch.core.specs import paper_spec
+    from repro_torch.image.fft import stage_twiddles
+    spec = paper_spec("haloc_axa")
+    rows = pairs // half
+    copies = max(2, -(-64 * 2 ** 20 // (pairs * 16)))
+    sets = [stage_planes(torch, np, rng, rows, half, 1 << 24, dev)
+            for _ in range(copies)]
+    w_re, w_im = stage_twiddles(half, False, dev)
+    return dict(
+        source="src/repro_torch/csrc/butterfly.cu",
+        replaces="src/repro/kernels/butterfly.py:86",
+        what=f"haloc_axa n32m10k5 fused, forward, ({rows}, {half}) "
+             f"strided halves",
+        kernel=[lambda p=p: bf_k.butterfly(*p, w_re, w_im, spec, fast=True)
+                for p in sets],
+        plain=[lambda p=p: bf_k.butterfly_plain(*p, w_re, w_im, spec,
+                                                fast=True) for p in sets],
+        bytes=8 * 4 * pairs + 2 * 4 * half, ops=butterfly_ops(False) * pairs,
+        units=pairs, unit="pair")
+
+
+def time_wall(torch, fn, reps=10):
+    """Median wall seconds of ``fn()`` followed by a synchronize (host
+    overhead included), after one untimed call."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return sorted(ts)[len(ts) // 2]
 
 
 def time_chain(torch, gbatch):
@@ -426,52 +767,97 @@ def time_chain(torch, gbatch):
     for requant in ("stage", "fused"):
         pipe = compile_pipeline(PIPELINES["pipe_blur_sharpen_down"],
                                 kind="haloc_axa", requant=requant)
-        pipe(gbatch)
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            pipe(gbatch)
-            torch.cuda.synchronize()
-            ts.append(time.perf_counter() - t0)
-        sec = sorted(ts)[len(ts) // 2]
+        sec = time_wall(torch, lambda: pipe(gbatch))
         out[requant] = (sec, gbatch.numel() / sec / 1e6)
     return out
 
 
-def profile_chain(torch, gbatch, wall_s, calls=5):
-    """Device time by kernel for the stage-mode megapixel chain, from
-    ``torch.profiler`` over ``calls`` calls (kernel events only, so no
-    kernel is counted twice through the op that launched it), and the
-    device's idle share against the chain's unprofiled wall time
-    ``wall_s`` (the profiler's own overhead stretches its window)."""
+def profile_calls(torch, fn, wall_s, label, calls=5, top=10):
+    """Device time by kernel over ``calls`` calls of ``fn``, from
+    ``torch.profiler`` (kernel events only, so no kernel is counted twice
+    through the op that launched it), and the device's idle share against
+    the unprofiled wall time ``wall_s`` per call (the profiler's own
+    overhead stretches its window).  Returns {kernel: us per call}, empty
+    when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.imgproc import PIPELINES, compile_pipeline
-    pipe = compile_pipeline(PIPELINES["pipe_blur_sharpen_down"],
-                            kind="haloc_axa")
-    pipe(gbatch)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            pipe(gbatch)
+            fn()
         torch.cuda.synchronize()
     rows = sorted(((ev.self_device_time_total, ev.count, ev.key)
                    for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA
                    and ev.self_device_time_total > 0), reverse=True)
     if not rows:
-        log("  profile: the profiler recorded no device time (not measured)")
-        return
+        log(f"  profile of {label}: the profiler recorded no device time "
+            f"(not measured)")
+        return {}
     busy_us = sum(r[0] for r in rows) / calls
-    log(f"  profile of {calls} stage-mode chain calls: device busy "
+    log(f"  profile of {calls} {label} calls: device busy "
         f"{busy_us:.1f} us per call in {sum(r[1] for r in rows) // calls} "
         f"kernel launches; idle share against the unprofiled "
         f"{wall_s * 1e6:.1f} us per call: {1 - busy_us / (wall_s * 1e6):.3f}")
-    for dev_us, count, key in rows[:10]:
+    for dev_us, count, key in rows[:top]:
         log(f"    {dev_us / calls:9.1f} us/call  {count // calls:3d} "
             f"launches/call  {key[:90]}")
+    return {key: dev_us / calls for dev_us, _, key in rows}
+
+
+def profile_chain(torch, gbatch, wall_s):
+    """The stage-mode megapixel chain's device time by kernel."""
+    from repro_torch.imgproc import PIPELINES, compile_pipeline
+    pipe = compile_pipeline(PIPELINES["pipe_blur_sharpen_down"],
+                            kind="haloc_axa")
+    profile_calls(torch, lambda: pipe(gbatch), wall_s,
+                  "stage-mode chain")
+
+
+def time_fft(torch, np, img, batch, dev):
+    """The butterfly wrapper's wall time per call in a loop, then wall ms
+    per image and the butterfly / glue / idle split of
+    ``reconstruct`` (512 x 512, block 16, image on the card, output left
+    there) and of the ``fft_reconstruct`` workload (4 x 1024 x 1024 host
+    batch in, host batch out), haloc_axa."""
+    from repro_torch.core.specs import paper_spec
+    from repro_torch.image.pipeline import reconstruct
+    from repro_torch.image.fft import stage_twiddles
+    from repro_torch.imgproc import get_workload
+    from repro_torch.kernels import butterfly as bf_k
+    # The wrapper's own cost: a loop of calls at a 512 block-16 stage
+    # shape, whose kernel takes some 7 us, is bound by the host.
+    rng = np.random.default_rng(4)
+    planes = stage_planes(torch, np, rng, FFT_SIZE * FFT_SIZE // 16, 8,
+                          1 << 24, dev)
+    w_re, w_im = stage_twiddles(8, False, dev)
+    spec = paper_spec("haloc_axa")
+    loop = 100
+    sec = time_wall(torch, lambda: [bf_k.butterfly(*planes, w_re, w_im, spec,
+                                                   fast=True)
+                                    for _ in range(loop)], 5)
+    log(f"  butterfly wrapper in a loop of {loop} calls at "
+        f"{tuple(planes[0].shape)}: {sec / loop * 1e6:.1f} us wall per call")
+    gimg = torch.as_tensor(img, device=dev)
+    wl = get_workload("fft_reconstruct")
+    cases = (
+        (f"reconstruct {img.shape[0]}x{img.shape[1]} block 16", 1,
+         lambda: reconstruct(gimg, paper_spec("haloc_axa")), 10),
+        (f"fft_reconstruct workload {tuple(batch.shape)}", batch.shape[0],
+         lambda: wl.run(batch, kind="haloc_axa"), 5))
+    for label, images, fn, reps in cases:
+        sec = time_wall(torch, fn, reps)
+        log(f"  {label}, haloc_axa: {sec * 1e3:.3f} ms per call = "
+            f"{sec * 1e3 / images:.3f} ms per image (wall, median of {reps})")
+        by_kernel = profile_calls(torch, fn, sec, label, calls=3, top=6)
+        if by_kernel:
+            bf = sum(us for k, us in by_kernel.items() if "butterfly" in k)
+            glue = sum(by_kernel.values()) - bf
+            log(f"    split per call: butterfly {bf:.1f} us, glue (every "
+                f"other kernel) {glue:.1f} us, idle "
+                f"{sec * 1e6 - bf - glue:.1f} us of {sec * 1e6:.1f} us")
 
 
 def main():
@@ -499,8 +885,10 @@ def main():
                 log(f"  {name}: {line.strip()}")
 
     log("phase 3: kernels against their plain versions on the card")
-    errs = {"approx_add": 0, "accumulate": 0, "filter_chain": 0}
+    errs = {name: 0 for name in MAIN_PATH_KERNELS + FFT_PATH_KERNELS}
     check_kernels(torch, np, dev, errs)
+    log("phase 3b: butterfly and lut_add against their plain versions")
+    check_fft_lut_kernels(torch, np, dev, errs)
 
     log("phase 4: the slice at full size")
     from repro_torch.imgproc import (PIPELINES, compile_pipeline,
@@ -508,16 +896,9 @@ def main():
     batch = synthetic_batch(N_IMAGES, FULL_SIZE)
     gbatch = torch.as_tensor(batch, device=dev)
     counts = counters()
-    for fn in counts.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    outs, rows = run_main_path(torch, np, gbatch)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counts.items()}
-    log(f"  main path on the card: {time.perf_counter() - t0:.1f} s, "
-        f"launches {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    (outs, rows), launches = run_counted(
+        torch, counts, MAIN_PATH_KERNELS,
+        lambda: run_main_path(torch, np, gbatch), "main path")
     t0 = time.perf_counter()
     cpu_outs, _ = run_main_path(torch, np, torch.as_tensor(batch),
                                 backend="torch", device="cpu",
@@ -541,6 +922,46 @@ def main():
     per_call = {name: fn.launches for name, fn in counts.items()}
     log(f"  launches per stage-mode megapixel chain call: {per_call}")
 
+    log("phase 4b: the Fig-5 FFT and lut path at full size")
+    from repro_torch.core.specs import TABLE1_KINDS, paper_spec
+    from repro_torch.image.pipeline import reconstruct, synthetic_image
+    img = synthetic_image(FFT_SIZE)
+    (f_outs, f_rows), f_launches = run_counted(
+        torch, counts, FFT_PATH_KERNELS,
+        lambda: run_fft_lut_path(torch, np, img, batch), "FFT and lut path")
+    for name in FFT_PATH_KERNELS[:2]:
+        launches[name] = f_launches[name]
+    t0 = time.perf_counter()
+    cpu_f, _ = run_fft_lut_path(torch, np, img, batch, backend="torch",
+                                device="cpu", corpus=False, fft_images=1)
+    log(f"  CPU path: {time.perf_counter() - t0:.1f} s")
+    check_fft_outputs(torch, np, f_outs, cpu_f)
+    log(f"  {len(cpu_f)} outputs equal the CPU path (fft_reconstruct on "
+        f"image 0)")
+    log(f"  reconstruct(synthetic_image({FFT_SIZE}), paper_spec(kind)), "
+        f"block 16, on the card:")
+    check_ordering(np, img, {k: f_outs[("reconstruct", k, 16)].cpu().numpy()
+                             for k in TABLE1_KINDS}, f"{FFT_SIZE} x {FFT_SIZE}")
+    small = synthetic_image(ORDERING_SIZE)
+    recs = {}
+    for kind in TABLE1_KINDS:
+        rec = reconstruct(small, paper_spec(kind))
+        check(torch.equal(rec.cpu(), reconstruct(small, paper_spec(kind),
+                                                 backend="torch",
+                                                 device="cpu")),
+              f"reconstruct {kind} at {ORDERING_SIZE}: the card's output "
+              f"differs from the CPU path")
+        recs[kind] = rec.cpu().numpy()
+    log(f"  reconstruct(synthetic_image({ORDERING_SIZE}), paper_spec(kind)),"
+        f" block 16, on the card (equal to the CPU path):")
+    check(check_ordering(np, small, recs,
+                         f"{ORDERING_SIZE} x {ORDERING_SIZE}"),
+          f"the paper's quality ordering does not hold at {ORDERING_SIZE}")
+    log("  run_corpus(include_fft=True, workloads=('fft_reconstruct',)) on "
+        "synthetic_batch(4, 1024), PSNR dB / SSIM:")
+    for line in format_table(f_rows).splitlines():
+        log("    " + line)
+
     log("phase 5: times (CUDA events, median)")
     entries = measure(torch, np, dev, launches, errs)
     chain = time_chain(torch, gbatch)
@@ -549,6 +970,7 @@ def main():
             f"haloc_axa, requant={requant}: {sec * 1e3:.3f} ms per "
             f"{tuple(gbatch.shape)} batch = {mpix:.1f} MPix/s")
     profile_chain(torch, gbatch, chain["stage"][0])
+    time_fft(torch, np, img, batch, dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

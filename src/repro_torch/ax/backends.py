@@ -12,10 +12,16 @@ A backend is a named execution target for the registered adders:
                counterpart of ``"pallas_tpu"``, and the default.
 
 Orthogonal to the backend, every add-shaped primitive takes an execution
-*strategy*: ``"reference"`` (the registered bit-level oracle) or
-``"fused"`` (the registered fused form, bit-identical).  ``"lut"`` is
-accepted by name and raises ``NotImplementedError`` everywhere until the
-compiled tables (``ax/lut.py``) are ported.
+*strategy*: ``"reference"`` (the registered bit-level oracle),
+``"fused"`` (the registered fused form, bit-identical) or ``"lut"`` (the
+compiled ``2^m x 2^m`` low-part table of :mod:`repro_torch.ax.lut`: one
+gather and one exact high add, bit-identical).  The ``"torch"`` backend
+runs ``lut`` for every primitive; the ``"cuda"`` backend has a lut
+kernel for the elementwise ``add`` only, as the reference's Pallas
+backends do.  Exact kinds have no table and take the plain add.
+
+Both backends also run one radix-2 FFT butterfly stage
+(:meth:`Backend.butterfly`), the paper's Fig-5 datapath.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Callable, Dict, NamedTuple, Tuple, Union
 
 import torch
 
+from repro_torch.ax.registry import get_adder
 from repro_torch.core.specs import AdderSpec
 
 #: Legal execution strategies for the add-shaped primitives.
@@ -50,22 +57,29 @@ def resolve_strategy(strategy, fast: bool) -> str:
     return check_strategy(strategy)
 
 
-def check_lut(strategy: str, what: str) -> None:
-    if strategy == "lut":
-        raise NotImplementedError(
-            f"the lut strategy is not ported yet ({what}); use "
-            f"strategy='reference' or 'fused'")
-
-
-def _fast(strategy: str, what: str) -> bool:
-    """The ``fast`` flag the adder models and kernels take."""
+def _require_concrete(strategy: str) -> str:
+    """Backend methods take concrete strategies only: ``"auto"`` is
+    resolved by ``make_engine``, which knows the backend."""
     if strategy == AUTO_STRATEGY:
         raise ValueError(
             "strategy='auto' is resolved at engine construction "
             "(make_engine); Backend methods take one of "
             f"{STRATEGIES}")
-    check_lut(strategy, what)
-    return strategy == "fused"
+    return strategy
+
+
+def _fast(strategy: str) -> bool:
+    """The ``fast`` flag the adder models and kernels take (lut is
+    dispatched by :func:`_use_lut` first)."""
+    return _require_concrete(strategy) == "fused"
+
+
+def _use_lut(spec: AdderSpec, strategy: str) -> bool:
+    """Whether this (spec, strategy) dispatches through the table (exact
+    kinds have no approximate section: the plain add is their fast
+    path)."""
+    return _require_concrete(strategy) == "lut" \
+        and not get_adder(spec.kind).is_exact
 
 
 class FilterStage(NamedTuple):
@@ -139,10 +153,18 @@ class Backend:
                      strategy: str = "reference"):
         """Chained separable-filter passes on SIGNED int32 containers;
         by default one :meth:`accumulate` dispatch per stage."""
-        _fast(strategy, "filter_chain")
+        _require_concrete(strategy)
         return run_stages(q, spec, stages,
                           lambda taps, ws: self.accumulate(
                               taps, spec, weights=ws, strategy=strategy))
+
+    def butterfly(self, a_re, a_im, b_re, b_im, w_re, w_im, spec: AdderSpec,
+                  *, inverse: bool = False):
+        """One radix-2 FFT butterfly stage (exact Q1.14 twiddle
+        multiplies, approximate adds/subs mod 2^N, halving when
+        ``inverse``) on int32 (rows, half) planes and (half,) twiddles;
+        returns (top_re, top_im, bot_re, bot_im)."""
+        raise NotImplementedError
 
     def __repr__(self):  # pragma: no cover - cosmetic
         return f"<ax backend {self.name!r}>"
@@ -154,13 +176,28 @@ class TorchBackend(Backend):
     name = "torch"
 
     def add(self, a, b, spec, *, strategy="reference"):
+        if _use_lut(spec, strategy):
+            from repro_torch.kernels.lut_add import lut_add_plain
+            return lut_add_plain(a, b, spec)
         from repro_torch.kernels.approx_add import approx_add_plain
-        return approx_add_plain(a, b, spec, _fast(strategy, "add"))
+        return approx_add_plain(a, b, spec, _fast(strategy))
 
     def accumulate(self, terms, spec, *, weights=None, strategy="reference"):
         from repro_torch.kernels.accumulate import accumulate_plain
-        return accumulate_plain(terms, spec, weights,
-                                _fast(strategy, "accumulate"))
+        add = None
+        if _use_lut(spec, strategy):
+            from repro_torch.ax.lut import device_table
+            from repro_torch.kernels.lut_add import lut_gather_add
+            table = device_table(spec, terms.device)
+            add = lambda a, b: lut_gather_add(a, b, table, spec)  # noqa: E731
+        return accumulate_plain(terms, spec, weights, _fast(strategy),
+                                add=add)
+
+    def butterfly(self, a_re, a_im, b_re, b_im, w_re, w_im, spec, *,
+                  inverse=False):
+        from repro_torch.kernels.butterfly import butterfly_plain
+        return butterfly_plain(a_re, a_im, b_re, b_im, w_re, w_im, spec,
+                               inverse=inverse)
 
 
 class CudaBackend(Backend):
@@ -179,24 +216,46 @@ class CudaBackend(Backend):
                     f"the 'cuda' backend's {what} takes CUDA tensors; got "
                     f"one on {t.device} (use backend='torch' for the CPU)")
 
+    def _kernel_fast(self, spec, strategy, what) -> bool:
+        """The accumulation kernels fold the registered impls; the lut
+        strategy has a kernel for the elementwise add only."""
+        if _use_lut(spec, strategy):
+            raise NotImplementedError(
+                f"the lut strategy is implemented for the elementwise add "
+                f"only, not for {what} on the {self.name!r} backend; use "
+                f"strategy='fused' (or the 'torch' backend for lut)")
+        return _fast(strategy)
+
     def add(self, a, b, spec, *, strategy="reference"):
-        from repro_torch.kernels.approx_add import approx_add
-        fast = _fast(strategy, "add")
         self._require_cuda("add", a, b)
-        return approx_add(a.contiguous(), b.contiguous(), spec, fast=fast)
+        if _use_lut(spec, strategy):
+            from repro_torch.kernels.lut_add import lut_add
+            return lut_add(a.contiguous(), b.contiguous(), spec)
+        from repro_torch.kernels.approx_add import approx_add
+        return approx_add(a.contiguous(), b.contiguous(), spec,
+                          fast=_fast(strategy))
 
     def accumulate(self, terms, spec, *, weights=None, strategy="reference"):
         from repro_torch.kernels.accumulate import accumulate
-        fast = _fast(strategy, "accumulate")
+        fast = self._kernel_fast(spec, strategy, "accumulate")
         self._require_cuda("accumulate", terms)
         return accumulate(terms.contiguous(), spec, weights=weights,
                           fast=fast)
 
     def filter_chain(self, q, spec, stages, *, strategy="reference"):
         from repro_torch.kernels.conv_chain import filter_chain
-        fast = _fast(strategy, "filter_chain")
+        fast = self._kernel_fast(spec, strategy, "filter_chain")
         self._require_cuda("filter_chain", q)
         return filter_chain(q.contiguous(), spec, tuple(stages), fast=fast)
+
+    def butterfly(self, a_re, a_im, b_re, b_im, w_re, w_im, spec, *,
+                  inverse=False):
+        """The kernel runs the registered fused form of the adder
+        (bit-identical to the reference form)."""
+        from repro_torch.kernels.butterfly import butterfly
+        self._require_cuda("butterfly", a_re, a_im, b_re, b_im, w_re, w_im)
+        return butterfly(a_re, a_im, b_re, b_im, w_re.contiguous(),
+                         w_im.contiguous(), spec, inverse=inverse, fast=True)
 
 
 # --------------------------------------------------------------- registry --

@@ -23,8 +23,8 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.ax.backends import (Backend, check_lut, get_backend,
-                                     resolve_strategy)
+from repro_torch.ax.backends import Backend, get_backend, resolve_strategy
+from repro_torch.ax.lut import lut_supported
 from repro_torch.ax.registry import get_adder
 from repro_torch.core.specs import AdderSpec
 from repro_torch.numerics.fixed_point import (FixedPointFormat,
@@ -41,7 +41,8 @@ class AxEngine:
       fmt: fixed-point format for the signed entry points; ``None`` for
         raw-container use.
       backend: resolved execution backend.
-      strategy: ``"reference"`` or ``"fused"`` (bit-identical).
+      strategy: ``"reference"``, ``"fused"`` or ``"lut"`` (all
+        bit-identical).
       device: where the engine's tensors live.
     """
 
@@ -80,6 +81,17 @@ class AxEngine:
         return self.backend.filter_chain(self.tensor(q), self.spec,
                                          tuple(stages),
                                          strategy=self.strategy)
+
+    def butterfly(self, a_re, a_im, b_re, b_im, w_re, w_im,
+                  inverse: bool = False):
+        """One radix-2 FFT butterfly stage through the approximate adder:
+        int32 (rows, half) planes, int32 (half,) Q1.14 twiddles; returns
+        (top_re, top_im, bot_re, bot_im).  One kernel launch on the
+        ``"cuda"`` backend."""
+        t = self.tensor
+        return self.backend.butterfly(t(a_re), t(a_im), t(b_re), t(b_im),
+                                      t(w_re), t(w_im), self.spec,
+                                      inverse=inverse)
 
     # --------------------------------------------------------- fixed point
 
@@ -182,9 +194,10 @@ def make_engine(spec: Union[AdderSpec, str],
       backend: ``"cuda"`` (the kernels; the default), ``"torch"`` (their
         plain versions, any device) or a :class:`Backend`.
       fast: back-compat alias for ``strategy="fused"``.
-      strategy: ``"reference" | "fused"``, or ``"auto"`` for the
-        backend's preferred one.  ``"lut"`` is not ported yet and raises
-        ``NotImplementedError``.
+      strategy: ``"reference" | "fused" | "lut"`` (all bit-identical),
+        or ``"auto"`` for the backend's preferred one (fused).  ``"lut"``
+        needs ``lsm_bits <= MAX_LUT_LSM_BITS``; on the ``"cuda"`` backend
+        it covers the elementwise ``add`` only.
       device: where the engine's tensors live; ``None`` is the card.
       fault: hardware fault injection is not ported yet; anything but
         ``None`` raises ``NotImplementedError``.
@@ -194,7 +207,6 @@ def make_engine(spec: Union[AdderSpec, str],
             "fault injection (repro.resilience) is not ported yet; "
             "pass fault=None")
     strategy = resolve_strategy(strategy, fast)
-    check_lut(strategy, "make_engine")
     if isinstance(spec, str):
         spec = _default_spec(spec, fmt.n_bits if fmt is not None else 32)
     if (fmt is not None and not get_adder(spec.kind).is_exact
@@ -202,6 +214,10 @@ def make_engine(spec: Union[AdderSpec, str],
         raise ValueError(
             f"adder width N={spec.n_bits} must match fixed-point "
             f"container n_bits={fmt.n_bits}")
+    if strategy == "lut" and not lut_supported(spec):
+        raise ValueError(
+            f"no compilable LUT for {spec.short_name} (lsm_bits too "
+            f"wide); use strategy='reference' or 'fused'")
     resolved = get_backend(backend)
     dev = resolve_device(resolved, device)
     if strategy == "auto":

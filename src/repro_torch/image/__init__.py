@@ -1,1 +1,2 @@
-"""Image helpers of the port: quality metrics and the synthetic test image."""
+"""Image helpers of the port: quality metrics, the synthetic test image,
+and the paper's Fig-5 FFT -> IFFT reconstruction."""

@@ -57,11 +57,14 @@ def run_corpus(kinds: Optional[Sequence[str]] = None,
                n_images: int = 4, size: int = 64, seed: int = 0,
                backend: Optional[str] = None, device=None,
                fast: bool = False, strategy: Optional[str] = None,
+               include_fft: bool = False,
                workload_kw: Optional[dict] = None) -> List[CorpusResult]:
     """Sweep ``kinds`` x ``workloads`` over one image batch.
 
-    Defaults: the paper's Table-I kinds, every registered workload, a
-    4-image 64x64 synthetic batch, the ``"cuda"`` backend on the card.
+    Defaults: the paper's Table-I kinds, every batched (operator and
+    pipeline) workload, a 4-image 64x64 synthetic batch, the ``"cuda"``
+    backend on the card.  The FFT reconstruction workload joins only
+    with ``include_fft=True`` (or when named in ``workloads``).
     Every cell runs an untimed warm-up call first (kernel build, engine
     caches), then the timed call; workloads return host arrays, so the
     device work is finished inside the timed region.  ``workload_kw``
@@ -70,7 +73,7 @@ def run_corpus(kinds: Optional[Sequence[str]] = None,
     from repro_torch.core.specs import TABLE1_KINDS
     kinds = tuple(kinds) if kinds is not None else tuple(TABLE1_KINDS)
     if workloads is None:
-        workloads = workload_names()
+        workloads = workload_names(batched_only=not include_fft)
     if batch is None:
         batch = synthetic_batch(n_images, size, seed)
     workload_kw = workload_kw or {}

@@ -3,15 +3,20 @@ engines (the port of ``repro.imgproc.workloads``).
 
 A workload maps a batch of uint8 images to processed uint8 images (a host
 array) for a given adder kind/backend/device, paired with the ideal
-reference output the corpus scores against.  Two sources register here:
+reference output the corpus scores against.  Three sources register
+here:
 
 - every operator in :mod:`repro_torch.imgproc.ops`, run once on the
-  whole batch, and
-- every stock pipeline in :data:`repro_torch.imgproc.plan.PIPELINES`.
+  whole batch,
+- every stock pipeline in :data:`repro_torch.imgproc.plan.PIPELINES`,
+  and
+- the paper's Fig-5 FFT -> IFFT reconstruction
+  (:func:`repro_torch.image.pipeline.reconstruct`) at the paper's N=32
+  adders, whose reference is the source image itself.
 
 Binary operators pair each image with the next one in the batch
-(``roll(imgs, 1)``).  The reference's ``conv3x3`` (MAC engine) and
-``fft_reconstruct`` (butterfly) workloads are not ported yet.
+(``roll(imgs, 1)``).  The reference's ``conv3x3`` (MAC engine) workload
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -33,11 +38,15 @@ class Workload:
       run: ``(imgs, kind, backend, fast, strategy, device, **kw) -> uint8
         batch`` (host array).
       reference: ``(imgs, **kw) -> uint8 batch`` (ideal float path).
+      batched: one of the batched image operators or pipelines (False
+        for the FFT reconstruction, which the corpus only includes on
+        request).
     """
 
     name: str
     run: Callable
     reference: Callable
+    batched: bool = True
 
 
 WORKLOADS: Dict[str, Workload] = {}
@@ -58,8 +67,9 @@ def get_workload(name: str) -> Workload:
                        f"{sorted(WORKLOADS)}") from None
 
 
-def workload_names() -> Tuple[str, ...]:
-    return tuple(sorted(WORKLOADS))
+def workload_names(batched_only: bool = False) -> Tuple[str, ...]:
+    return tuple(sorted(n for n, w in WORKLOADS.items()
+                        if w.batched or not batched_only))
 
 
 # ------------------------------------------------- operator workloads --
@@ -135,3 +145,31 @@ def _register_pipelines():
 
 
 _register_pipelines()
+
+
+# -------------------------------------------- FFT->IFFT reconstruction --
+
+def _fft_run(imgs, kind="haloc_axa", backend=None, fast=False,
+             strategy=None, device=None, frac_bits: int = 6,
+             block: int = 16):
+    """Paper Fig-5 reconstruction: block FFT -> IFFT of each image through
+    the N=32 adder datapath, the whole batch in one transform.
+    ``fast``/``strategy`` are part of the uniform workload call signature
+    but have no effect here: the butterflies' adds are bit-identical in
+    every form."""
+    del fast, strategy
+    from repro_torch.core.specs import paper_spec
+    from repro_torch.image.pipeline import reconstruct
+    out = reconstruct(np.asarray(imgs), paper_spec(kind),
+                      frac_bits=frac_bits, block=block, backend=backend,
+                      device=device)
+    return out.cpu().numpy()
+
+
+def _fft_reference(imgs, **_kw):
+    """An exact FFT->IFFT round trip is the identity: the source batch."""
+    return np.asarray(imgs).astype(np.uint8)
+
+
+register_workload(Workload(name="fft_reconstruct", run=_fft_run,
+                           reference=_fft_reference, batched=False))

@@ -4,6 +4,8 @@ version (the counterparts of the reference's Pallas kernels):
 - :mod:`~repro_torch.kernels.approx_add`  <- ``approx_add_pallas``
 - :mod:`~repro_torch.kernels.accumulate`  <- ``accumulate_pallas``
 - :mod:`~repro_torch.kernels.conv_chain`  <- ``filter_chain_pallas``
+- :mod:`~repro_torch.kernels.lut_add`     <- ``lut_add_pallas``
+- :mod:`~repro_torch.kernels.butterfly`   <- ``butterfly_pallas``
 
 Sources live in ``repro_torch/csrc``; :mod:`~repro_torch.kernels._build`
 compiles them with ``nvcc`` for ``sm_90a`` on first use.  Nothing here

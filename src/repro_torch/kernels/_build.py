@@ -41,7 +41,7 @@ from typing import Dict, Iterable, Tuple
 
 PACKAGE = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
-SOURCES = ("approx_add", "accumulate", "conv_chain")
+SOURCES = ("approx_add", "accumulate", "conv_chain", "lut_add", "butterfly")
 HEADERS = ("adders.cuh",)
 
 #: Kind -> id of its device function in ``csrc/adders.cuh``.

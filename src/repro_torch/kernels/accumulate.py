@@ -51,15 +51,19 @@ def scale_mod(term: torch.Tensor, w: int, n_bits: int) -> torch.Tensor:
 
 
 def accumulate_plain(terms: torch.Tensor, spec: AdderSpec, weights=None,
-                     fast: bool = False) -> torch.Tensor:
+                     fast: bool = False, add=None) -> torch.Tensor:
     """The plain version: int32 (K, ...) containers in, int32 (...) out,
-    computed on int64 lanes on any device."""
+    computed on int64 lanes on any device.  ``add(acc, term)`` is the
+    lane-level approximate add mod 2^N (default: the registered adder;
+    the lut strategy passes its table gather)."""
+    if add is None:
+        def add(x, y):
+            return approx_add_mod(x, y, spec, fast=fast)
     ws = norm_weights(weights, terms.shape[0])
     acc = None
     for i, w in enumerate(ws):
         term = scale_mod(u32_lanes(terms[i]), w, spec.n_bits)
-        acc = term if acc is None else approx_add_mod(acc, term, spec,
-                                                      fast=fast)
+        acc = term if acc is None else add(acc, term)
     return to_int32(acc)
 
 

@@ -92,7 +92,7 @@ def test_tiled_validation():
 
 def test_corpus_rows_match_reference():
     kinds = ("accurate", "haloc_axa", "loawa")
-    names = workload_names()
+    names = workload_names(batched_only=True)
     assert len(names) == 10
     want = run_corpus_j(kinds=kinds, workloads=names, batch=BATCH,
                         backend="jax")
