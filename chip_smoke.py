@@ -51,6 +51,26 @@ The Fig-5 FFT and lut slice adds to phases 3-5:
    the same inputs, and the wall time and profile of ``reconstruct`` and
    of the ``fft_reconstruct`` workload.
 
+The MAC slice adds to phases 3-5:
+
+3c. ``mul`` against its plain version for every multiplier kind in all
+   three forms at the path's (4, 1024, 1024) shape and exhaustively at
+   N=8 (and at N=10, the uint32 table); ``mac_matmul`` and
+   ``approx_matmul`` at 1024^3 (bk 128), on the ragged (16, 300) @
+   (300, 24) and on a single K tile, every adder kind at n32m10k5 and
+   n16m8k4; ``conv2d_mac`` with 3 x 3 and 5 x 5 kernels holding negative
+   weights, signed inputs, shift 0 and 2, tap tables in shared and in
+   global memory;
+4c. the slice's path at full size, with the counts set to 0 just before
+   and read just after: ``run_corpus(workloads=("conv3x3",))`` on the
+   4 x 1024 x 1024 batch for the seven Table-1 kinds, ``engine.mul`` and
+   ``engine.mul_signed`` on (4, 1024, 1024) at truncated n8t3 and at each
+   kind's default 8-bit spec, and both ``engine.matmul`` paths at 1024^3
+   (n32m10k5 and n16m8k4).  Every output equals the port's CPU path (the
+   GEMMs on their first 64 rows);
+5c. the four kernels' times, plain times and bounds, and
+   ``torch._int_mm`` on the same int8 operands beside ``approx_matmul``.
+
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 run from a directory without ``src/repro_torch``, it exits non-zero and
@@ -90,8 +110,25 @@ OPS_PER_Q14_PRODUCT, OPS_PER_NEGATE, OPS_PER_HALVE = 2, 1, 2
 #: (the gather itself is counted in bytes: the table is read once).
 OPS_PER_LUT_ADD = 10
 
+#: One MAC product of mac_matmul: the index OR, the table address and the
+#: add into the tile's partial (the gather itself is counted in neither
+#: bytes nor operations).
+OPS_PER_MAC_PRODUCT = 3
+#: One conv tap of conv2d_mac besides its add: the magnitude, the sign
+#: restore (negate, select) and the N-bit mask.
+OPS_PER_CONV_TAP = 4
+#: H100 SXM dense int8 tensor-core rate (ops/s), from the data sheet: the
+#: exact-product GEMM's int8 dot.
+INT8_TENSOR_OPS_PER_S = 1979e12
+
 FULL_SIZE = 1024
 N_IMAGES = 4
+#: The MAC GEMM and exact-product GEMM cell: 1024^3 (granite_moe_1b's
+#: d_model), K tiles of 128, so 8 tiles and 7 approximate folds per output.
+GEMM_SIZE, GEMM_BK = 1024, 128
+#: Rows of a GEMM output that the CPU path recomputes (rows are
+#: independent; a whole 1024^3 on the CPU would take minutes).
+GEMM_CPU_ROWS = 64
 #: The paper's Fig-5 image size, and the size ``tests/test_image.py``
 #: asserts the quality ordering at.
 FFT_SIZE, ORDERING_SIZE = 512, 128
@@ -356,6 +393,146 @@ def check_fft_lut_kernels(torch, np, dev, errs):
     log(f"  phase 3b took {time.perf_counter() - t0:.1f} s")
 
 
+def mul_specs():
+    """The multipliers of the MAC path: truncated n8t3 (the conv3x3
+    default) and each kind's default 8-bit spec."""
+    from repro_torch.ax.mul import (MulSpec, default_mul_spec,
+                                    registered_multipliers)
+    return [MulSpec("truncated", 8, 3)] + [default_mul_spec(k, 8)
+                                           for k in registered_multipliers()]
+
+
+def int8_operands(torch, np, rng, shape, dev):
+    return torch.as_tensor(rng.integers(-128, 128, shape, dtype=np.int8),
+                           device=dev)
+
+
+def check_mac_kernels(torch, np, dev, errs):
+    """mul, mac_matmul, conv2d_mac and approx_matmul against their plain
+    versions on the card, exact."""
+    from repro_torch.ax.mul import MulSpec, registered_multipliers
+    from repro_torch.core import specs
+    from repro_torch.kernels import approx_matmul as mm_k
+    from repro_torch.kernels import conv2d_mac as conv_k
+    from repro_torch.kernels import mac_matmul as mac_k
+    from repro_torch.kernels import mul as mul_k
+
+    rng = np.random.default_rng(6)
+    kinds = specs.ALL_KINDS
+    forms = ("reference", "fused", "lut")
+    t0 = time.perf_counter()
+
+    def compare(name, got, want, what):
+        compare_into(torch, errs, name, got, want, what)
+
+    # mul: the path shape, every kind and form; then exhaustive at N=8 and
+    # N=10 (the uint32 table).
+    shape = (N_IMAGES, FULL_SIZE, FULL_SIZE)
+    a, b = (containers(torch, np, rng, shape, 8, dev) for _ in range(2))
+    for ms in mul_specs():
+        for form in forms:
+            compare("mul", mul_k.mul(a, b, ms, strategy=form),
+                    mul_k.mul_plain(a, b, ms, form),
+                    f"{ms.short_name} {form} {shape}")
+    cells = 0
+    for n in (8, 10):
+        a8, b8 = (x.reshape(-1).contiguous() for x in torch.meshgrid(
+            torch.arange(1 << n, device=dev, dtype=torch.int32),
+            torch.arange(1 << n, device=dev, dtype=torch.int32),
+            indexing="ij"))
+        for kind in registered_multipliers():
+            for t in ((0, n // 2, n - 1) if kind != "accurate" else (0,)):
+                ms = MulSpec(kind, n, t, n // 4 if kind == "broken_array"
+                             else 0)
+                for form in forms:
+                    compare("mul", mul_k.mul(a8, b8, ms, strategy=form),
+                            mul_k.mul_plain(a8, b8, ms, form),
+                            f"{ms.short_name} {form} exhaustive")
+                cells += 1
+    log(f"  mul: {len(mul_specs())} specs x 3 forms at {shape}, {cells} "
+        f"specs x 3 forms exhaustive at N=8/10: equal")
+
+    # The GEMMs: the path shape, test_mul's ragged operands, a single
+    # K tile (K <= bk), a ragged M/N edge, every adder kind at both widths.
+    g = GEMM_SIZE
+    cases = [((g, g), (g, g), GEMM_BK), ((16, 300), (300, 24), 128),
+             ((100, 128), (128, 72), 128), ((70, 96), (96, 130), 200),
+             ((33, 257), (257, 65), 100)]
+    operands = [(int8_operands(torch, np, rng, sa, dev),
+                 int8_operands(torch, np, rng, sb, dev), bk)
+                for sa, sb, bk in cases]
+    trunc = MulSpec("truncated", 8, 3)
+    for n_bits in (32, 16):
+        for kind in kinds:
+            spec = spec_at(kind, n_bits)
+            for a8, b8, bk in operands:
+                what = f"{spec.short_name} {tuple(a8.shape)} @ " \
+                       f"{tuple(b8.shape)} bk {bk}"
+                a32, b32 = a8.to(torch.int32), b8.to(torch.int32)
+                for fast in (False, True):
+                    compare("approx_matmul",
+                            mm_k.approx_matmul(a8, b8, spec, bk=bk,
+                                               fast=fast),
+                            mm_k.approx_matmul_plain(a8, b8, spec, bk, fast),
+                            f"{what} fast={fast}")
+                    compare("mac_matmul",
+                            mac_k.mac_matmul(a32, b32, spec, trunc, bk=bk,
+                                             fast=fast),
+                            mac_k.mac_matmul_plain(a32, b32, spec, trunc, bk,
+                                                   fast),
+                            f"{what} {trunc.short_name} fast={fast}")
+        spec = spec_at("haloc_axa", n_bits)
+        for ms in mul_specs()[1:] + [MulSpec("mitchell", 10, 2)]:
+            for a8, b8, bk in operands[:2]:
+                a32, b32 = a8.to(torch.int32), b8.to(torch.int32)
+                compare("mac_matmul",
+                        mac_k.mac_matmul(a32, b32, spec, ms, bk=bk),
+                        mac_k.mac_matmul_plain(a32, b32, spec, ms, bk),
+                        f"{spec.short_name} {ms.short_name} "
+                        f"{tuple(a8.shape)}")
+    torch.cuda.synchronize()
+    log(f"  approx_matmul and mac_matmul: {len(kinds)} kinds x 2 forms x "
+        f"{len(cases)} shapes (1024^3, ragged, single tile, edges) at "
+        f"n32m10k5 and n16m8k4, and every multiplier kind at 1024^3: equal")
+
+    # conv2d_mac: the path shape, every kind; negative weights; 3 x 3 and
+    # 5 x 5; shift 0 and 2; tables in shared memory (w=8) and global
+    # memory (5 x 5 at w=10 is 100 KiB).
+    k3 = ((1, 3, 1), (3, -5, 3), (1, 3, 1))
+    k5 = tuple(tuple(int(x) for x in row)
+               for row in rng.integers(-9, 10, (5, 5)))
+    q = torch.as_tensor(rng.integers(-255, 256, shape).astype(np.int32),
+                        device=dev)
+    for kind in kinds:
+        spec = spec_at(kind, 16)
+        for fast in (False, True):
+            compare("conv2d_mac",
+                    conv_k.conv2d_mac(q, spec, trunc, k3, shift=2, fast=fast),
+                    conv_k.conv2d_mac_plain(q, spec, trunc, k3, 2, fast),
+                    f"{spec.short_name} 3x3 {shape} fast={fast}")
+    q10 = torch.as_tensor(rng.integers(-1023, 1024, (3, 300, 257))
+                          .astype(np.int32), device=dev)
+    for ms, x in ((trunc, q[:2, :300, :257].contiguous()),
+                  (MulSpec("mitchell", 10), q10),
+                  (MulSpec("broken_array", 10, 4, 2), q10)):
+        for kernel in (k3, k5):
+            for shift in (0, 2):
+                for n_bits in (16, 32):
+                    spec = spec_at("haloc_axa", n_bits)
+                    compare("conv2d_mac",
+                            conv_k.conv2d_mac(x, spec, ms, kernel,
+                                              shift=shift),
+                            conv_k.conv2d_mac_plain(x, spec, ms, kernel,
+                                                    shift),
+                            f"{spec.short_name} {ms.short_name} "
+                            f"{len(kernel)}x{len(kernel)} shift {shift}")
+    torch.cuda.synchronize()
+    log(f"  conv2d_mac: {len(kinds)} kinds x 2 forms at {shape} (3x3, "
+        f"shift 2); 3x3 and 5x5, shift 0 and 2, w=8 and w=10 (shared and "
+        f"global tables), n16 and n32: equal")
+    log(f"  phase 3c took {time.perf_counter() - t0:.1f} s")
+
+
 # ------------------------------------------------------------- phase 4 --
 
 def run_main_path(torch, np, batch, backend=None, device=None, corpus=True):
@@ -400,15 +577,24 @@ MAIN_PATH_KERNELS = ("approx_add", "accumulate", "filter_chain")
 FFT_PATH_KERNELS = ("butterfly", "lut_add", "approx_add")
 
 
+MAC_PATH_KERNELS = ("mul", "mac_matmul", "conv2d_mac", "approx_matmul")
+
+
 def counters():
     from repro_torch.kernels import accumulate as acc_k
     from repro_torch.kernels import approx_add as add_k
+    from repro_torch.kernels import approx_matmul as mm_k
     from repro_torch.kernels import butterfly as bf_k
+    from repro_torch.kernels import conv2d_mac as conv_k
     from repro_torch.kernels import conv_chain as chain_k
     from repro_torch.kernels import lut_add as lut_k
+    from repro_torch.kernels import mac_matmul as mac_k
+    from repro_torch.kernels import mul as mul_k
     return {"approx_add": add_k.approx_add, "accumulate": acc_k.accumulate,
             "filter_chain": chain_k.filter_chain, "lut_add": lut_k.lut_add,
-            "butterfly": bf_k.butterfly}
+            "butterfly": bf_k.butterfly, "mul": mul_k.mul,
+            "mac_matmul": mac_k.mac_matmul, "conv2d_mac": conv_k.conv2d_mac,
+            "approx_matmul": mm_k.approx_matmul}
 
 
 def run_counted(torch, counts, kernels, fn, what):
@@ -541,6 +727,66 @@ def check_ordering(np, img, recs, what):
     return held
 
 
+def gemm_operands(torch, np):
+    """The GEMM cell's int8 operands, (1024, 1024) each, from a seed."""
+    rng = np.random.default_rng(8)
+    return tuple(torch.as_tensor(rng.integers(-128, 128,
+                                              (GEMM_SIZE, GEMM_SIZE),
+                                              dtype=np.int8))
+                 for _ in range(2))
+
+
+def run_mac_path(torch, np, batch, a8, b8, backend=None, device=None,
+                 corpus=True):
+    """The MAC slice through the entry points a user calls; returns the
+    outputs (tensors on the engine's device, the conv3x3 batches as host
+    arrays) and the corpus rows (None without ``corpus``).  The GEMMs run
+    on ``a8``'s rows, whichever they are."""
+    from repro_torch.ax import make_engine
+    from repro_torch.core.specs import TABLE1_KINDS
+    from repro_torch.imgproc import get_workload, run_corpus
+    from repro_torch.numerics.fixed_point import FixedPointFormat
+
+    where = dict(backend=backend, device=device)
+    outs = {}
+    wl = get_workload("conv3x3")
+    for kind in TABLE1_KINDS:
+        outs[("conv3x3", kind)] = torch.as_tensor(wl.run(batch, kind=kind,
+                                                         **where))
+    fmt = FixedPointFormat(16, 0)
+    for ms in mul_specs():
+        eng = make_engine(spec_at("haloc_axa", 16), fmt=fmt, mul=ms, **where)
+        x = eng.tensor(batch).to(torch.int32)
+        pair = torch.roll(x, 1, dims=0)
+        outs[("mul", ms.short_name)] = eng.mul(x, pair)
+        outs[("mul_signed", ms.short_name)] = eng.mul_signed(x - 128,
+                                                             128 - pair)
+    for n_bits in (32, 16):
+        spec = spec_at("haloc_axa", n_bits)
+        for ms in (None, mul_specs()[0]):
+            eng = make_engine(spec, mul=ms, **where)
+            outs[("matmul", spec.short_name, str(ms))] = eng.matmul(
+                a8, b8, block=(GEMM_BK, GEMM_BK, GEMM_BK))
+    rows = run_corpus(batch=batch, workloads=("conv3x3",), **where) \
+        if corpus else None
+    return outs, rows
+
+
+def check_mac_outputs(torch, outs, cpu_outs):
+    """The card's outputs equal the CPU path's (the GEMMs on the rows the
+    CPU path ran)."""
+    for key, want in cpu_outs.items():
+        got = outs[key]
+        if key[0] == "conv3x3":
+            got = got.cpu()
+        else:
+            check(got.device.type == "cuda", f"{key} did not run on the card")
+            got = got[:want.shape[0]].cpu()
+        check(tuple(got.shape) == tuple(want.shape)
+              and torch.equal(got, want),
+              f"{key}: the card's output differs from the CPU path")
+
+
 # ------------------------------------------------------------- phase 5 --
 
 def fold_ops(weights):
@@ -594,13 +840,16 @@ def int32_rate(torch, dev):
 
 
 def bound(w, int32_ops_per_s):
-    """(bound ms, bytes ms, operations ms) of one timed function."""
+    """(bound ms, bytes ms, operations ms) of one timed function: int32
+    operations at the int32 rate and int8 tensor-core operations at
+    theirs, on separate units, so the slower of the two bounds them."""
     bytes_ms = w["bytes"] / HBM_BYTES_PER_S * 1e3
-    ops_ms = w["ops"] / int32_ops_per_s * 1e3
+    ops_ms = max(w["ops"] / int32_ops_per_s,
+                 w.get("tensor_ops", 0) / INT8_TENSOR_OPS_PER_S) * 1e3
     return max(bytes_ms, ops_ms), bytes_ms, ops_ms
 
 
-def measure(torch, np, dev, launches, errs):
+def measure(torch, np, dev, launches, errs, int32_ops_per_s):
     from repro_torch.ax import FilterStage
     from repro_torch.core.specs import AdderSpec, paper_spec
     from repro_torch.kernels import accumulate as acc_k
@@ -609,7 +858,6 @@ def measure(torch, np, dev, launches, errs):
     from repro_torch.kernels import conv_chain as chain_k
     from repro_torch.kernels import lut_add as lut_k
 
-    int32_ops_per_s = int32_rate(torch, dev)
     rng = np.random.default_rng(1)
     spec = AdderSpec("haloc_axa", 16, 8, 4)
     shape = (N_IMAGES, FULL_SIZE, FULL_SIZE)
@@ -669,24 +917,7 @@ def measure(torch, np, dev, launches, errs):
     }
     work["butterfly"] = butterfly_work(torch, np, rng, dev, bf_k,
                                        FFT_SIZE * FFT_SIZE // 2, 8)
-    entries = []
-    for name, w in work.items():
-        ms = time_launches(torch, w["kernel"], 40)
-        plain_ms = time_launches(torch, w["plain"], 20)
-        bound_ms, bytes_ms, ops_ms = bound(w, int32_ops_per_s)
-        units = w.get("units", n)
-        log(f"  {name:12s} {w['what']}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes "
-            f"{bytes_ms:.4f} ms, ops {ops_ms:.4f} ms at {w['ops'] // units} "
-            f"per {w.get('unit', 'element')}) = "
-            f"{bound_ms / ms * 100:.1f}% of bound")
-        entries.append({
-            "name": name, "route": "cuda", "source": w["source"],
-            "replaces": w["replaces"], "launches": launches[name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "shape": w["what"]})
+    entries = time_entries(torch, work, launches, errs, int32_ops_per_s, n)
     # lut_add beside approx_add at the paper's N=32 (the 2 MiB m=10
     # table), and the butterfly at the other stage shapes of the path.
     ms_of = {e["name"]: e["ms"] for e in entries}
@@ -720,6 +951,36 @@ def measure(torch, np, dev, launches, errs):
     return entries
 
 
+def time_entries(torch, work, launches, errs, int32_ops_per_s, n,
+                 plain_reps=20):
+    """Time each kernel of ``work`` and its plain version; the ``kernels``
+    line's entries.  A work item may carry ``library`` (one PyTorch call
+    computing the same function) and ``tensor_ops`` (int8 tensor-core
+    operations, bounded at their own rate)."""
+    entries = []
+    for name, w in work.items():
+        ms = time_launches(torch, w["kernel"], 40)
+        plain_ms = time_launches(torch, w["plain"], plain_reps)
+        lib_ms = time_launches(torch, w["library"], 40) \
+            if "library" in w else None
+        bound_ms, bytes_ms, ops_ms = bound(w, int32_ops_per_s)
+        units = w.get("units", n)
+        log(f"  {name:13s} {w['what']}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes "
+            f"{bytes_ms:.4f} ms, ops {ops_ms:.4f} ms at {w['ops'] // units} "
+            f"int32 per {w.get('unit', 'element')}) = "
+            f"{bound_ms / ms * 100:.1f}% of bound"
+            + (f"; library {lib_ms:.4f} ms" if lib_ms is not None else ""))
+        entries.append({
+            "name": name, "route": "cuda", "source": w["source"],
+            "replaces": w["replaces"], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": lib_ms, "shape": w["what"]})
+    return entries
+
+
 def butterfly_work(torch, np, rng, dev, bf_k, pairs, half):
     """A forward butterfly stage of ``pairs`` pairs at ``half``, haloc_axa
     at the paper's spec, fused form (as the cuda backend runs it), on
@@ -743,6 +1004,143 @@ def butterfly_work(torch, np, rng, dev, bf_k, pairs, half):
                                                 fast=True) for p in sets],
         bytes=8 * 4 * pairs + 2 * 4 * half, ops=butterfly_ops(False) * pairs,
         units=pairs, unit="pair")
+
+
+def conv_ops(kernel, shift):
+    """Least operations per pixel of conv2d_mac: per tap its magnitude,
+    sign restore and mask, T-1 approximate adds, the sign extension and
+    the rounding shift (when there is one)."""
+    taps = sum(len(row) for row in kernel)
+    return (OPS_PER_CONV_TAP * taps + OPS_PER_ADD * (taps - 1)
+            + OPS_SIGN_EXTEND + (OPS_ROUND_SHIFT if shift else 0))
+
+
+def ops_truncated_mul(t):
+    """Least operations of one truncated product in the fused form
+    (truncated_mul_fast, csrc/muls.cuh) at t truncated columns: the low
+    mask; per column a mask, a bit pick (shift, and), a multiply, a shift
+    and an add; the full product and the subtraction."""
+    return 1 + 6 * t + 2
+
+
+def measure_mac(torch, np, dev, launches, errs, int32_ops_per_s):
+    """The MAC kernels at the slice's path shapes: times, plain times,
+    bounds; torch._int_mm beside approx_matmul."""
+    from repro_torch.ax.mul import MulSpec
+    from repro_torch.imgproc.workloads import CONV3X3_KERNEL
+    from repro_torch.kernels import approx_matmul as mm_k
+    from repro_torch.kernels import conv2d_mac as conv_k
+    from repro_torch.kernels import mac_matmul as mac_k
+    from repro_torch.kernels import mul as mul_k
+
+    rng = np.random.default_rng(7)
+    shape = (N_IMAGES, FULL_SIZE, FULL_SIZE)
+    n = N_IMAGES * FULL_SIZE * FULL_SIZE
+    g = GEMM_SIZE
+    trunc = MulSpec("truncated", 8, 3)
+    spec16, spec32 = spec_at("haloc_axa", 16), spec_at("haloc_axa", 32)
+    pairs = [tuple(containers(torch, np, rng, shape, 8, dev)
+                   for _ in range(2)) for _ in range(4)]
+    images = [torch.as_tensor(rng.integers(0, 256, shape).astype(np.int32),
+                              device=dev) for _ in range(4)]
+    # 32 int8 operand pairs of 2 MiB (and 8 int32 pairs of 8 MiB): more
+    # than the 50 MB L2 holds.
+    gemms = [(int8_operands(torch, np, rng, (g, g), dev),
+              int8_operands(torch, np, rng, (g, g), dev)) for _ in range(32)]
+    gemms32 = [(a.to(torch.int32), b.to(torch.int32)) for a, b in gemms[:8]]
+    folds = -(-g // GEMM_BK) - 1
+    work = {
+        "mul": dict(
+            source="src/repro_torch/csrc/mul.cu",
+            replaces="src/repro/kernels/mac.py:67",
+            what=f"truncated n8t3 reference, int32 pair {shape}",
+            kernel=[lambda a=a, b=b: mul_k.mul(a, b, trunc) for a, b in pairs],
+            plain=[lambda a=a, b=b: mul_k.mul_plain(a, b, trunc)
+                   for a, b in pairs],
+            bytes=3 * 4 * n, ops=ops_truncated_mul(3) * n),
+        "mac_matmul": dict(
+            source="src/repro_torch/csrc/mac_matmul.cu",
+            replaces="src/repro/kernels/mac.py:134",
+            what=f"haloc_axa n32m10k5 + truncated n8t3, int32 "
+                 f"({g}, {g}) @ ({g}, {g}), bk {GEMM_BK}",
+            kernel=[lambda a=a, b=b: mac_k.mac_matmul(a, b, spec32, trunc,
+                                                      bk=GEMM_BK)
+                    for a, b in gemms32],
+            plain=[lambda a=a, b=b: mac_k.mac_matmul_plain(a, b, spec32,
+                                                           trunc, GEMM_BK)
+                   for a, b in gemms32[:2]],
+            bytes=3 * 4 * g * g + 4 * (1 << 16),
+            ops=(OPS_PER_MAC_PRODUCT * g + OPS_PER_ADD * folds) * g * g,
+            units=g * g, unit="output"),
+        "conv2d_mac": dict(
+            source="src/repro_torch/csrc/conv2d_mac.cu",
+            replaces="src/repro/kernels/mac.py:192",
+            what=f"haloc_axa n16m8k4 + truncated n8t3, conv3x3 kernel, "
+                 f"int32 {shape}",
+            kernel=[lambda q=q: conv_k.conv2d_mac(q, spec16, trunc,
+                                                  CONV3X3_KERNEL)
+                    for q in images],
+            plain=[lambda q=q: conv_k.conv2d_mac_plain(q, spec16, trunc,
+                                                       CONV3X3_KERNEL)
+                   for q in images],
+            bytes=2 * 4 * n + 4 * 9 * 256,
+            ops=conv_ops(CONV3X3_KERNEL, 0) * n),
+        "approx_matmul": dict(
+            source="src/repro_torch/csrc/approx_matmul.cu",
+            replaces="src/repro/kernels/approx_matmul.py:43",
+            what=f"haloc_axa n32m10k5, int8 ({g}, {g}) @ ({g}, {g}), bk "
+                 f"{GEMM_BK}",
+            kernel=[lambda a=a, b=b: mm_k.approx_matmul(a, b, spec32,
+                                                        bk=GEMM_BK)
+                    for a, b in gemms],
+            plain=[lambda a=a, b=b: mm_k.approx_matmul_plain(a, b, spec32,
+                                                             GEMM_BK)
+                   for a, b in gemms[:2]],
+            bytes=2 * g * g + 4 * g * g, ops=OPS_PER_ADD * folds * g * g,
+            tensor_ops=2 * g * g * g, units=g * g, unit="output"),
+    }
+    # torch._int_mm computes the accurate adder's function (an exact int8
+    # GEMM mod 2^32); for approximate adders it is context only.
+    accurate = spec_at("accurate", 32)
+    a0, b0 = gemms[0]
+    check(torch.equal(torch._int_mm(a0, b0),
+                      mm_k.approx_matmul(a0, b0, accurate, bk=GEMM_BK)),
+          "approx_matmul with the accurate adder != torch._int_mm")
+    work["approx_matmul"]["library"] = [
+        lambda a=a, b=b: torch._int_mm(a, b) for a, b in gemms]
+    entries = time_entries(torch, work, launches, errs, int32_ops_per_s, n,
+                           plain_reps=5)
+    for fast in (False, True):
+        ms = time_launches(torch, [lambda a=a, b=b: mm_k.approx_matmul(
+            a, b, accurate, bk=GEMM_BK, fast=fast) for a, b in gemms], 40)
+        log(f"  approx_matmul with the accurate adder (fast={fast}): "
+            f"{ms:.4f} ms, the same function as torch._int_mm")
+    for ms_spec in (MulSpec("truncated", 8, 3), MulSpec("mitchell", 8)):
+        for form in ("fused", "lut"):
+            ms = time_launches(torch, [lambda a=a, b=b: mul_k.mul(
+                a, b, ms_spec, strategy=form) for a, b in pairs], 40)
+            log(f"  mul {ms_spec.short_name} {form}: {ms:.4f} ms")
+    ms16 = time_launches(torch, [lambda a=a, b=b: mac_k.mac_matmul(
+        a, b, spec16, trunc, bk=GEMM_BK) for a, b in gemms32], 20)
+    mm16 = time_launches(torch, [lambda a=a, b=b: mm_k.approx_matmul(
+        a, b, spec16, bk=GEMM_BK) for a, b in gemms], 40)
+    log(f"  at n16m8k4: mac_matmul {ms16:.4f} ms, approx_matmul "
+        f"{mm16:.4f} ms")
+    return entries
+
+
+def time_conv3x3(torch, batch):
+    """The conv3x3 workload's wall time on the 4 x 1024 x 1024 host batch
+    (host arrays in and out, what run_corpus times), haloc_axa, and its
+    device time by kernel."""
+    from repro_torch.imgproc import get_workload
+    wl = get_workload("conv3x3")
+    sec = time_wall(torch, lambda: wl.run(batch, kind="haloc_axa"), 5)
+    log(f"  conv3x3 workload {tuple(batch.shape)}, haloc_axa: "
+        f"{sec * 1e3:.3f} ms per call = {batch.size / sec / 1e6:.1f} MPix/s "
+        f"(wall, median of 5)")
+    profile_calls(torch, lambda: wl.run(batch, kind="haloc_axa"), sec,
+                  "conv3x3 workload", calls=3, top=6)
 
 
 def time_wall(torch, fn, reps=10):
@@ -885,10 +1283,14 @@ def main():
                 log(f"  {name}: {line.strip()}")
 
     log("phase 3: kernels against their plain versions on the card")
-    errs = {name: 0 for name in MAIN_PATH_KERNELS + FFT_PATH_KERNELS}
+    errs = {name: 0 for name in MAIN_PATH_KERNELS + FFT_PATH_KERNELS
+            + MAC_PATH_KERNELS}
     check_kernels(torch, np, dev, errs)
     log("phase 3b: butterfly and lut_add against their plain versions")
     check_fft_lut_kernels(torch, np, dev, errs)
+    log("phase 3c: mul, mac_matmul, conv2d_mac and approx_matmul against "
+        "their plain versions")
+    check_mac_kernels(torch, np, dev, errs)
 
     log("phase 4: the slice at full size")
     from repro_torch.imgproc import (PIPELINES, compile_pipeline,
@@ -962,8 +1364,34 @@ def main():
     for line in format_table(f_rows).splitlines():
         log("    " + line)
 
+    log("phase 4c: the MAC path at full size")
+    a8, b8 = gemm_operands(torch, np)
+    (m_outs, m_rows), m_launches = run_counted(
+        torch, counts, MAC_PATH_KERNELS,
+        lambda: run_mac_path(torch, np, batch, a8, b8), "MAC path")
+    for name in MAC_PATH_KERNELS:
+        launches[name] = m_launches[name]
+    t0 = time.perf_counter()
+    cpu_m, _ = run_mac_path(torch, np, batch, a8[:GEMM_CPU_ROWS], b8,
+                            backend="torch", device="cpu", corpus=False)
+    log(f"  CPU path: {time.perf_counter() - t0:.1f} s")
+    check_mac_outputs(torch, m_outs, cpu_m)
+    log(f"  {len(cpu_m)} outputs equal the CPU path (the four GEMMs on their "
+        f"first {GEMM_CPU_ROWS} rows); run_corpus on image 0 with conv3x3 "
+        f"among the default workloads was held against the CPU path in "
+        f"phase 4")
+    check(all(0 < r.ssim <= 1.0 + 1e-12 and (np.isfinite(r.psnr)
+                                            or r.psnr == float("inf"))
+              for r in m_rows),
+          f"conv3x3 corpus scores out of range: {m_rows}")
+    log("  run_corpus(workloads=('conv3x3',)) on synthetic_batch(4, 1024), "
+        "PSNR dB / SSIM:")
+    for line in format_table(m_rows).splitlines():
+        log("    " + line)
+
     log("phase 5: times (CUDA events, median)")
-    entries = measure(torch, np, dev, launches, errs)
+    int32_ops_per_s = int32_rate(torch, dev)
+    entries = measure(torch, np, dev, launches, errs, int32_ops_per_s)
     chain = time_chain(torch, gbatch)
     for requant, (sec, mpix) in chain.items():
         log(f"  megapixel chain gaussian_blur -> sharpen -> downsample2x, "
@@ -971,6 +1399,9 @@ def main():
             f"{tuple(gbatch.shape)} batch = {mpix:.1f} MPix/s")
     profile_chain(torch, gbatch, chain["stage"][0])
     time_fft(torch, np, img, batch, dev)
+    log("phase 5c: the MAC kernels' times")
+    entries += measure_mac(torch, np, dev, launches, errs, int32_ops_per_s)
+    time_conv3x3(torch, batch)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

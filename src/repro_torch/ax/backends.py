@@ -21,7 +21,15 @@ kernel for the elementwise ``add`` only, as the reference's Pallas
 backends do.  Exact kinds have no table and take the plain add.
 
 Both backends also run one radix-2 FFT butterfly stage
-(:meth:`Backend.butterfly`), the paper's Fig-5 datapath.
+(:meth:`Backend.butterfly`), the paper's Fig-5 datapath, and the MAC
+primitives of :mod:`repro_torch.ax.mul`'s multipliers: the elementwise
+:meth:`Backend.mul` (reference, fused and lut forms on both), the 2D MAC
+:meth:`Backend.conv2d` and both :meth:`Backend.matmul` paths (the
+exact-product int8 GEMM, and the MAC GEMM when a multiplier is given).
+The ``"torch"`` backend follows the reference's ``"jax"`` backend,
+every strategy included; the ``"cuda"`` backend's ``conv2d`` and
+``matmul`` raise for the adder's lut strategy, as the reference's Pallas
+backends do, and its exact-product GEMM takes int8 operands only.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from typing import Callable, Dict, NamedTuple, Tuple, Union
 
 import torch
 
+from repro_torch.ax.mul.registry import get_multiplier
+from repro_torch.ax.mul.specs import MulSpec
 from repro_torch.ax.registry import get_adder
 from repro_torch.core.specs import AdderSpec
 
@@ -82,6 +92,13 @@ def _use_lut(spec: AdderSpec, strategy: str) -> bool:
         and not get_adder(spec.kind).is_exact
 
 
+def _use_mul_lut(mul_spec: MulSpec, strategy: str) -> bool:
+    """Multiplier-side twin of :func:`_use_lut`: the accurate kind's
+    native multiply beats any gather."""
+    return _require_concrete(strategy) == "lut" \
+        and not get_multiplier(mul_spec.kind).is_exact
+
+
 class FilterStage(NamedTuple):
     """One separable-filter pass of a :meth:`Backend.filter_chain`:
     replicate-padded taps at ``offsets`` along ``axis``, exact integer
@@ -103,6 +120,55 @@ def edge_taps(q: torch.Tensor, axis: int, offsets):
     base = torch.arange(n, device=q.device)
     return [q.index_select(axis, (base + o).clamp(0, n - 1))
             for o in offsets]
+
+
+def conv_taps(q: torch.Tensor, kh: int, kw: int):
+    """Replicate-padded shifted views for a (kh, kw) 2D kernel over the
+    trailing (H, W) dims, in row-major tap order: view (dy, dx) at output
+    (y, x) reads ``q[..., clamp(y + dy - kh//2), clamp(x + dx - kw//2)]``.
+    THE 2D tap builder of the conv datapaths, like :func:`edge_taps` for
+    the separable chains."""
+    h, w = q.shape[-2], q.shape[-1]
+    rows = torch.arange(h, device=q.device)
+    cols = torch.arange(w, device=q.device)
+    views = []
+    for dy in range(kh):
+        r = q.index_select(-2, (rows + dy - kh // 2).clamp(0, h - 1))
+        for dx in range(kw):
+            views.append(r.index_select(-1,
+                                        (cols + dx - kw // 2).clamp(0, w - 1)))
+    return views
+
+
+def check_conv_kernel(kernel) -> Tuple[int, int, Tuple[int, ...]]:
+    """Validate a static conv kernel: rectangular tuple-of-tuples of ints,
+    odd dims.  Returns (kh, kw, row-major flat weights)."""
+    kh = len(kernel)
+    if kh == 0 or kh % 2 == 0:
+        raise ValueError(f"kernel height must be odd and nonzero, got {kh}")
+    kw = len(kernel[0])
+    if kw == 0 or kw % 2 == 0:
+        raise ValueError(f"kernel width must be odd and nonzero, got {kw}")
+    if any(len(row) != kw for row in kernel):
+        raise ValueError("kernel rows must have equal length")
+    return kh, kw, tuple(int(w) for row in kernel for w in row)
+
+
+def _lanes(x: torch.Tensor) -> torch.Tensor:
+    """Operand lanes as the reference's ``jax`` backend takes them: a
+    signed tensor as int32 read as its unsigned pattern, an unsigned one
+    as it is; int64 either way."""
+    if x.dtype.is_signed:
+        from repro_torch.kernels.approx_add import u32_lanes
+        return u32_lanes(x.to(torch.int32))
+    return x.to(torch.int64)
+
+
+def _like(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The product in the operand's dtype, as the reference's ``_like``:
+    int32 (the low 32 bits) for signed operands, else ``dtype``."""
+    from repro_torch.kernels.approx_add import to_int32
+    return to_int32(p) if dtype.is_signed else p.to(dtype)
 
 
 def run_stages(q: torch.Tensor, spec: AdderSpec, stages,
@@ -166,6 +232,32 @@ class Backend:
         returns (top_re, top_im, bot_re, bot_im)."""
         raise NotImplementedError
 
+    def mul(self, a, b, mul_spec: MulSpec, *, strategy: str = "reference"):
+        """Elementwise approximate multiply on unsigned N-bit operand
+        patterns; returns the FULL product (int32 for signed operands,
+        else the operands' dtype)."""
+        raise NotImplementedError
+
+    def conv2d(self, q, spec: AdderSpec, mul_spec: MulSpec, kernel, *,
+               shift: int = 0, strategy: str = "reference"):
+        """2D MAC convolution on SIGNED values, ``|q| < 2^w``: per-tap
+        products through the approximate multiplier (sign-magnitude,
+        static integer weights), the taps folded through the approximate
+        adder mod 2^N in row-major order, sign extension, then an exact
+        rounding right-``shift``; replicate edges.  int32 out."""
+        raise NotImplementedError
+
+    def matmul(self, a, b, spec: AdderSpec, *, block=(128, 128, 128),
+               strategy: str = "reference",
+               mul_spec: "MulSpec | None" = None):
+        """(M, K) @ (K, N) -> int32 with K tiles of ``block[2]``.  With
+        ``mul_spec=None`` (or an exact kind): exact per-tile int8 dots
+        and approximate inter-tile folds.  With an approximate
+        ``mul_spec``: every product through the multiplier (the signed
+        table), exact sums in the tile, approximate folds between
+        tiles.  ``block[0]``/``block[1]`` do not change the result."""
+        raise NotImplementedError
+
     def __repr__(self):  # pragma: no cover - cosmetic
         return f"<ax backend {self.name!r}>"
 
@@ -199,6 +291,32 @@ class TorchBackend(Backend):
         return butterfly_plain(a_re, a_im, b_re, b_im, w_re, w_im, spec,
                                inverse=inverse)
 
+    def mul(self, a, b, mul_spec, *, strategy="reference"):
+        from repro_torch.kernels.mul import mul_lanes
+        p = mul_lanes(_lanes(a), _lanes(b), mul_spec,
+                      _require_concrete(strategy))
+        return _like(p, a.dtype)
+
+    def _fold(self, spec, strategy):
+        """The inter-term fold on int32 containers, in ``strategy``."""
+        _require_concrete(strategy)
+        return lambda x, y: self.add(x, y, spec, strategy=strategy)
+
+    def conv2d(self, q, spec, mul_spec, kernel, *, shift=0,
+               strategy="reference"):
+        from repro_torch.kernels.conv2d_mac import conv2d_mac_plain
+        return conv2d_mac_plain(q, spec, mul_spec, kernel, shift,
+                                add=self._fold(spec, strategy))
+
+    def matmul(self, a, b, spec, *, block=(128, 128, 128),
+               strategy="reference", mul_spec=None):
+        add = self._fold(spec, strategy)
+        if mul_spec is not None and not mul_spec.is_exact:
+            from repro_torch.kernels.mac_matmul import mac_matmul_plain
+            return mac_matmul_plain(a, b, spec, mul_spec, block[2], add=add)
+        from repro_torch.kernels.approx_matmul import approx_matmul_plain
+        return approx_matmul_plain(a, b, spec, block[2], add=add)
+
 
 class CudaBackend(Backend):
     """The hand-written CUDA kernels; CUDA tensors only."""
@@ -218,12 +336,13 @@ class CudaBackend(Backend):
 
     def _kernel_fast(self, spec, strategy, what) -> bool:
         """The accumulation kernels fold the registered impls; the lut
-        strategy has a kernel for the elementwise add only."""
+        strategy has kernels for the elementwise add and mul only."""
         if _use_lut(spec, strategy):
             raise NotImplementedError(
                 f"the lut strategy is implemented for the elementwise add "
-                f"only, not for {what} on the {self.name!r} backend; use "
-                f"strategy='fused' (or the 'torch' backend for lut)")
+                f"and mul only, not for {what} on the {self.name!r} "
+                f"backend; use strategy='fused' (or the 'torch' backend for "
+                f"lut)")
         return _fast(strategy)
 
     def add(self, a, b, spec, *, strategy="reference"):
@@ -256,6 +375,46 @@ class CudaBackend(Backend):
         self._require_cuda("butterfly", a_re, a_im, b_re, b_im, w_re, w_im)
         return butterfly(a_re, a_im, b_re, b_im, w_re.contiguous(),
                          w_im.contiguous(), spec, inverse=inverse, fast=True)
+
+    def mul(self, a, b, mul_spec, *, strategy="reference"):
+        """The kernel takes int32; other integer operands are converted
+        and the product returned as :func:`_like` says."""
+        from repro_torch.ax.mul.lut import MAX_MUL_LUT_BITS, \
+            mul_lut_supported
+        from repro_torch.kernels.mul import mul
+        self._require_cuda("mul", a, b)
+        if _use_mul_lut(mul_spec, strategy) \
+                and not mul_lut_supported(mul_spec):
+            raise NotImplementedError(
+                f"no compilable product table for {mul_spec.short_name} "
+                f"(n_bits > {MAX_MUL_LUT_BITS}); use strategy='fused'")
+        p = mul(a.to(torch.int32).contiguous(),
+                b.to(torch.int32).contiguous(), mul_spec, strategy=strategy)
+        return p if a.dtype.is_signed else p.to(a.dtype)
+
+    def conv2d(self, q, spec, mul_spec, kernel, *, shift=0,
+               strategy="reference"):
+        from repro_torch.kernels.conv2d_mac import conv2d_mac
+        fast = self._kernel_fast(spec, strategy, "conv2d")
+        self._require_cuda("conv2d", q)
+        return conv2d_mac(q.to(torch.int32).contiguous(), spec, mul_spec,
+                          kernel, shift=shift, fast=fast)
+
+    def matmul(self, a, b, spec, *, block=(128, 128, 128),
+               strategy="reference", mul_spec=None):
+        """The MAC GEMM takes the operands as int32; the exact-product
+        GEMM takes int8 only (``approx_matmul`` raises ``TypeError`` for
+        any other dtype, as ``approx_matmul_pallas`` refuses them)."""
+        fast = self._kernel_fast(spec, strategy, "matmul")
+        self._require_cuda("matmul", a, b)
+        if mul_spec is not None and not mul_spec.is_exact:
+            from repro_torch.kernels.mac_matmul import mac_matmul
+            return mac_matmul(a.to(torch.int32).contiguous(),
+                              b.to(torch.int32).contiguous(), spec,
+                              mul_spec, bk=block[2], fast=fast)
+        from repro_torch.kernels.approx_matmul import approx_matmul
+        return approx_matmul(a.contiguous(), b.contiguous(), spec,
+                             bk=block[2], fast=fast)
 
 
 # --------------------------------------------------------------- registry --

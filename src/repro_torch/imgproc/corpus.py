@@ -61,9 +61,9 @@ def run_corpus(kinds: Optional[Sequence[str]] = None,
                workload_kw: Optional[dict] = None) -> List[CorpusResult]:
     """Sweep ``kinds`` x ``workloads`` over one image batch.
 
-    Defaults: the paper's Table-I kinds, every batched (operator and
-    pipeline) workload, a 4-image 64x64 synthetic batch, the ``"cuda"``
-    backend on the card.  The FFT reconstruction workload joins only
+    Defaults: the paper's Table-I kinds, every batched (operator,
+    pipeline and ``conv3x3``) workload, a 4-image 64x64 synthetic batch,
+    the ``"cuda"`` backend on the card.  The FFT reconstruction workload joins only
     with ``include_fft=True`` (or when named in ``workloads``).
     Every cell runs an untimed warm-up call first (kernel build, engine
     caches), then the timed call; workloads return host arrays, so the

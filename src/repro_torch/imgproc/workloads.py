@@ -9,14 +9,15 @@ here:
 - every operator in :mod:`repro_torch.imgproc.ops`, run once on the
   whole batch,
 - every stock pipeline in :data:`repro_torch.imgproc.plan.PIPELINES`,
-  and
+- ``conv3x3``, a 3x3 MAC convolution through ``engine.conv2d`` (every
+  tap product through the approximate multiplier, the taps through the
+  N=16 adder), and
 - the paper's Fig-5 FFT -> IFFT reconstruction
   (:func:`repro_torch.image.pipeline.reconstruct`) at the paper's N=32
   adders, whose reference is the source image itself.
 
 Binary operators pair each image with the next one in the batch
-(``roll(imgs, 1)``).  The reference's ``conv3x3`` (MAC engine) workload
-is not ported yet.
+(``roll(imgs, 1)``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import dataclasses
 from typing import Callable, Dict, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.imgproc import ops as ops_lib
 
@@ -145,6 +147,55 @@ def _register_pipelines():
 
 
 _register_pipelines()
+
+
+# -------------------------------------------------- MAC conv workload --
+
+#: 3x3 learned-style smoothing kernel with a non-power-of-two weight sum
+#: (21): every tap product must run a real multiplier (no shift-and-add
+#: escape), which is what the MAC datapath (engine.conv2d) exists for.
+CONV3X3_KERNEL = ((1, 3, 1), (3, 5, 3), (1, 3, 1))
+_CONV3X3_SUM = 21
+
+
+def _conv3x3_run(imgs, kind="haloc_axa", backend=None, fast=False,
+                 strategy=None, device=None, mul=None):
+    """3x3 MAC convolution through ``engine.conv2d``: pixel values
+    (|q| < 2^8, the 8-bit multiplier operand domain) hit the approximate
+    multiplier at every tap, tap sums fold through the N=16 approximate
+    adder (headroom: 255 * 21 = 5355 < 2^15), and the /21 normalization
+    is one exact rounded division on the host.  ``mul`` accepts a MulSpec
+    or kind name (default: truncated t=3)."""
+    from repro_torch.ax.mul import MulSpec
+    if mul is None:
+        mul = MulSpec("truncated", n_bits=8, trunc_bits=3)
+    ax = ops_lib.make_image_engine(kind, backend=backend, fast=fast,
+                                   strategy=strategy,
+                                   device=device).replace(mul=mul)
+    q = ax.tensor(np.asarray(imgs)).to(torch.int32)
+    v = ax.conv2d(q, CONV3X3_KERNEL).cpu().numpy().astype(np.int64)
+    out = (v + _CONV3X3_SUM // 2) // _CONV3X3_SUM
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def _conv3x3_reference(imgs, mul=None, **_kw):
+    """Exact integer conv and the same rounded /21, so an exact adder AND
+    an exact multiplier reproduce it bit for bit (``mul`` is an execution
+    knob; every configuration scores against this one golden)."""
+    del mul
+    x = np.asarray(imgs).astype(np.int64)
+    p = np.pad(x, [(0, 0)] * (x.ndim - 2) + [(1, 1), (1, 1)], mode="edge")
+    h, w = x.shape[-2], x.shape[-1]
+    acc = np.zeros_like(x)
+    for dy, row in enumerate(CONV3X3_KERNEL):
+        for dx, wt in enumerate(row):
+            acc = acc + wt * p[..., dy:dy + h, dx:dx + w]
+    out = (acc + _CONV3X3_SUM // 2) // _CONV3X3_SUM
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+register_workload(Workload(name="conv3x3", run=_conv3x3_run,
+                           reference=_conv3x3_reference))
 
 
 # -------------------------------------------- FFT->IFFT reconstruction --

@@ -7,14 +7,15 @@ library with a plain C interface::
          -Xcompiler -fPIC -D... -o <build>/lib<name>-<hash>.so <name>.cu
 
 and loaded with ``ctypes``.  ``<hash>`` covers the source, the shared
-header and the flags, so an edited source is rebuilt and a stale library
+headers and the flags, so an edited source is rebuilt and a stale library
 is never loaded.  :func:`build_all` starts one ``nvcc`` per source at
 once.
 
-The ``-D`` flags carry the two tables the kernels and their wrappers
-share, so each is stated once, here: the adder kinds' ids
-(:data:`DEVICE_KINDS`, the cases of ``approx_add`` in ``adders.cuh``)
-and the sizes of the parameter structs (:data:`MAX_TERMS`,
+The ``-D`` flags carry the tables the kernels and their wrappers share,
+so each is stated once, here: the adder kinds' ids (:data:`DEVICE_KINDS`,
+the cases of ``approx_add`` in ``adders.cuh``), the multiplier kinds'
+ids (:data:`MUL_DEVICE_KINDS`, the cases of ``approx_mul`` in
+``muls.cuh``) and the sizes of the parameter structs (:data:`MAX_TERMS`,
 :data:`MAX_STAGES`, :data:`MAX_TAPS`).
 
 ``<build>`` is ``$REPRO_TORCH_BUILD_DIR`` when that is set, else
@@ -41,13 +42,18 @@ from typing import Dict, Iterable, Tuple
 
 PACKAGE = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
-SOURCES = ("approx_add", "accumulate", "conv_chain", "lut_add", "butterfly")
-HEADERS = ("adders.cuh",)
+SOURCES = ("approx_add", "accumulate", "conv_chain", "lut_add", "butterfly",
+           "mul", "mac_matmul", "conv2d_mac", "approx_matmul")
+HEADERS = ("adders.cuh", "muls.cuh")
 
 #: Kind -> id of its device function in ``csrc/adders.cuh``.
 DEVICE_KINDS = {
     "accurate": 0, "loa": 1, "loawa": 2, "oloca": 3, "herloa": 4,
     "m_herloa": 5, "haloc_axa": 6, "eta": 7,
+}
+#: Multiplier kind -> id of its device function in ``csrc/muls.cuh``.
+MUL_DEVICE_KINDS = {
+    "accurate": 0, "truncated": 1, "broken_array": 2, "mitchell": 3,
 }
 #: Most terms one accumulate launch folds (its struct's weight array).
 MAX_TERMS = 16
@@ -55,7 +61,9 @@ MAX_TERMS = 16
 MAX_STAGES, MAX_TAPS = 4, 9
 
 DEFINES = tuple(f"-DKIND_{kind.upper()}={kid}"
-                for kind, kid in DEVICE_KINDS.items()) + (
+                for kind, kid in DEVICE_KINDS.items()) + tuple(
+    f"-DMUL_KIND_{kind.upper()}={kid}"
+    for kind, kid in MUL_DEVICE_KINDS.items()) + (
     f"-DMAX_TERMS={MAX_TERMS}", f"-DMAX_STAGES={MAX_STAGES}",
     f"-DMAX_TAPS={MAX_TAPS}")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -12,7 +12,8 @@ in registers.
 There is no fallback from one to the other.
 
 The lane helpers here (:func:`u32_lanes`, :func:`to_int32`,
-:func:`adder_args`) are shared with the other kernel modules.
+:func:`signed32`, :func:`adder_args`) are shared with the other kernel
+modules.
 """
 
 from __future__ import annotations
@@ -40,6 +41,13 @@ def to_int32(s: torch.Tensor) -> torch.Tensor:
     explicit (values >= 2^31 become negative, as a bitcast would)."""
     s = s & _U32
     return (s - ((s >> 31) << 32)).to(torch.int32)
+
+
+def signed32(x: torch.Tensor) -> torch.Tensor:
+    """int64 lanes -> the int32 value of their low 32 bits, kept as int64
+    (so that a following shift is arithmetic, as on int32)."""
+    x = x & _U32
+    return x - ((x >> 31) << 32)
 
 
 def adder_args(spec: AdderSpec, fast: bool):

@@ -33,18 +33,12 @@ import torch
 from repro_torch.core.adders import approx_add_mod
 from repro_torch.core.specs import AdderSpec
 from repro_torch.kernels import _build
-from repro_torch.kernels.approx_add import (adder_args, on_cpu, stream_ptr,
-                                            to_int32)
+from repro_torch.kernels.approx_add import (adder_args, on_cpu, signed32,
+                                            stream_ptr, to_int32)
 
 TWIDDLE_FRAC = 14
 
 _U32 = 0xFFFFFFFF
-
-
-def _signed32(x: torch.Tensor) -> torch.Tensor:
-    """int64 lanes -> the int32 value of their low 32 bits (as int64)."""
-    x = x & _U32
-    return x - ((x >> 31) << 32)
 
 
 def butterfly_plain(a_re, a_im, b_re, b_im, w_re, w_im, spec: AdderSpec, *,
@@ -67,7 +61,7 @@ def butterfly_plain(a_re, a_im, b_re, b_im, w_re, w_im, spec: AdderSpec, *,
     t_re, t_im = add(rr, -ii), add(ri, ir)
     outs = (add(ar, t_re), add(ai, t_im), add(ar, -t_re), add(ai, -t_im))
     if inverse:
-        outs = tuple(_signed32(x + 1) >> 1 for x in outs)
+        outs = tuple(signed32(x + 1) >> 1 for x in outs)
     return tuple(to_int32(x) for x in outs)
 
 

@@ -166,3 +166,109 @@ def test_reconstruct_and_lut_engine_on_card(cuda_device):
     assert torch.equal(eng.add(a, b).cpu(), cpu.add(a, b))
     with pytest.raises(NotImplementedError, match="elementwise add"):
         eng.accumulate(torch.stack([a, b]).to(cuda_device))
+
+
+# ------------------------------------------------------- the MAC kernels --
+
+MUL_SPECS = [("accurate", 8, 0, 0), ("truncated", 8, 3, 0),
+             ("broken_array", 8, 4, 2), ("mitchell", 8, 0, 0),
+             ("mitchell", 8, 3, 0), ("truncated", 10, 5, 0)]
+
+
+@pytest.mark.parametrize("cfg", MUL_SPECS, ids=lambda c: "-".join(map(str, c)))
+def test_mul_on_card(cuda_device, cfg):
+    from repro_torch.ax.mul import MulSpec
+    from repro_torch.kernels import mul as mul_k
+    spec = MulSpec(*cfg)
+    n = 1 << spec.n_bits
+    a, b = torch.meshgrid(torch.arange(n, dtype=torch.int32),
+                          torch.arange(n, dtype=torch.int32), indexing="ij")
+    for a_, b_ in ((a.contiguous(), b.contiguous()),
+                   (a.reshape(-1)[:n * n - 3], b.reshape(-1)[:n * n - 3])):
+        want = mul_k.mul_plain(a_, b_, spec)
+        for strategy in ("reference", "fused", "lut"):
+            got = mul_k.mul(a_.to(cuda_device), b_.to(cuda_device), spec,
+                            strategy=strategy).cpu()
+            assert torch.equal(got, want), strategy
+
+
+@pytest.mark.parametrize("n_bits,m,k", [(32, 10, 5), (16, 8, 4)])
+def test_matmuls_on_card(cuda_device, n_bits, m, k):
+    from repro_torch.ax.mul import MulSpec
+    from repro_torch.kernels import approx_matmul as mm_k
+    from repro_torch.kernels import mac_matmul as mac_k
+    rng = np.random.default_rng(21)
+    cases = [((16, 300), (300, 24), 128), ((130, 64), (64, 70), 128),
+             ((5, 7), (7, 3), 2), ((64, 257), (257, 65), 100)]
+    for kind in specs.ALL_KINDS:
+        spec = specs.AdderSpec(kind, n_bits, m, k)
+        for (sa, sb, bk) in cases:
+            a = torch.as_tensor(rng.integers(-128, 128, sa, dtype=np.int8))
+            b = torch.as_tensor(rng.integers(-128, 128, sb, dtype=np.int8))
+            for fast in (False, True):
+                got = mm_k.approx_matmul(a.to(cuda_device),
+                                         b.to(cuda_device), spec, bk=bk,
+                                         fast=fast).cpu()
+                assert torch.equal(got, mm_k.approx_matmul_plain(
+                    a, b, spec, bk, fast)), (kind, sa, bk)
+                ms = MulSpec("truncated", 8, 3)
+                a32, b32 = a.to(torch.int32), b.to(torch.int32)
+                got = mac_k.mac_matmul(a32.to(cuda_device),
+                                       b32.to(cuda_device), spec, ms, bk=bk,
+                                       fast=fast).cpu()
+                assert torch.equal(got, mac_k.mac_matmul_plain(
+                    a32, b32, spec, ms, bk, fast)), (kind, sa, bk)
+
+
+@pytest.mark.parametrize("kind", specs.ALL_KINDS)
+def test_conv2d_mac_on_card(cuda_device, kind):
+    from repro_torch.ax.mul import MulSpec
+    from repro_torch.kernels import conv2d_mac as conv_k
+    rng = np.random.default_rng(5)
+    k5 = tuple(tuple(int(x) for x in row)
+               for row in rng.integers(-9, 10, (5, 5)))
+    spec = specs.AdderSpec(kind, 16, 8, 4)
+    for ms in (MulSpec("truncated", 8, 3), MulSpec("mitchell", 10)):
+        for shape in [(1, 1), (3, 17, 29), (2, 40, 33), (70, 5)]:
+            q = torch.as_tensor(rng.integers(-255, 256, shape)
+                                .astype(np.int32))
+            for kernel in (((1, 3, 1), (3, -5, 3), (1, 3, 1)), k5):
+                for shift in (0, 2):
+                    got = conv_k.conv2d_mac(q.to(cuda_device), spec, ms,
+                                            kernel, shift=shift,
+                                            fast=True).cpu()
+                    want = conv_k.conv2d_mac_plain(q, spec, ms, kernel, shift)
+                    assert torch.equal(got, want), (ms, shape, shift)
+    with pytest.raises(ValueError, match="2\\^8"):
+        conv_k.conv2d_mac(torch.full((2, 2), 256, dtype=torch.int32,
+                                     device=cuda_device), spec,
+                          MulSpec("truncated", 8, 3), ((1,),))
+
+
+def test_mac_engine_and_conv3x3_on_card(cuda_device):
+    from repro_torch.ax import make_engine
+    from repro_torch.ax.mul import MulSpec
+    from repro_torch.imgproc import get_workload
+    batch = synthetic_batch(2, 64)
+    wl = get_workload("conv3x3")
+    for kind in specs.TABLE1_KINDS:
+        assert np.array_equal(wl.run(batch, kind=kind),
+                              wl.run(batch, kind=kind, backend="torch",
+                                     device="cpu"))
+    spec = specs.AdderSpec("haloc_axa", 16, 8, 4)
+    rng = np.random.default_rng(9)
+    a = rng.integers(-128, 128, (96, 200), dtype=np.int8)
+    b = rng.integers(-128, 128, (200, 40), dtype=np.int8)
+    for mul in (None, MulSpec("truncated", 8, 3)):
+        gpu = make_engine(spec, mul=mul)
+        cpu = make_engine(spec, mul=mul, backend="torch", device="cpu")
+        assert torch.equal(gpu.matmul(a, b).cpu(), cpu.matmul(a, b))
+    qa = rng.integers(-128, 129, (3, 50)).astype(np.int32)
+    for strategy in ("reference", "fused", "lut"):
+        gpu = make_engine(spec, mul="mitchell", strategy=strategy)
+        cpu = make_engine(spec, mul="mitchell", strategy=strategy,
+                          backend="torch", device="cpu")
+        assert torch.equal(gpu.mul_signed(qa, qa).cpu(),
+                           cpu.mul_signed(qa, qa))
+    with pytest.raises(TypeError, match="int8"):
+        make_engine(spec).matmul(a.astype(np.int32), b)

@@ -23,6 +23,7 @@ from repro.image import fft as fft_j
 from repro.image import pipeline as pipe_j
 from repro.imgproc import get_workload as get_workload_j
 from repro.imgproc import run_corpus as run_corpus_j
+from repro.imgproc import workload_names as workload_names_j
 from repro.kernels.ref import ref_butterfly
 from repro_torch.ax import get_backend
 from repro_torch.ax import make_engine as make_engine_t
@@ -258,9 +259,9 @@ def test_fft_workload_and_corpus_match_reference():
         assert got.dtype == np.uint8
         np.testing.assert_array_equal(got, want, err_msg=kind)
     kinds = ("accurate", "haloc_axa", "loawa")
-    # the workloads both packages have (the reference's conv3x3 is not
-    # ported yet): with include_fft=True, every registered one
-    want = run_corpus_j(kinds=kinds, workloads=workload_names(),
+    # with include_fft=True, every workload the reference registers
+    assert workload_names() == workload_names_j()
+    want = run_corpus_j(kinds=kinds, workloads=workload_names_j(),
                         batch=batch, backend="jax")
     got = run_corpus(kinds=kinds, batch=batch, include_fft=True, **CPU)
     assert [(r.kind, r.workload) for r in got] == \

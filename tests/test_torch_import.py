@@ -43,6 +43,14 @@ def test_import_and_cpu_pipeline_load_no_jax():
         "'downsample2x'), backend='torch', device='cpu')\n"
         "out = pipe(synthetic_batch(2, 16))\n"
         "assert tuple(out.shape) == (2, 8, 8), out.shape\n"
+        "from repro_torch.ax import make_engine\n"
+        "from repro_torch.imgproc import get_workload\n"
+        "get_workload('conv3x3').run(synthetic_batch(1, 16), "
+        "backend='torch', device='cpu')\n"
+        "mac = make_engine('haloc_axa', mul='mitchell', backend='torch', "
+        "device='cpu')\n"
+        "mac.matmul(np.ones((2, 3), np.int8), np.ones((3, 2), np.int8))\n"
+        "mac.mul(np.ones(4, np.int32), np.ones(4, np.int32))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('LOADED', bad)\n"
@@ -185,6 +193,28 @@ def test_device_kind_table_is_the_headers():
     for src in PKG.glob("csrc/*.cu"):
         assert not re.search(r"#define (KIND_|MAX_)", src.read_text()), src
         assert "blocks_for(long long" not in src.read_text(), src
+
+
+def test_mul_device_kind_table_is_the_header():
+    """The multiplier kind ids of the build cover every stock multiplier,
+    and ``csrc/muls.cuh``'s switch names exactly those the -D flags
+    define (accurate is its default case)."""
+    from repro_torch.ax.mul import registered_multipliers
+    from repro_torch.kernels import _build
+
+    assert set(_build.MUL_DEVICE_KINDS) == set(registered_multipliers())
+    assert len(set(_build.MUL_DEVICE_KINDS.values())) == \
+        len(_build.MUL_DEVICE_KINDS)
+    header = (PKG / "csrc" / "muls.cuh").read_text()
+    cases = set(re.findall(r"case (MUL_KIND_\w+):", header))
+    defined = {d[2:].split("=")[0] for d in _build.DEFINES}
+    assert cases | {"MUL_KIND_ACCURATE"} == {
+        f"MUL_KIND_{k.upper()}" for k in _build.MUL_DEVICE_KINDS}
+    assert cases <= defined
+    assert "muls.cuh" in _build.HEADERS
+    for name in ("mul", "mac_matmul", "conv2d_mac", "approx_matmul"):
+        assert name in _build.SOURCES
+        assert (PKG / "csrc" / f"{name}.cu").is_file()
 
 
 def test_build_dir_rules(monkeypatch, tmp_path):

@@ -12,6 +12,7 @@ from repro.core.specs import TABLE1_KINDS
 from repro.imgproc import fused_psnr_gate as fused_psnr_gate_j
 from repro.imgproc import run_corpus as run_corpus_j
 from repro.imgproc import run_pipeline as run_pipeline_j
+from repro.imgproc import workload_names as workload_names_j
 from repro_torch.imgproc import (PIPELINES, compile_pipeline, compile_tiled,
                                  format_table, fused_psnr_gate, run_corpus,
                                  run_pipeline, run_tiled, synthetic_batch,
@@ -93,7 +94,10 @@ def test_tiled_validation():
 def test_corpus_rows_match_reference():
     kinds = ("accurate", "haloc_axa", "loawa")
     names = workload_names(batched_only=True)
-    assert len(names) == 10
+    # 8 operators, 2 stock pipelines and the conv3x3 MAC workload: the
+    # reference's batched sweep.
+    assert len(names) == 11 and "conv3x3" in names
+    assert names == workload_names_j(batched_only=True)
     want = run_corpus_j(kinds=kinds, workloads=names, batch=BATCH,
                         backend="jax")
     got = run_corpus(kinds=kinds, workloads=names, batch=BATCH, **CPU)
