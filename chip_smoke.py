@@ -10,7 +10,11 @@ Phases (any failure exits non-zero before the result line):
    for ``sm_90a`` (one ``nvcc`` per source, all at once);
 3. kernels: each kernel against its plain PyTorch version on the card,
    exact (``torch.equal``), every registered adder kind, reference and
-   fused forms, at the main path's shapes and on edge shapes;
+   fused forms, at the main path's shapes and on edge shapes
+   (``filter_chain``: both of its routes, the operators' chains on the
+   sep2 route and the ``same_axis`` and ``wide`` chains on the general
+   one, on 1 x 1 and 1 x 7 planes and planes whose W is not a multiple
+   of 4);
 4. the slice at full size, ``synthetic_batch(4, 1024)``: both stock
    pipelines x both requant modes x the seven Table-1 kinds through
    ``compile_pipeline``, the eight operators, ``engine.add_signed``,
@@ -24,10 +28,14 @@ Phases (any failure exits non-zero before the result line):
 5. times: each kernel at the main path's shapes (CUDA events, queued
    behind a sleep so host overhead is excluded, inputs rotated so they
    do not sit in the 50 MB L2), its plain version's time, and its bound
-   (the larger of its bytes over 3.35 TB/s and the least int32
-   operations its function needs over the card's int32 rate);
-   then the megapixel chain's MPix/s, and a ``torch.profiler`` breakdown
-   of the stage-mode chain by kernel with the device's idle share.
+   (the larger of its bytes over 3.35 TB/s and the fewest int32
+   instructions known for its function, LOP3 and IADD3 counting one,
+   over the card's int32 rate);
+   ``filter_chain``'s fused form, its vertical-first sobel_gx and its
+   general route (the gaussian, and same_axis) on the same planes, each
+   checked against its plain version first; then the megapixel
+   chain's MPix/s, and a ``torch.profiler`` breakdown of the stage-mode
+   chain by kernel with the device's idle share.
 
 The Fig-5 FFT and lut slice adds to phases 3-5:
 
@@ -58,7 +66,11 @@ The MAC slice adds to phases 3-5:
    N=8 (and at N=10, the uint32 table); ``mac_matmul`` and
    ``approx_matmul`` at 1024^3 (bk 128), on the ragged (16, 300) @
    (300, 24) and on a single K tile, every adder kind at n32m10k5 and
-   n16m8k4; ``conv2d_mac`` with 3 x 3 and 5 x 5 kernels holding negative
+   n16m8k4, on both of ``approx_matmul``'s staging routes (bk 100, 200,
+   32 and 96 and K = 257 and 300 on the general one; bk > K and bk 192
+   on the 16-byte one; 1024^3 with A one byte off 16), and an all -128
+   GEMM whose int32 dots pass 2^31 and must wrap (K = bk = 131073 and
+   131104); ``conv2d_mac`` with 3 x 3 and 5 x 5 kernels holding negative
    weights, signed inputs, shift 0 and 2, tap tables in shared and in
    global memory;
 4c. the slice's path at full size, with the counts set to 0 just before
@@ -68,8 +80,11 @@ The MAC slice adds to phases 3-5:
    kind's default 8-bit spec, and both ``engine.matmul`` paths at 1024^3
    (n32m10k5 and n16m8k4).  Every output equals the port's CPU path (the
    GEMMs on their first 64 rows);
-5c. the four kernels' times, plain times and bounds, and
-   ``torch._int_mm`` on the same int8 operands beside ``approx_matmul``.
+5c. the four kernels' times, plain times and bounds,
+   ``torch._int_mm`` on the same int8 operands beside ``approx_matmul``,
+   one ``approx_matmul`` call's device time by kernel (the B transpose
+   and the GEMM), and ``approx_matmul`` through its general staging
+   route.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -77,6 +92,7 @@ run from a directory without ``src/repro_torch``, it exits non-zero and
 prints no result.
 """
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -89,34 +105,63 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 #: INT32 lanes per SM on Hopper (an SM issues 64 INT32 operations a clock).
 INT32_LANES_PER_SM = 64
-#: The least integer operations of the timed functions, counted from the
-#: C source of csrc/adders.cuh, one per operator on data, with every
-#: constant (the masks) hoisted out of the per-element work.  One
-#: haloc_axa add mod 2^N: the fused form haloc_axa_add_fast, which is
-#: bit-identical to the reference form the kernels are timed in, has 16,
-#: plus the N-bit mask.  Three-input instructions (LOP3, IADD3) could
-#: fuse some further, so the operations bound may be lower still.
-OPS_PER_ADD = 17
-#: One tap's N-bit mask; one exact scale by a weight other than 1
-#: (multiply and mask; a weight of 1 passes the term through); a
-#: stage's sign extension; its rounding shift (when it has one).
-OPS_PER_MASK, OPS_PER_SCALE, OPS_SIGN_EXTEND, OPS_ROUND_SHIFT = 1, 2, 2, 2
+#: One haloc_axa add mod 2^N in the fewest Hopper instructions known: a
+#: LOP3 (any function of three registers), an IADD3 (a sum of three) and
+#: a LEA ((x << s) + y) count one each.  Every step reads at most three
+#: registers; the masks are hoisted and ANDed with ones(N) on the host,
+#: so the operands' N-bit masks fold into the first four steps.  With
+#: ``hic`` = ~ones(m - 1) the two masked operands' sum carries the
+#: speculated carry-in G1 into bit m and leaves P1 at bit m-1; the rest
+#: is the low section: (a | b) & (bit m-2 | the OR-ed bits), bit m-2's
+#: generate cleared from it (X2 = (a | b) ^ G2) and moved up to bit m-1,
+#: and the constant ones(k).  ``tests/test_torch_bounds.py`` runs the
+#: steps against the reference adder; the kernels' folds may take more.
+HALOC_AXA_ADD = (
+    ("ah", "LOP3", ("a", "hic"), lambda a, h: a & h),
+    ("bh", "LOP3", ("b", "hic"), lambda b, h: b & h),
+    ("g2", "LOP3", ("a", "b", "bit2"), lambda a, b, c: a & b & c),
+    ("o", "LOP3", ("a", "b", "mid"), lambda a, b, c: (a | b) & c),
+    ("low", "LOP3", ("o", "g2", "ones_k"), lambda o, g, c: (o ^ g) | c),
+    ("low", "LEA", ("g2", "low"), lambda g, lo: (g << 1) + lo),
+    ("s", "IADD3", ("ah", "bh"), lambda x, y: x + y),
+    ("out", "LOP3", ("s", "n_mask", "low"), lambda s, n, lo: (s & n) | lo),
+)
+OPS_PER_ADD = len(HALOC_AXA_ADD)
+
+
+def haloc_axa_masks(n_bits, m, k):
+    """The hoisted masks ``HALOC_AXA_ADD`` reads, for haloc_axa n{N}m{m}k{k}."""
+    n_mask = (1 << n_bits) - 1
+    bit2 = 1 << (m - 2)
+    return {"hic": ~((1 << (m - 1)) - 1) & n_mask, "bit2": bit2,
+            "mid": bit2 | ((1 << (m - 2)) - (1 << k)),
+            "ones_k": (1 << k) - 1, "n_mask": n_mask}
+
+
+#: Per tap of a fold, in instructions as above: its N-bit mask (none: it
+#: folds into the add's masks); an exact scale by a weight other than 1
+#: (one IMAD, or a shift for a power of two; a weight of 1 passes the term
+#: through); a stage's sign extension from N bits (one SGXT); its
+#: rounding shift, when it has one (add the half, shift).
+OPS_PER_MASK, OPS_PER_SCALE, OPS_SIGN_EXTEND, OPS_ROUND_SHIFT = 0, 1, 1, 2
 #: One Q1.14 twiddle product (a 32 x 32 -> 64 multiply-add of the
 #: rounding constant, then the 64-bit shift to its low word); one exact
 #: negate; one inverse-stage halving (add, shift).
 OPS_PER_Q14_PRODUCT, OPS_PER_NEGATE, OPS_PER_HALVE = 2, 1, 2
-#: One lut add: the two low masks, the index shift and or, the two high
-#: shifts, the high add and its shift, the entry add and the N-bit mask
-#: (the gather itself is counted in bytes: the table is read once).
-OPS_PER_LUT_ADD = 10
+#: One lut add: the two low masks (LOP3), the index (LEA), the two high
+#: masks (LOP3), the high parts' and the entry's sum (IADD3) and the
+#: N-bit mask (the gather itself is counted in bytes: the table is read
+#: once).
+OPS_PER_LUT_ADD = 7
 
-#: One MAC product of mac_matmul: the index OR, the table address and the
-#: add into the tile's partial (the gather itself is counted in neither
-#: bytes nor operations).
-OPS_PER_MAC_PRODUCT = 3
-#: One conv tap of conv2d_mac besides its add: the magnitude, the sign
-#: restore (negate, select) and the N-bit mask.
-OPS_PER_CONV_TAP = 4
+#: One MAC product of mac_matmul: the table address from B's element and
+#: the row base of A's, hoisted out of the loop over N (one LEA), and half
+#: an IADD3 (which adds two products into the tile's partial); the gather
+#: itself is counted in neither bytes nor operations.
+OPS_PER_MAC_PRODUCT = 1.5
+#: One conv tap of conv2d_mac besides its add: the magnitude and the sign
+#: restore (negate, select); its N-bit mask folds into the add's masks.
+OPS_PER_CONV_TAP = 3
 #: H100 SXM dense int8 tensor-core rate (ops/s), from the data sheet: the
 #: exact-product GEMM's int8 dot.
 INT8_TENSOR_OPS_PER_S = 1979e12
@@ -278,22 +323,34 @@ def check_kernels(torch, np, dev, errs):
                         chain_k.filter_chain(q, s, stages, fast=fast),
                         chain_k.filter_chain_plain(q, s, stages, fast),
                         f"{name} {s.short_name} fast={fast} full size")
+    # Edge shapes: 1 x 1 and 1 x 7 planes, W not a multiple of 4 (no
+    # 16-byte loads), tiles inside the image and on its border; the
+    # operators' chains take the sep2 route, same_axis and wide the
+    # general one.
     edge_shapes = [(1, 1), (1, 7), (7, 1), (2, 2), (3, 5), (2, 37, 70),
-                   (3, 1000, 1030), (1, 33, 65)]
+                   (3, 1000, 1030), (1, 33, 65), (2, 66, 258),
+                   (1, 100, 384), (1, 97, 390)]
+    routes = {name: chain_k.chain_route(chain_k.norm_stages(st, 2))
+              for name, st in edge_chains.items()}
+    check(routes == {"box": "sep2", "gauss": "sep2", "sobel_gx": "sep2",
+                     "sobel_gy": "sep2", "same_axis": "general",
+                     "wide": "general"}, f"filter_chain routes {routes}")
     for shape in edge_shapes:
         qe = torch.as_tensor(rng.integers(-1500, 1500, shape)
                              .astype(np.int32), device=dev)
         for name, stages in edge_chains.items():
-            for kind in ("haloc_axa", "eta", "loa"):
-                s = spec(kind, 16)
-                compare("filter_chain",
-                        chain_k.filter_chain(qe, s, stages, fast=True),
-                        chain_k.filter_chain_plain(qe, s, stages, True),
-                        f"{name} {s.short_name} {shape}")
+            for kind in kinds:
+                for fast in (False, True):
+                    s = spec(kind, 16)
+                    compare("filter_chain",
+                            chain_k.filter_chain(qe, s, stages, fast=fast),
+                            chain_k.filter_chain_plain(qe, s, stages, fast),
+                            f"{name} {s.short_name} {shape} fast={fast}")
     torch.cuda.synchronize()
     log(f"  filter_chain: 4 chains x {len(kinds)} kinds x 2 forms at "
-        f"{tuple(q.shape)}, {len(edge_chains)} chains x "
-        f"{len(edge_shapes)} edge shapes: equal")
+        f"{tuple(q.shape)}, {len(edge_chains)} chains (routes {routes}) x "
+        f"{len(edge_shapes)} edge shapes x {len(kinds)} kinds x 2 forms: "
+        f"equal")
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
 
 
@@ -454,10 +511,16 @@ def check_mac_kernels(torch, np, dev, errs):
 
     # The GEMMs: the path shape, test_mul's ragged operands, a single
     # K tile (K <= bk), a ragged M/N edge, every adder kind at both widths.
+    # approx_matmul's general staging route: bk 100, 200, 32 and 96, K =
+    # 257 and 300, M and N off the 64 grid; its 16-byte route: bk > K
+    # (K % 64 == 32), bk 192.
     g = GEMM_SIZE
     cases = [((g, g), (g, g), GEMM_BK), ((16, 300), (300, 24), 128),
              ((100, 128), (128, 72), 128), ((70, 96), (96, 130), 200),
-             ((33, 257), (257, 65), 100)]
+             ((33, 257), (257, 65), 100), ((70, 257), (257, 130), 100),
+             ((33, 300), (300, 65), 200), ((65, 80), (80, 63), 32),
+             ((96, 256), (256, 40), 512), ((128, 208), (208, 128), 96),
+             ((70, 320), (320, 136), 192)]
     operands = [(int8_operands(torch, np, rng, sa, dev),
                  int8_operands(torch, np, rng, sb, dev), bk)
                 for sa, sb, bk in cases]
@@ -490,10 +553,49 @@ def check_mac_kernels(torch, np, dev, errs):
                         mac_k.mac_matmul_plain(a32, b32, spec, ms, bk),
                         f"{spec.short_name} {ms.short_name} "
                         f"{tuple(a8.shape)}")
+    routes = sorted({(tuple(a8.shape), tuple(b8.shape), bk,
+                      mm_k.staging_route(a8.shape[1], bk, a8.data_ptr()))
+                     for a8, b8, bk in operands})
+    log(f"  approx_matmul staging routes: {routes}")
+    # The 1024^3 cell through the general route (A one byte off 16).
+    a8, b8, _ = operands[0]
+    buf = torch.empty(a8.numel() + 1, dtype=torch.int8, device=dev)
+    a_off = buf[1:].view(a8.shape)
+    a_off.copy_(a8)
+    check(mm_k.staging_route(g, GEMM_BK, a_off.data_ptr()) == "general",
+          "approx_matmul: a one-byte-offset A must take the general route")
+    for n_bits in (32, 16):
+        spec = spec_at("haloc_axa", n_bits)
+        compare("approx_matmul",
+                mm_k.approx_matmul(a_off, b8, spec, bk=GEMM_BK),
+                mm_k.approx_matmul(a8, b8, spec, bk=GEMM_BK),
+                f"{spec.short_name} 1024^3 general route vs 16-byte route")
+        compare("approx_matmul",
+                mm_k.approx_matmul(a_off[:GEMM_CPU_ROWS], b8, spec,
+                                   bk=GEMM_BK),
+                mm_k.approx_matmul_plain(a8[:GEMM_CPU_ROWS], b8, spec,
+                                         GEMM_BK),
+                f"{spec.short_name} 1024^3 general route, first rows")
+    # Every dot passes 2^31 and must wrap mod 2^32: all -128, one K tile
+    # of 2^17 + 1 (general route) and 2^17 + 32 (16-byte route).
+    for k_len in (131073, 131104):
+        a_w = torch.full((16, k_len), -128, dtype=torch.int8, device=dev)
+        b_w = torch.full((k_len, 16), -128, dtype=torch.int8, device=dev)
+        spec = spec_at("haloc_axa", 32)
+        got = mm_k.approx_matmul(a_w, b_w, spec, bk=k_len)
+        wrapped = (k_len * 16384 + 2 ** 31) % 2 ** 32 - 2 ** 31
+        check(wrapped < 0 and bool((got == wrapped).all()),
+              f"approx_matmul K={k_len} all -128: the int32 dot must wrap "
+              f"to {wrapped}")
+        compare("approx_matmul", got,
+                mm_k.approx_matmul_plain(a_w, b_w, spec, k_len),
+                f"wrap case K = bk = {k_len}")
     torch.cuda.synchronize()
     log(f"  approx_matmul and mac_matmul: {len(kinds)} kinds x 2 forms x "
-        f"{len(cases)} shapes (1024^3, ragged, single tile, edges) at "
-        f"n32m10k5 and n16m8k4, and every multiplier kind at 1024^3: equal")
+        f"{len(cases)} shapes (1024^3, ragged, single tile, edges, both "
+        f"staging routes) at n32m10k5 and n16m8k4, and every multiplier "
+        f"kind at 1024^3; approx_matmul's general route at 1024^3 and the "
+        f"2^31 wrap on both routes: equal")
 
     # conv2d_mac: the path shape, every kind; negative weights; 3 x 3 and
     # 5 x 5; shift 0 and 2; tables in shared memory (w=8) and global
@@ -790,13 +892,13 @@ def check_mac_outputs(torch, outs, cpu_outs):
 # ------------------------------------------------------------- phase 5 --
 
 def fold_ops(weights):
-    """Least operations of one weighted fold of len(weights) terms."""
+    """Least instructions of one weighted fold of len(weights) terms."""
     return (OPS_PER_SCALE * sum(w != 1 for w in weights)
             + OPS_PER_ADD * (len(weights) - 1))
 
 
 def chain_ops(stages):
-    """Least operations per pixel of a filter chain."""
+    """Least instructions per pixel of a filter chain."""
     return sum(OPS_PER_MASK * len(st.weights) + fold_ops(st.weights)
                + OPS_SIGN_EXTEND + (OPS_ROUND_SHIFT if st.shift else 0)
                for st in stages)
@@ -821,7 +923,7 @@ def time_launches(torch, fns, reps):
 
 
 def butterfly_ops(inverse):
-    """Least operations of one butterfly pair: six adds, four Q1.14
+    """Least instructions of one butterfly pair: six adds, four Q1.14
     products, three negates, and four halvings when inverse."""
     return (6 * OPS_PER_ADD + 4 * OPS_PER_Q14_PRODUCT + 3 * OPS_PER_NEGATE
             + (4 * OPS_PER_HALVE if inverse else 0))
@@ -918,6 +1020,35 @@ def measure(torch, np, dev, launches, errs, int32_ops_per_s):
     work["butterfly"] = butterfly_work(torch, np, rng, dev, bf_k,
                                        FFT_SIZE * FFT_SIZE // 2, 8)
     entries = time_entries(torch, work, launches, errs, int32_ops_per_s, n)
+    # filter_chain's other routes and form on the same planes: the fused
+    # gaussian, sobel_gx (the vertical stage first), the gaussian on the
+    # general route (what the sep2 route saves on the main path) and the
+    # general route's own case (same_axis: three stages, two on W).
+    others = {
+        "gaussian fused": (gauss, True, None),
+        "sobel_gx reference": ((FilterStage(-2, (-1, 0, 1), (1, 2, 1)),
+                                FilterStage(-1, (1, -1), (1, -1))), False,
+                               None),
+        "gaussian reference (general route)": (gauss, False, "general"),
+        "same_axis reference (general route)": (
+            (FilterStage(-1, (-2, 0, 3), (1, -3, 2), 1),
+             FilterStage(-1, (-1, 1), (2, 1)),
+             FilterStage(-2, (0, 2), (1, 1), 1)), False, None)}
+    for label, (stages, fast, route) in others.items():
+        with forced_chain_route(chain_k, route):
+            check(torch.equal(chain_k.filter_chain(planes[0], spec, stages,
+                                                   fast=fast),
+                              chain_k.filter_chain_plain(planes[0], spec,
+                                                         stages, fast)),
+                  f"filter_chain {label}: kernel != plain version")
+            ms = time_launches(torch, [lambda q=q: chain_k.filter_chain(
+                q, spec, stages, fast=fast) for q in planes], 40)
+        bound_ms, _, _ = bound(dict(bytes=2 * 4 * n,
+                                    ops=chain_ops(stages) * n),
+                               int32_ops_per_s)
+        log(f"  filter_chain {label}, haloc_axa N=16, int32 {shape}: "
+            f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms = "
+            f"{bound_ms / ms * 100:.1f}% of bound")
     # lut_add beside approx_add at the paper's N=32 (the 2 MiB m=10
     # table), and the butterfly at the other stage shapes of the path.
     ms_of = {e["name"]: e["ms"] for e in entries}
@@ -949,6 +1080,22 @@ def measure(torch, np, dev, launches, errs, int32_ops_per_s):
         log(f"  butterfly stage {what}, {w['what']}: kernel {ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms = {bound_ms / ms * 100:.1f}% of bound")
     return entries
+
+
+@contextlib.contextmanager
+def forced_chain_route(chain_k, route):
+    """Send every chain to ``route`` (``"general"``) while inside; None
+    leaves the wrapper's own choice.  Times what one route saves over
+    the other on the same chain."""
+    if route is None:
+        yield
+        return
+    chosen = chain_k.chain_route
+    chain_k.chain_route = lambda stages: route
+    try:
+        yield
+    finally:
+        chain_k.chain_route = chosen
 
 
 def time_entries(torch, work, launches, errs, int32_ops_per_s, n,
@@ -1007,20 +1154,21 @@ def butterfly_work(torch, np, rng, dev, bf_k, pairs, half):
 
 
 def conv_ops(kernel, shift):
-    """Least operations per pixel of conv2d_mac: per tap its magnitude,
-    sign restore and mask, T-1 approximate adds, the sign extension and
-    the rounding shift (when there is one)."""
+    """Least instructions per pixel of conv2d_mac: per tap its magnitude
+    and sign restore, T-1 approximate adds, the sign extension and the
+    rounding shift (when there is one)."""
     taps = sum(len(row) for row in kernel)
     return (OPS_PER_CONV_TAP * taps + OPS_PER_ADD * (taps - 1)
             + OPS_SIGN_EXTEND + (OPS_ROUND_SHIFT if shift else 0))
 
 
 def ops_truncated_mul(t):
-    """Least operations of one truncated product in the fused form
+    """Least instructions of one truncated product in the fused form
     (truncated_mul_fast, csrc/muls.cuh) at t truncated columns: the low
-    mask; per column a mask, a bit pick (shift, and), a multiply, a shift
-    and an add; the full product and the subtraction."""
-    return 1 + 6 * t + 2
+    mask; per column the operand's mask, the bit picked in place (b &
+    2^i, so no shift) and a multiply-add (IMAD); the full product less
+    the dropped mass (one IMAD)."""
+    return 1 + 3 * t + 1
 
 
 def measure_mac(torch, np, dev, launches, errs, int32_ops_per_s):
@@ -1115,11 +1263,25 @@ def measure_mac(torch, np, dev, launches, errs, int32_ops_per_s):
             a, b, accurate, bk=GEMM_BK, fast=fast) for a, b in gemms], 40)
         log(f"  approx_matmul with the accurate adder (fast={fast}): "
             f"{ms:.4f} ms, the same function as torch._int_mm")
+    # One call's device time by kernel: the B transpose and the GEMM.
+    call = (lambda: mm_k.approx_matmul(a0, b0, spec32, bk=GEMM_BK))
+    profile_calls(torch, call, time_wall(torch, call, 20),
+                  "approx_matmul 1024^3 wrapper", calls=10, top=4)
     for ms_spec in (MulSpec("truncated", 8, 3), MulSpec("mitchell", 8)):
         for form in ("fused", "lut"):
             ms = time_launches(torch, [lambda a=a, b=b: mul_k.mul(
                 a, b, ms_spec, strategy=form) for a, b in pairs], 40)
             log(f"  mul {ms_spec.short_name} {form}: {ms:.4f} ms")
+    # The general staging route at the same shape: A one byte off 16.
+    offs = []
+    for a, b in gemms[:8]:
+        buf = torch.empty(a.numel() + 1, dtype=torch.int8, device=dev)
+        offs.append((buf[1:].view(a.shape), b))
+        offs[-1][0].copy_(a)
+    ms_gen = time_launches(torch, [lambda a=a, b=b: mm_k.approx_matmul(
+        a, b, spec32, bk=GEMM_BK) for a, b in offs], 40)
+    log(f"  approx_matmul through the general staging route (A one byte "
+        f"off 16), haloc_axa n32m10k5: {ms_gen:.4f} ms")
     ms16 = time_launches(torch, [lambda a=a, b=b: mac_k.mac_matmul(
         a, b, spec16, trunc, bk=GEMM_BK) for a, b in gemms32], 20)
     mm16 = time_launches(torch, [lambda a=a, b=b: mm_k.approx_matmul(

@@ -9,11 +9,16 @@ residue as the reference's ``jax`` and ``pallas`` backends do (its
 ``numpy`` oracle keeps the carry-out instead; below N = 32 the two
 differ).  One tile returns the raw dot.  ``bk`` is part of the result.
 
-The CUDA kernel is ``csrc/approx_matmul.cu``: one block per 64 x 64
-output tile loops over every K tile in one launch, the dot on ``__dp4a``
-and uint32 accumulators in registers.  Its bound is the 7 folds per
-output (at 1024^3, bk 128) on the int32 lanes; the dot itself belongs on
-the tensor cores, which this simple kernel does not use.
+The CUDA kernel is ``csrc/approx_matmul.cu``.  Its bound is the 7 folds
+per output (at 1024^3, bk 128) on the int32 lanes; the dot itself is
+about 1 us on the tensor cores.  So the dot runs there (``mma.sync``
+m16n8k32 s8, wrapping s32 sums), B is first transposed into an (N, K)
+scratch so that both operands are K-major, K is staged in 64-byte chunks
+through a three-buffer ``cp.async`` ring, and each 64 x 64 output tile
+keeps its partial and its folded sums in registers, folding with the
+compile-time adder (``csrc/adders.cuh``).  :func:`staging_route` picks the
+16-byte staging or the general one (any ``bk``, K and alignment, zero-
+filled past each tile's end).
 
 :func:`approx_matmul` takes int8 tensors, as ``approx_matmul_pallas``
 does, and routes by where they live: CPU tensors take
@@ -30,9 +35,12 @@ from repro_torch.core.specs import AdderSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels.approx_add import (adder_args, approx_add_plain,
                                             on_cpu, stream_ptr, to_int32)
-from repro_torch.kernels.mac_matmul import TILE, check_gemm, fold_tiles
+from repro_torch.kernels.mac_matmul import check_gemm, fold_tiles
 
 _U32 = 0xFFFFFFFF
+#: The kernel's output tile (rows, columns) and K chunk in bytes
+#: (``csrc/approx_matmul.cu``'s TM, TN and KC).
+TILE, KC = (64, 64), 64
 
 
 def approx_matmul_plain(a: torch.Tensor, b: torch.Tensor, spec: AdderSpec,
@@ -62,9 +70,22 @@ def approx_matmul_plain(a: torch.Tensor, b: torch.Tensor, spec: AdderSpec,
 
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+
+
+def staging_route(k: int, bk: int, a_ptr: int) -> str:
+    """How the kernel stages K: ``"fast"`` (16-byte ``cp.async`` pieces)
+    when A's address is 16-byte aligned, ``k % 16 == 0`` (a piece lies
+    wholly inside K or wholly past it) and every K tile is whole chunks
+    of :data:`KC` (``bk % KC == 0``, or one tile: ``bk >= k``); else
+    ``"general"`` (byte staging, zero-filled past each tile's end).  Both
+    walk K in the same chunks and fold at the same places."""
+    bk = min(bk, k)
+    if a_ptr % 16 == 0 and k % 16 == 0 and (bk % KC == 0 or bk == k):
+        return "fast"
+    return "general"
 
 
 def approx_matmul(a: torch.Tensor, b: torch.Tensor, spec: AdderSpec, *,
@@ -85,16 +106,19 @@ def approx_matmul(a: torch.Tensor, b: torch.Tensor, spec: AdderSpec, *,
                          "device expected")
     args = adder_args(spec, fast)
     (m, k), n = a.shape, b.shape[1]
-    if -(-m // TILE) > 65535 or max(m, n, k) >= 2 ** 31:
+    if -(-m // TILE[0]) > 65535 or max(m, n, k) >= 2 ** 31:
         raise ValueError(f"approx_matmul: ({m}, {k}) @ ({k}, {n}) exceeds "
                          f"one launch's grid")
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
     if out.numel() == 0:
         return out
+    b_t = torch.empty((n, k), dtype=torch.int8, device=a.device)
+    fast_route = staging_route(k, bk, a.data_ptr()) == "fast"
     fn = _build.bind("approx_matmul", "approx_matmul_launch", _ARGTYPES)
     with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-                 min(bk, k), *args, stream_ptr(a.device))
+        err = fn(a.data_ptr(), b.data_ptr(), b_t.data_ptr(), out.data_ptr(),
+                 m, n, k, min(bk, k), int(fast_route), *args,
+                 stream_ptr(a.device))
     _build.check(err, "approx_matmul")
     approx_matmul.launches += 1
     return out

@@ -8,16 +8,24 @@ rounding shift; the chain equals stage-by-stage ``accumulate_signed``.
 
 The Pallas kernel keeps a whole plane in VMEM.  A 1024 x 1024 int32
 plane is 4 MiB, beyond the 227 KB of shared memory a block can use, so
-the CUDA kernel (``csrc/conv_chain.cu``) tiles the plane: each block
-loads its output tile plus the chain's summed halo (clipped to the
-image) into shared memory once, runs every stage there, and writes only
-the last stage's tile, so the chain moves one read and one write per
-pixel.  Its bound is the integer arithmetic (at least 86 int32
-operations per pixel for the gaussian chain, counted from the fused form
-of the adder in the C source), which takes about twice as long on the
-card as that traffic.  Every stage clamps its tap
-coordinates to the image against its own input, so the tiled chain
-keeps the reference's per-stage replicate edges at the image border.
+the CUDA kernel (``csrc/conv_chain.cu``) tiles the plane and keeps every
+stage's values in shared memory, so the chain moves one read and one
+write per pixel.  Its bound is the integer arithmetic (40 instructions
+per pixel for the gaussian chain, 8 per haloc_axa add), as long as that
+traffic, so the kernel is a template on the adder's kind and form (masks
+hoisted, no kind switch per add) with a 2-D thread layout (no division
+per output).
+:func:`chain_route` picks one of two routes:
+
+- ``"sep2"``, the operators' chains (two stages, one per axis, at most 3
+  taps in [-1, 1]): 32 x 128 tiles loaded with a one-pixel frame, 16-byte
+  loads and no clamps inside the image, replicate-clamped loads at its
+  border; no clamp after the load.
+- ``"general"``, every other chain: 32 x 64 tiles plus the chain's summed
+  halo (clipped to the image), each stage's taps clamped to the image
+  against its own input.
+
+Both keep the reference's per-stage replicate edges at the image border.
 
 :func:`filter_chain` routes by where the tensor lives: a CPU tensor
 takes :func:`filter_chain_plain`, a CUDA tensor launches the kernel or
@@ -39,8 +47,11 @@ from repro_torch.kernels.approx_add import (adder_args, check_cuda, on_cpu,
                                             stream_ptr)
 
 MAX_STAGES, MAX_TAPS = _build.MAX_STAGES, _build.MAX_TAPS
-#: Output tile of one block (rows, columns).
+#: Output tile of one block (rows, columns) on the general route.
 TILE = (32, 64)
+#: Output tile of one block on the sep2 route (``csrc/conv_chain.cu``'s
+#: S_TH, S_TW); its shared tile holds a one-pixel frame around it.
+SEP2_TILE = (32, 128)
 #: Shared memory one block may use on sm_90 (bytes).
 MAX_SMEM = 232448
 
@@ -77,19 +88,32 @@ def filter_chain_plain(q: torch.Tensor, spec: AdderSpec, stages,
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p)
+
+
+def chain_route(stages) -> str:
+    """The kernel's route for a normalized chain: ``"sep2"`` for two
+    stages on different axes with at most 3 taps each, every offset in
+    [-1, 1] (the operators' box, gaussian and sobel chains); else
+    ``"general"``."""
+    if (len(stages) == 2 and stages[0].axis != stages[1].axis
+            and all(len(st.offsets) <= 3
+                    and all(-1 <= o <= 1 for o in st.offsets)
+                    for st in stages)):
+        return "sep2"
+    return "general"
 
 
 def _stage_arrays(stages):
     """The stages as the flat int and weight arrays the C entry takes:
-    per stage (axis, n_taps, shift, unit_mask, offsets[MAX_TAPS]) and
+    per stage (axis, n_taps, shift, offsets[MAX_TAPS]) and
     weights[MAX_TAPS] as ``w & 0xFFFFFFFF``."""
     ints, wts = [], []
     for st in stages:
-        unit = sum(1 << j for j, w in enumerate(st.weights) if w == 1)
         pad = MAX_TAPS - len(st.offsets)
-        ints += [0 if st.axis == -1 else 1, len(st.offsets), st.shift, unit]
+        ints += [0 if st.axis == -1 else 1, len(st.offsets), st.shift]
         ints += list(st.offsets) + [0] * pad
         wts += [w & 0xFFFFFFFF for w in st.weights] + [0] * pad
     n = max(len(ints), 1)
@@ -120,7 +144,8 @@ def filter_chain(q: torch.Tensor, spec: AdderSpec, stages, *,
                                        for st in stages):
         raise ValueError(f"the chain kernel takes at most {MAX_STAGES} "
                          f"stages of at most {MAX_TAPS} taps")
-    if _smem_bytes(stages) > MAX_SMEM:
+    sep2 = chain_route(stages) == "sep2"
+    if not sep2 and _smem_bytes(stages) > MAX_SMEM:
         raise ValueError(f"the chain's halo needs {_smem_bytes(stages)} "
                          f"bytes of shared memory; at most {MAX_SMEM}")
     h, w = q.shape[-2:]
@@ -133,8 +158,9 @@ def filter_chain(q: torch.Tensor, spec: AdderSpec, stages, *,
     ints, wts = _stage_arrays(stages)
     fn = _build.bind("conv_chain", "filter_chain_launch", _ARGTYPES)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), out.data_ptr(), planes, h, w, TILE[0],
-                 TILE[1], len(stages), ctypes.cast(ints, ctypes.c_void_p),
+        err = fn(q.data_ptr(), out.data_ptr(), planes, h, w, int(sep2),
+                 TILE[0], TILE[1], len(stages),
+                 ctypes.cast(ints, ctypes.c_void_p),
                  ctypes.cast(wts, ctypes.c_void_p), *args,
                  stream_ptr(q.device))
     _build.check(err, "filter_chain")

@@ -272,3 +272,132 @@ def test_mac_engine_and_conv3x3_on_card(cuda_device):
                            cpu.mul_signed(qa, qa))
     with pytest.raises(TypeError, match="int8"):
         make_engine(spec).matmul(a.astype(np.int32), b)
+
+
+# ---------------------------------- the redesigned GEMM and chain kernels --
+
+def _int8(rng, shape):
+    return torch.as_tensor(rng.integers(-128, 128, shape, dtype=np.int8))
+
+
+@pytest.mark.parametrize("n_bits,m,k", [(32, 10, 5), (16, 8, 4)])
+def test_approx_matmul_routes_on_card(cuda_device, n_bits, m, k):
+    """Both staging routes: the general one (bk 100, 200, 32 and 96, K =
+    257 and 300, M and N off the 64 grid, a 1-byte-offset A), the 16-byte
+    one (K % 32 == 16 with bk == K, bk > K, bk 192), every kind, both
+    forms."""
+    from repro_torch.kernels import approx_matmul as mm_k
+    rng = np.random.default_rng(22)
+    cases = [((70, 257), (257, 130), 100, "general"),
+             ((33, 300), (300, 65), 200, "general"),
+             ((16, 300), (300, 24), 128, "general"),
+             ((65, 80), (80, 63), 32, "general"),
+             ((128, 208), (208, 128), 96, "general"),
+             ((64, 48), (48, 72), 128, "fast"),
+             ((96, 256), (256, 40), 512, "fast"),
+             ((70, 320), (320, 136), 192, "fast")]
+    for kind in specs.ALL_KINDS:
+        spec = specs.AdderSpec(kind, n_bits, m, k)
+        for sa, sb, bk, route in cases:
+            a, b = _int8(rng, sa), _int8(rng, sb)
+            ad = a.to(cuda_device)
+            assert mm_k.staging_route(sa[1], bk, ad.data_ptr()) == route
+            for fast in (False, True):
+                got = mm_k.approx_matmul(ad, b.to(cuda_device), spec, bk=bk,
+                                         fast=fast).cpu()
+                want = mm_k.approx_matmul_plain(a, b, spec, bk, fast)
+                assert torch.equal(got, want), (kind, sa, bk, fast)
+    # The 16-byte route's shape through the general route: A one byte off.
+    spec = specs.AdderSpec("haloc_axa", n_bits, m, k)
+    a, b = _int8(rng, (192, 256)), _int8(rng, (256, 96))
+    buf = torch.empty(a.numel() + 1, dtype=torch.int8, device=cuda_device)
+    ad = buf[1:].view(192, 256)
+    ad.copy_(a)
+    assert mm_k.staging_route(256, 64, ad.data_ptr()) == "general"
+    got = mm_k.approx_matmul(ad, b.to(cuda_device), spec, bk=64).cpu()
+    assert torch.equal(got, mm_k.approx_matmul_plain(a, b, spec, 64))
+
+
+def test_approx_matmul_entry_refuses_a_bad_fast_route(cuda_device):
+    """The C entry checks the 16-byte route's conditions itself: bk 96
+    (chunks would cross a tile's end), K % 16 != 0 and an A off 16 bytes
+    are refused with cudaErrorInvalidValue; bk > K is one tile."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import approx_matmul as mm_k
+    from repro_torch.kernels.approx_add import adder_args, stream_ptr
+    spec = specs.AdderSpec("haloc_axa", 32, 10, 5)
+    fn = _build.bind("approx_matmul", "approx_matmul_launch",
+                     mm_k._ARGTYPES)
+    buf = torch.zeros(64 * 264 + 1, dtype=torch.int8, device=cuda_device)
+    b = torch.zeros(264 * 64, dtype=torch.int8, device=cuda_device)
+    bt = torch.empty_like(b)
+    out = torch.empty(64 * 64, dtype=torch.int32, device=cuda_device)
+
+    def launch(a_ptr, k_len, bk):
+        err = fn(a_ptr, b.data_ptr(), bt.data_ptr(), out.data_ptr(), 64, 64,
+                 k_len, bk, 1, *adder_args(spec, False),
+                 stream_ptr(cuda_device))
+        torch.cuda.synchronize(cuda_device)
+        return err
+
+    invalid = 1  # cudaErrorInvalidValue
+    assert launch(buf.data_ptr(), 256, 96) == invalid
+    assert launch(buf.data_ptr(), 264, 128) == invalid
+    assert launch(buf.data_ptr() + 1, 256, 128) == invalid
+    assert launch(buf.data_ptr(), 256, 128) == 0
+    assert launch(buf.data_ptr(), 256, 300) == 0
+
+
+@pytest.mark.parametrize("k_len", [131073, 131104])
+def test_approx_matmul_dot_wraps_on_card(cuda_device, k_len):
+    """All -128 operands, one K tile of 2^17 + 1 (general route) or
+    2^17 + 32 (16-byte route, K % 64 == 32): every dot passes 2^31 and
+    must wrap mod 2^32 (mma without .satfinite), as the reference's int32
+    dot does."""
+    from repro_torch.kernels import approx_matmul as mm_k
+    spec = specs.paper_spec("haloc_axa")
+    a = torch.full((16, k_len), -128, dtype=torch.int8)
+    b = torch.full((k_len, 16), -128, dtype=torch.int8)
+    got = mm_k.approx_matmul(a.to(cuda_device), b.to(cuda_device), spec,
+                             bk=k_len).cpu()
+    wrapped = (k_len * 16384 + 2 ** 31) % 2 ** 32 - 2 ** 31
+    assert wrapped < 0
+    assert torch.equal(got, torch.full((16, 16), wrapped, dtype=torch.int32))
+    assert torch.equal(got, mm_k.approx_matmul_plain(a, b, spec, k_len))
+
+
+CHAIN_CASES = {
+    "gauss": (FilterStage(-1, (-1, 0, 1), (1, 2, 1), 2),
+              FilterStage(-2, (-1, 0, 1), (1, 2, 1), 2)),
+    "sobel_gx": (FilterStage(-2, (-1, 0, 1), (1, 2, 1)),
+                 FilterStage(-1, (1, -1), (1, -1))),
+    "sobel_gy": (FilterStage(-1, (-1, 0, 1), (1, 2, 1)),
+                 FilterStage(-2, (1, -1), (1, -1))),
+    "same_axis": (FilterStage(-1, (-2, 0, 3), (1, -3, 2), 1),
+                  FilterStage(-1, (-1, 1), (2, 1)),
+                  FilterStage(-2, (0, 2), (1, 1), 1)),
+    "wide": (FilterStage(-2, tuple(range(-4, 5)),
+                         (1, 2, 3, 4, 5, 4, 3, 2, 1), 3),),
+}
+
+
+@pytest.mark.parametrize("kind", specs.ALL_KINDS)
+def test_filter_chain_routes_on_card(cuda_device, kind):
+    """Both routes, both forms: 1 x 1 and 1 x 7 planes, W not a multiple
+    of 4, tiles wholly inside the image and on its border."""
+    rng = np.random.default_rng(23)
+    spec = specs.AdderSpec(kind, 16, 8, 4)
+    shapes = [(1, 1), (1, 7), (7, 1), (2, 35, 131), (2, 66, 258),
+              (1, 97, 390), (1, 100, 384)]
+    for name, stages in CHAIN_CASES.items():
+        route = chain_k.chain_route(chain_k.norm_stages(stages, 2))
+        assert route == ("general" if name in ("same_axis", "wide")
+                         else "sep2")
+        for shape in shapes:
+            q = torch.as_tensor(rng.integers(-2040, 2040, shape)
+                                .astype(np.int32))
+            for fast in (False, True):
+                got = chain_k.filter_chain(q.to(cuda_device), spec, stages,
+                                           fast=fast).cpu()
+                want = chain_k.filter_chain_plain(q, spec, stages, fast)
+                assert torch.equal(got, want), (name, shape, fast)

@@ -252,8 +252,10 @@ def test_chip_smoke_refuses_without_a_card_or_the_repo(tmp_path):
 
 
 def test_chip_smoke_bound_counts_least_operations():
-    """The operations bound counts the fused adder and scales only the
-    taps whose weight is not 1."""
+    """The operations bound counts the adder in instructions
+    (``HALOC_AXA_ADD``, held against the adder in test_torch_bounds.py),
+    folds the taps' masks into the adds and scales only the taps whose
+    weight is not 1."""
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke_under_test",
                                                   ROOT / "chip_smoke.py")
@@ -264,6 +266,6 @@ def test_chip_smoke_bound_counts_least_operations():
     assert smoke.fold_ops((1, 1, 1)) == 2 * smoke.OPS_PER_ADD
     assert smoke.fold_ops((2, -1)) == 2 * smoke.OPS_PER_SCALE \
         + smoke.OPS_PER_ADD
-    assert smoke.chain_ops(gauss) == 86
+    assert smoke.chain_ops(gauss) == 40
     assert smoke.chain_ops(gauss[:1]) + smoke.chain_ops(
-        (be_t.FilterStage(-2, (1, -1), (1, -1)),)) == 43 + 2 + 2 + 17 + 2
+        (be_t.FilterStage(-2, (1, -1), (1, -1)),)) == 20 + 0 + 1 + 8 + 1

@@ -38,6 +38,7 @@ from repro_torch.ax import make_engine
 from repro_torch.ax.mul import MulSpec, signed_mul_table
 from repro_torch.core import specs as specs_t
 from repro_torch.imgproc import get_workload, synthetic_batch
+from repro_torch.kernels import approx_add as add_k
 from repro_torch.kernels import approx_matmul as mm_k
 from repro_torch.kernels import conv2d_mac as conv_k
 from repro_torch.kernels import mac_matmul as mac_k
@@ -369,3 +370,58 @@ def test_conv3x3_exact_mac_and_mul_knob():
             get_workload_j("conv3x3").run(batch, kind="haloc_axa",
                                           backend="jax", mul=mul_j))
     assert wl.batched
+
+
+# ------------------------------------------- approx_matmul's K schedule --
+
+def _schedule_model(a, b, spec, bk):
+    """The CUDA kernel's walk over K in Python, on int64 lanes: K tile t
+    (of bk) in ceil(bk / KC) chunks of KC, each cut at the tile's end and
+    at K, the tile's partial (mod 2^32) folded after its last chunk; the
+    first tile's partial is taken raw."""
+    kc = mm_k.KC
+    k = a.shape[1]
+    bk = min(bk, k)
+    a64, b64 = a.to(torch.int64), b.to(torch.int64)
+    acc = None
+    for t in range(-(-k // bk)):
+        part = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.int64)
+        tile_end = min(t * bk + bk, k)
+        for k0 in range(t * bk, tile_end, kc):
+            klim = min(k0 + kc, tile_end)
+            part = (part + a64[:, k0:klim] @ b64[k0:klim]) & 0xFFFFFFFF
+        part = add_k.to_int32(part)
+        acc = part if acc is None else add_k.approx_add_plain(acc, part,
+                                                              spec)
+    return acc
+
+
+#: (M, K, N, bk, A's byte offset from 16-byte alignment, route).
+ROUTE_CASES = [
+    (64, 1024, 64, 128, 0, "fast"), (16, 300, 24, 128, 0, "general"),
+    (70, 96, 130, 200, 0, "fast"), (33, 257, 65, 100, 0, "general"),
+    (70, 257, 130, 100, 0, "general"), (33, 300, 65, 200, 0, "general"),
+    (65, 80, 63, 32, 0, "general"), (64, 48, 72, 128, 0, "fast"),
+    (96, 256, 40, 512, 0, "fast"), (128, 208, 128, 96, 0, "general"),
+    (40, 256, 24, 64, 1, "general"), (40, 256, 24, 64, 8, "general"),
+    (40, 320, 24, 192, 0, "fast"), (40, 160, 24, 16, 0, "general"),
+    (8, 1, 8, 1, 0, "general"), (8, 16, 8, 128, 0, "fast"),
+]
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=lambda c: "-".join(map(
+    str, c)))
+def test_approx_matmul_staging_route_and_schedule(case):
+    """staging_route picks the 16-byte staging only for a 16-byte aligned
+    A, K % 16 == 0 and K tiles of whole 64-byte chunks; the kernel's walk
+    over K (its chunks and folds) equals the plain version at n32 and
+    n16."""
+    m, k, n, bk, offset, route = case
+    assert mm_k.staging_route(k, bk, 4096 + offset) == route
+    rng = np.random.default_rng(m * 7 + k)
+    a = torch.as_tensor(rng.integers(-128, 128, (m, k), dtype=np.int8))
+    b = torch.as_tensor(rng.integers(-128, 128, (k, n), dtype=np.int8))
+    for width in WIDTHS:
+        st, _ = _specs("haloc_axa", width)
+        assert torch.equal(_schedule_model(a, b, st, bk),
+                           mm_k.approx_matmul_plain(a, b, st, bk)), width
