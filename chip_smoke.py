@@ -7,11 +7,17 @@ Phases (any failure exits non-zero before the result line):
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``
-   for ``sm_90a`` (one ``nvcc`` per source, all at once);
+   for ``sm_90a`` (one ``nvcc`` per source, all at once); each source's
+   nvcc seconds and its kernels' ``-Xptxas -v`` in sum (registers, and
+   any stack frame or spills: none allowed in ``accumulate`` and
+   ``conv2d_mac``);
 3. kernels: each kernel against its plain PyTorch version on the card,
    exact (``torch.equal``), every registered adder kind, reference and
    fused forms, at the main path's shapes and on edge shapes
-   (``filter_chain``: both of its routes, the operators' chains on the
+   (``accumulate``: its K = 2 and K = 4 instances and the general one,
+   16-byte and one-element routes, an unaligned stack, and its signed
+   entry on scaled_add's planes and downsample2x's strided phases;
+   ``filter_chain``: both of its routes, the operators' chains on the
    sep2 route and the ``same_axis`` and ``wide`` chains on the general
    one, on 1 x 1 and 1 x 7 planes and planes whose W is not a multiple
    of 4);
@@ -25,12 +31,16 @@ Phases (any failure exits non-zero before the result line):
    untiled.  The corpus table of the four images is range-checked;
    ``run_corpus`` on the first image must give every (kind, workload)
    row of the CPU path's ``run_corpus`` on it, PSNR and SSIM equal;
+   ``scaled_add`` and ``accumulate_signed`` must run one kernel each
+   (``torch.profiler``);
 5. times: each kernel at the main path's shapes (CUDA events, queued
    behind a sleep so host overhead is excluded, inputs rotated so they
    do not sit in the 50 MB L2), its plain version's time, and its bound
    (the larger of its bytes over 3.35 TB/s and the fewest int32
    instructions known for its function, LOP3 and IADD3 counting one,
    over the card's int32 rate);
+   ``accumulate`` at K = 4 and its signed entry on sharpen's planes and
+   downsample2x's phases, beside the composition that entry replaced;
    ``filter_chain``'s fused form, its vertical-first sobel_gx and its
    general route (the gaussian, and same_axis) on the same planes, each
    checked against its plain version first; then the megapixel
@@ -71,8 +81,10 @@ The MAC slice adds to phases 3-5:
    on the 16-byte one; 1024^3 with A one byte off 16), and an all -128
    GEMM whose int32 dots pass 2^31 and must wrap (K = bk = 131073 and
    131104); ``conv2d_mac`` with 3 x 3 and 5 x 5 kernels holding negative
-   weights, signed inputs, shift 0 and 2, tap tables in shared and in
-   global memory;
+   weights, signed inputs, shift 0 and 2, tap tables in shared memory
+   past 48 KB, and on the general instance (1 x 1, 3 x 5, tables in
+   global memory at 5 x 5 w = 11 and 7 x 7 w = 10), a constant image and
+   an unaligned input;
 4c. the slice's path at full size, with the counts set to 0 just before
    and read just after: ``run_corpus(workloads=("conv3x3",))`` on the
    4 x 1024 x 1024 batch for the seven Table-1 kinds, ``engine.mul`` and
@@ -80,8 +92,10 @@ The MAC slice adds to phases 3-5:
    kind's default 8-bit spec, and both ``engine.matmul`` paths at 1024^3
    (n32m10k5 and n16m8k4).  Every output equals the port's CPU path (the
    GEMMs on their first 64 rows);
-5c. the four kernels' times, plain times and bounds,
-   ``torch._int_mm`` on the same int8 operands beside ``approx_matmul``,
+5c. the four kernels' times, plain times and bounds, ``conv2d_mac``'s
+   spread over five timings and its time on constant images (every
+   gather a broadcast), ``torch._int_mm`` on the same int8 operands
+   beside ``approx_matmul``,
    one ``approx_matmul`` call's device time by kernel (the B transpose
    and the GEMM), and ``approx_matmul`` through its general staging
    route.
@@ -159,9 +173,20 @@ OPS_PER_LUT_ADD = 7
 #: an IADD3 (which adds two products into the tile's partial); the gather
 #: itself is counted in neither bytes nor operations.
 OPS_PER_MAC_PRODUCT = 1.5
-#: One conv tap of conv2d_mac besides its add: the magnitude and the sign
-#: restore (negate, select); its N-bit mask folds into the add's masks.
-OPS_PER_CONV_TAP = 3
+#: One input value of conv2d_mac, in instructions as above: its row of the
+#: signed tap tables (``kernels/conv2d_mac.py``, signed_tap_tables), one
+#: IMAD.  Each of its taps is then one gather at row + t (counted in
+#: neither bytes nor operations, as a MAC product's gather), the product's
+#: sign and N-bit mask being in the table: no magnitude, sign restore or
+#: mask per tap.  ``tests/test_torch_bounds.py`` runs the step and the
+#: gathers against the plain conv.
+CONV_INDEX = (
+    ("idx", "IMAD", ("v", "taps", "zero"), lambda v, t, z: v * t + z),
+)
+OPS_PER_CONV_VALUE = len(CONV_INDEX)
+#: Sources whose every kernel must build with no stack frame and no
+#: spills (their parameters are read at compile-time indices).
+NO_STACK_SOURCES = ("accumulate", "conv2d_mac")
 #: H100 SXM dense int8 tensor-core rate (ops/s), from the data sheet: the
 #: exact-product GEMM's int8 dot.
 INT8_TENSOR_OPS_PER_S = 1979e12
@@ -201,7 +226,52 @@ def nvidia_smi(fields):
     return res.stdout.strip().splitlines()[0]
 
 
+def report_ptxas(_build):
+    """Each source's nvcc seconds and its kernels' ``-Xptxas -v`` in sum:
+    instances, registers, and every instance with a stack frame or
+    spills (none allowed in :data:`NO_STACK_SOURCES`)."""
+    for name in _build.SOURCES:
+        ks = _build.ptxas_kernels(_build.BUILD_LOGS.get(name, ""))
+        if not ks:
+            log(f"  {name}: no ptxas report (its library was built before)")
+            continue
+        regs = [k[1] for k in ks]
+        framed = [k for k in ks if k[2] or k[3]]
+        log(f"  {name}: nvcc {_build.BUILD_SECONDS.get(name, 0.0):.1f} s, "
+            f"{len(ks)} kernels, {min(regs)}-{max(regs)} registers, "
+            f"{len(ks) - len(framed)} with 0 bytes stack frame and 0 bytes "
+            f"spilled")
+        for kname, kregs, stack, spill in framed:
+            log(f"    {kname}: {kregs} registers, {stack} bytes stack frame, "
+                f"{spill} bytes spilled")
+        check(name not in NO_STACK_SOURCES or not framed,
+              f"{name}: {len(framed)} kernels with a stack frame or spills")
+
+
 # ------------------------------------------------------------- phase 3 --
+
+def offset_copy(torch, x, offset=1):
+    """``x`` at an address ``offset`` elements past a 16-byte boundary,
+    where 16-byte loads do not fit."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def phases(q):
+    """downsample2x's four phase views of ``q``, cropped to even H, W."""
+    q = q[..., :q.shape[-2] & ~1, :q.shape[-1] & ~1]
+    return (q[..., 0::2, 0::2], q[..., 0::2, 1::2], q[..., 1::2, 0::2],
+            q[..., 1::2, 1::2])
+
+
+def signed_route(acc_k, terms):
+    """The route accumulate_signed takes for ``terms``."""
+    _, _, width, views, strides = acc_k.term_layout(terms)
+    return acc_k.accumulate_route(len(terms), width, acc_k.vec_aligned(
+        [v.data_ptr() for v in views], strides))
+
 
 def compare_into(torch, errs, name, got, want, what):
     """Fail unless ``got`` equals ``want``; keep the largest |difference|
@@ -278,23 +348,68 @@ def check_kernels(torch, np, dev, errs):
     log(f"  approx_add: {len(kinds)} kinds x 2 forms at N=16/32 on "
         f"4096x4096, {cells} (kind, m, k) cells exhaustive at N=8: equal")
 
-    # accumulate at the main path's shapes.
+    # accumulate, the stacked entry: the main path's shapes and every
+    # route (the K = 2 and K = 4 instances, the general one; 16-byte loads,
+    # and one element a thread on a ragged M or an unaligned stack).
     cases = [((2, N_IMAGES, 1024, 1024), (2, -1)),
              ((2, N_IMAGES, 1024, 1024), (32, 32)),
              ((2, N_IMAGES, 1024, 1024), (1, 1)),
              ((4, N_IMAGES, 512, 512), (1, 1, 1, 1)),
-             ((9, 3, 37, 41), (1, 2, 1, -2, 4, -2, 1, 2, -1))]
+             ((9, 3, 37, 41), (1, 2, 1, -2, 4, -2, 1, 2, -1)),
+             ((2, 3, 37, 41), (2, -1)), ((4, 3, 37, 41), (1, 2, 3, 4)),
+             ((3, 2, 64, 64), (1, -1, 3)), ((1, 2, 64, 64), (5,))]
+    routes = set()
     for shape, ws in cases:
         terms = rand_containers(shape, 16)
+        small = terms.numel() < 1 << 20
+        layouts = (terms, offset_copy(torch, terms)) if small else (terms,)
+        routes.update(acc_k.accumulate_route(len(ws), terms[0].numel(), al)
+                      for al in ((True, False) if small else (True,)))
+        for kind in kinds:
+            for fast in (False, True):
+                s = spec(kind, 16)
+                want = acc_k.accumulate_plain(terms, s, ws, fast)
+                for t in layouts:
+                    compare("accumulate",
+                            acc_k.accumulate(t, s, weights=ws, fast=fast),
+                            want, f"{s.short_name} fast={fast} {shape} "
+                                  f"w={ws} at {t.data_ptr() % 16}")
+    log(f"  accumulate: {len(kinds)} kinds x 2 forms x {len(cases)} "
+        f"shape/weight cases (routes (K instance, outputs a thread) "
+        f"{sorted(routes)}), small ones also unaligned: equal")
+
+    # accumulate_signed, the same kernel on signed terms read in place:
+    # scaled_add's planes (sharpen, blend with shift 6), downsample2x's
+    # strided phases at full size and on odd sizes, a ragged W, K = 9.
+    def signed(shape, lim=2040):
+        return torch.as_tensor(rng.integers(-lim, lim, shape)
+                               .astype(np.int32), device=dev)
+
+    qa, qb = signed((N_IMAGES, 1024, 1024)), signed((N_IMAGES, 1024, 1024))
+    signed_cases = [("sharpen", (qa, qb), (2, -1), 0),
+                    ("blend", (qa, qb), (40, 24), 6),
+                    ("downsample", phases(qa), None, 2),
+                    ("ragged W", (signed((2, 37, 41)), signed((2, 37, 41))),
+                     (2, -1), 0),
+                    ("K=9", tuple(signed((2, 33, 64)) for _ in range(9)),
+                     (1, 2, 1, -2, 4, -2, 1, 2, -1), 3)]
+    for shape in ((3, 1001, 999), (2, 37, 70), (1, 1)):
+        signed_cases.append((f"downsample {shape}", phases(signed(shape)),
+                             None, 2))
+    for name, terms, ws, shift in signed_cases:
         for kind in kinds:
             for fast in (False, True):
                 s = spec(kind, 16)
                 compare("accumulate",
-                        acc_k.accumulate(terms, s, weights=ws, fast=fast),
-                        acc_k.accumulate_plain(terms, s, ws, fast),
-                        f"{s.short_name} fast={fast} {shape} w={ws}")
-    log(f"  accumulate: {len(kinds)} kinds x 2 forms x {len(cases)} "
-        f"shape/weight cases: equal")
+                        acc_k.accumulate_signed(terms, s, 16, weights=ws,
+                                                shift=shift, fast=fast),
+                        acc_k.accumulate_signed_plain(terms, s, 16, ws,
+                                                      shift, fast),
+                        f"signed {name} {s.short_name} fast={fast}")
+    log("  accumulate_signed: " + ", ".join(
+        f"{name} {signed_route(acc_k, terms)}"
+        for name, terms, _, _ in signed_cases)
+        + f" x {len(kinds)} kinds x 2 forms: equal")
 
     # filter_chain: the operators' chains at full size, then edge shapes.
     chains = {
@@ -597,9 +712,10 @@ def check_mac_kernels(torch, np, dev, errs):
         f"kind at 1024^3; approx_matmul's general route at 1024^3 and the "
         f"2^31 wrap on both routes: equal")
 
-    # conv2d_mac: the path shape, every kind; negative weights; 3 x 3 and
-    # 5 x 5; shift 0 and 2; tables in shared memory (w=8) and global
-    # memory (5 x 5 at w=10 is 100 KiB).
+    # conv2d_mac: the path shape, every kind (the 3 x 3 instance); negative
+    # weights; 3 x 3 and 5 x 5; shift 0 and 2; w = 8 and w = 10, the tables
+    # staged in shared memory (5 x 5 at w = 8 is 50 KiB, past the 48 KB of
+    # a launch without the attribute; 5 x 5 at w = 10 is 200 KiB).
     k3 = ((1, 3, 1), (3, -5, 3), (1, 3, 1))
     k5 = tuple(tuple(int(x) for x in row)
                for row in rng.integers(-9, 10, (5, 5)))
@@ -614,10 +730,14 @@ def check_mac_kernels(torch, np, dev, errs):
                     f"{spec.short_name} 3x3 {shape} fast={fast}")
     q10 = torch.as_tensor(rng.integers(-1023, 1024, (3, 300, 257))
                           .astype(np.int32), device=dev)
+    conv_routes = set()
     for ms, x in ((trunc, q[:2, :300, :257].contiguous()),
                   (MulSpec("mitchell", 10), q10),
                   (MulSpec("broken_array", 10, 4, 2), q10)):
         for kernel in (k3, k5):
+            conv_routes.add((f"{len(kernel)}x{len(kernel)} w={ms.n_bits}",
+                             conv_k.conv_route(len(kernel), len(kernel),
+                                               1 << ms.n_bits)))
             for shift in (0, 2):
                 for n_bits in (16, 32):
                     spec = spec_at("haloc_axa", n_bits)
@@ -628,10 +748,35 @@ def check_mac_kernels(torch, np, dev, errs):
                                                     shift),
                             f"{spec.short_name} {ms.short_name} "
                             f"{len(kernel)}x{len(kernel)} shift {shift}")
+    # The general instance: 1 x 1 and 3 x 5 with staged tables, 5 x 5 at
+    # w = 11 and 7 x 7 at w = 10 with tables in global memory; a constant
+    # image (every gather a broadcast), an unaligned input and W % 4 != 0,
+    # every kind.
+    k7 = tuple(tuple(int(x) for x in row)
+               for row in rng.integers(-9, 10, (7, 7)))
+    q11 = torch.as_tensor(rng.integers(-2047, 2048, (2, 150, 131))
+                          .astype(np.int32), device=dev)
+    general = [("1x1", trunc, ((7,),), q[:2, :200, :100].contiguous()),
+               ("3x5", trunc, tuple(row[:5] for row in k5[:3]), q[:2]),
+               ("5x5 w=11", MulSpec("mitchell", 11), k5, q11),
+               ("7x7 w=10", MulSpec("mitchell", 10), k7, q10),
+               ("3x3 constant", trunc, k3, torch.full_like(q[:1], 200)),
+               ("3x3 unaligned", trunc, k3, offset_copy(torch, q[:1])),
+               ("3x3 W=131", trunc, k3, q[:2, :150, :131].contiguous())]
+    for name, ms, kernel, x in general:
+        conv_routes.add((name, conv_k.conv_route(len(kernel), len(kernel[0]),
+                                                 1 << ms.n_bits)))
+        for kind in kinds:
+            spec = spec_at(kind, 16)
+            compare("conv2d_mac",
+                    conv_k.conv2d_mac(x, spec, ms, kernel, shift=2),
+                    conv_k.conv2d_mac_plain(x, spec, ms, kernel, 2),
+                    f"{spec.short_name} {ms.short_name} {name}")
     torch.cuda.synchronize()
     log(f"  conv2d_mac: {len(kinds)} kinds x 2 forms at {shape} (3x3, "
-        f"shift 2); 3x3 and 5x5, shift 0 and 2, w=8 and w=10 (shared and "
-        f"global tables), n16 and n32: equal")
+        f"shift 2); 3x3 and 5x5, shift 0 and 2, w=8 and w=10, n16 and n32; "
+        f"{len(general)} cases of the other routes x {len(kinds)} kinds; "
+        f"routes (instance, tables) {sorted(conv_routes)}: equal")
     log(f"  phase 3c took {time.perf_counter() - t0:.1f} s")
 
 
@@ -714,6 +859,41 @@ def run_counted(torch, counts, kernels, fn, what):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the {what}")
     return out, launches
+
+
+def kernel_events(torch, fn):
+    """CUDA kernels one call of ``fn`` runs, counted by ``torch.profiler``
+    (None when the profiler saw no device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(ev.count for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA)
+    return n or None
+
+
+def check_one_launch(torch, gbatch):
+    """On the card the signed fold is one kernel, with no stack, mask,
+    sign-extension or rounding kernel around it: sharpen's scaled_add on
+    two (4, 1024, 1024) planes and downsample2x's accumulate_signed on
+    the strided phases of one."""
+    from repro_torch.ax import make_engine
+    from repro_torch.numerics.fixed_point import FixedPointFormat
+    eng = make_engine("haloc_axa", fmt=FixedPointFormat(16, 3))
+    x = gbatch.to(torch.int32) << 3
+    y = torch.roll(x, 1, dims=0)
+    n_add = kernel_events(torch, lambda: eng.scaled_add(x, y, 2, -1))
+    n_acc = kernel_events(torch, lambda: eng.accumulate_signed(phases(x),
+                                                               shift=2))
+    log(f"  kernels run by one scaled_add (sharpen's): {n_add}; by one "
+        f"accumulate_signed (downsample2x's phases): {n_acc}")
+    check(n_add in (1, None) and n_acc in (1, None),
+          "scaled_add and accumulate_signed must be one launch each")
 
 
 def check_outputs(torch, np, outs, cpu_outs, rows, size):
@@ -1020,6 +1200,7 @@ def measure(torch, np, dev, launches, errs, int32_ops_per_s):
     work["butterfly"] = butterfly_work(torch, np, rng, dev, bf_k,
                                        FFT_SIZE * FFT_SIZE // 2, 8)
     entries = time_entries(torch, work, launches, errs, int32_ops_per_s, n)
+    time_accumulate_routes(torch, np, rng, dev, spec, planes, int32_ops_per_s)
     # filter_chain's other routes and form on the same planes: the fused
     # gaussian, sobel_gx (the vertical stage first), the gaussian on the
     # general route (what the sep2 route saves on the main path) and the
@@ -1080,6 +1261,59 @@ def measure(torch, np, dev, launches, errs, int32_ops_per_s):
         log(f"  butterfly stage {what}, {w['what']}: kernel {ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms = {bound_ms / ms * 100:.1f}% of bound")
     return entries
+
+
+def time_accumulate_routes(torch, np, rng, dev, spec, planes,
+                           int32_ops_per_s):
+    """accumulate beyond the kernels line's row: K = 4 at downsample2x's
+    (4, 4, 512, 512), the signed entry on sharpen's two planes and on
+    downsample2x's strided phases of one, and beside each the
+    composition that entry replaced on the card (stack, mask, fold,
+    sign extension, rounding: five and seven launches)."""
+    from repro_torch.kernels import accumulate as acc_k
+    n = planes[0].numel()
+    mask, sign = 0xFFFF, 0x8000
+
+    def composed(terms, ws, shift):
+        s = acc_k.accumulate(torch.stack(terms) & mask, spec, weights=ws)
+        s = (s ^ sign) - sign
+        return (s + (1 << (shift - 1))) >> shift if shift else s
+
+    stacks4 = [torch.as_tensor(rng.integers(0, 1 << 16, (4, N_IMAGES, 512,
+                                                        512))
+                               .astype(np.int32), device=dev)
+               for _ in range(4)]
+    pairs = [(planes[i], planes[(i + 1) % len(planes)])
+             for i in range(len(planes))]
+    cases = {
+        "K=4 stacked (4, 4, 512, 512)": (
+            [lambda t=t: acc_k.accumulate(t, spec) for t in stacks4], None,
+            5 * n, fold_ops((1,) * 4) * n // 4),
+        "signed K=2 sharpen (2, -1)": (
+            [lambda a=a, b=b: acc_k.accumulate_signed((a, b), spec, 16,
+                                                      weights=(2, -1))
+             for a, b in pairs],
+            [lambda a=a, b=b: composed((a, b), (2, -1), 0)
+             for a, b in pairs],
+            3 * 4 * n, (fold_ops((2, -1)) + OPS_SIGN_EXTEND) * n),
+        "signed K=4 downsample phases": (
+            [lambda q=q: acc_k.accumulate_signed(phases(q), spec, 16,
+                                                 shift=2) for q in planes],
+            [lambda q=q: composed(phases(q), None, 2) for q in planes],
+            5 * n, (fold_ops((1,) * 4) + OPS_SIGN_EXTEND + OPS_ROUND_SHIFT)
+            * n // 4),
+    }
+    for label, (kernel, before, nbytes, ops) in cases.items():
+        ms = time_launches(torch, kernel, 40)
+        bound_ms, _, _ = bound(dict(bytes=nbytes, ops=ops), int32_ops_per_s)
+        line = (f"  accumulate {label}, haloc_axa N=16 reference: kernel "
+                f"{ms:.5f} ms, bound {bound_ms:.5f} ms = "
+                f"{bound_ms / ms * 100:.1f}% of bound")
+        if before is not None:
+            b_ms = time_launches(torch, before, 40)
+            line += (f"; the composition it replaced (stack, mask, fold, "
+                     f"sign extension, rounding) {b_ms:.5f} ms")
+        log(line)
 
 
 @contextlib.contextmanager
@@ -1154,11 +1388,11 @@ def butterfly_work(torch, np, rng, dev, bf_k, pairs, half):
 
 
 def conv_ops(kernel, shift):
-    """Least instructions per pixel of conv2d_mac: per tap its magnitude
-    and sign restore, T-1 approximate adds, the sign extension and the
-    rounding shift (when there is one)."""
+    """Least instructions per pixel of conv2d_mac: its input value's table
+    row, T-1 approximate adds, the sign extension and the rounding shift
+    (when there is one)."""
     taps = sum(len(row) for row in kernel)
-    return (OPS_PER_CONV_TAP * taps + OPS_PER_ADD * (taps - 1)
+    return (OPS_PER_CONV_VALUE + OPS_PER_ADD * (taps - 1)
             + OPS_SIGN_EXTEND + (OPS_ROUND_SHIFT if shift else 0))
 
 
@@ -1225,8 +1459,8 @@ def measure_mac(torch, np, dev, launches, errs, int32_ops_per_s):
             replaces="src/repro/kernels/mac.py:192",
             what=f"haloc_axa n16m8k4 + truncated n8t3, conv3x3 kernel, "
                  f"int32 {shape}",
-            kernel=[lambda q=q: conv_k.conv2d_mac(q, spec16, trunc,
-                                                  CONV3X3_KERNEL)
+            kernel=[lambda q=q: conv_k.launch_conv2d_mac(q, spec16, trunc,
+                                                         CONV3X3_KERNEL)
                     for q in images],
             plain=[lambda q=q: conv_k.conv2d_mac_plain(q, spec16, trunc,
                                                        CONV3X3_KERNEL)
@@ -1258,6 +1492,8 @@ def measure_mac(torch, np, dev, launches, errs, int32_ops_per_s):
         lambda a=a, b=b: torch._int_mm(a, b) for a, b in gemms]
     entries = time_entries(torch, work, launches, errs, int32_ops_per_s, n,
                            plain_reps=5)
+    time_conv_gather(torch, dev, images, spec16, trunc, conv_k,
+                     CONV3X3_KERNEL)
     for fast in (False, True):
         ms = time_launches(torch, [lambda a=a, b=b: mm_k.approx_matmul(
             a, b, accurate, bk=GEMM_BK, fast=fast) for a, b in gemms], 40)
@@ -1289,6 +1525,34 @@ def measure_mac(torch, np, dev, launches, errs, int32_ops_per_s):
     log(f"  at n16m8k4: mac_matmul {ms16:.4f} ms, approx_matmul "
         f"{mm16:.4f} ms")
     return entries
+
+
+def time_conv_gather(torch, dev, images, spec, mul_spec, conv_k, kernel):
+    """conv2d_mac's spread over five timings of the random images of the
+    kernels line, its time on constant images, where every lane's gather
+    reads one word (a broadcast), and the wrapper's time with its
+    ``|q| < 2^w`` check (a reduction read on the host, so each call waits
+    for the card)."""
+    const = [torch.full_like(images[0], v) for v in (200, 17, 255, 96)]
+    check(torch.equal(conv_k.conv2d_mac(const[0], spec, mul_spec, kernel),
+                      conv_k.conv2d_mac_plain(const[0], spec, mul_spec,
+                                              kernel)),
+          "conv2d_mac kernel != plain version on a constant image")
+
+    def launches(qs):
+        return [lambda q=q: conv_k.launch_conv2d_mac(q, spec, mul_spec,
+                                                     kernel) for q in qs]
+
+    runs = [time_launches(torch, launches(images), 40) for _ in range(5)]
+    const_ms = time_launches(torch, launches(const), 40)
+    checked = [time_launches(torch, [lambda q=q: conv_k.conv2d_mac(
+        q, spec, mul_spec, kernel) for q in images], 40) for _ in range(3)]
+    log(f"  conv2d_mac conv3x3 route {conv_k.conv_route(3, 3, 256)}, random "
+        f"images: {', '.join(f'{ms:.5f}' for ms in runs)} ms over 5 "
+        f"timings (spread {max(runs) - min(runs):.5f} ms); constant images "
+        f"(every gather a broadcast): {const_ms:.5f} ms; through the "
+        f"wrapper with its range check: "
+        f"{', '.join(f'{ms:.5f}' for ms in checked)} ms")
 
 
 def time_conv3x3(torch, batch):
@@ -1439,10 +1703,7 @@ def main():
     from repro_torch.kernels import _build
     secs = _build.build_all()
     log(f"phase 2: built {len(_build.SOURCES)} kernels in {secs:.1f} s")
-    for name, text in _build.BUILD_LOGS.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    report_ptxas(_build)
 
     log("phase 3: kernels against their plain versions on the card")
     errs = {name: 0 for name in MAIN_PATH_KERNELS + FFT_PATH_KERNELS
@@ -1485,6 +1746,7 @@ def main():
                      kind="haloc_axa")(gbatch)
     per_call = {name: fn.launches for name, fn in counts.items()}
     log(f"  launches per stage-mode megapixel chain call: {per_call}")
+    check_one_launch(torch, gbatch)
 
     log("phase 4b: the Fig-5 FFT and lut path at full size")
     from repro_torch.core.specs import TABLE1_KINDS, paper_spec

@@ -215,6 +215,16 @@ class Backend:
         multiplies before the K-1 approximate adds."""
         raise NotImplementedError
 
+    def accumulate_signed(self, terms, spec: AdderSpec, n_bits: int, *,
+                          weights=None, shift: int = 0,
+                          strategy: str = "reference"):
+        """Signed fixed-point fold of K signed terms of one shape (a
+        sequence of tensors) held in ``n_bits``-bit containers: each
+        masked to its container, one weighted :meth:`accumulate`, sign
+        extension from ``n_bits``, then the exact rounding right-``shift``
+        (its add wrapping in int32)."""
+        raise NotImplementedError
+
     def filter_chain(self, q, spec: AdderSpec, stages, *,
                      strategy: str = "reference"):
         """Chained separable-filter passes on SIGNED int32 containers;
@@ -274,16 +284,29 @@ class TorchBackend(Backend):
         from repro_torch.kernels.approx_add import approx_add_plain
         return approx_add_plain(a, b, spec, _fast(strategy))
 
+    def _lut_add(self, spec, strategy, device):
+        """The lut strategy's lane-level add (its table gather), or None
+        for the registered adder."""
+        if not _use_lut(spec, strategy):
+            return None
+        from repro_torch.ax.lut import device_table
+        from repro_torch.kernels.lut_add import lut_gather_add
+        table = device_table(spec, device)
+        return lambda a, b: lut_gather_add(a, b, table, spec)
+
     def accumulate(self, terms, spec, *, weights=None, strategy="reference"):
         from repro_torch.kernels.accumulate import accumulate_plain
-        add = None
-        if _use_lut(spec, strategy):
-            from repro_torch.ax.lut import device_table
-            from repro_torch.kernels.lut_add import lut_gather_add
-            table = device_table(spec, terms.device)
-            add = lambda a, b: lut_gather_add(a, b, table, spec)  # noqa: E731
         return accumulate_plain(terms, spec, weights, _fast(strategy),
-                                add=add)
+                                add=self._lut_add(spec, strategy,
+                                                  terms.device))
+
+    def accumulate_signed(self, terms, spec, n_bits, *, weights=None,
+                          shift=0, strategy="reference"):
+        from repro_torch.kernels.accumulate import accumulate_signed_plain
+        terms = tuple(terms)
+        return accumulate_signed_plain(
+            terms, spec, n_bits, weights, shift, _fast(strategy),
+            add=self._lut_add(spec, strategy, terms[0].device))
 
     def butterfly(self, a_re, a_im, b_re, b_im, w_re, w_im, spec, *,
                   inverse=False):
@@ -360,6 +383,16 @@ class CudaBackend(Backend):
         self._require_cuda("accumulate", terms)
         return accumulate(terms.contiguous(), spec, weights=weights,
                           fast=fast)
+
+    def accumulate_signed(self, terms, spec, n_bits, *, weights=None,
+                          shift=0, strategy="reference"):
+        """One launch: the kernel reads every term where it lies."""
+        from repro_torch.kernels.accumulate import accumulate_signed
+        fast = self._kernel_fast(spec, strategy, "accumulate_signed")
+        terms = tuple(terms)
+        self._require_cuda("accumulate_signed", *terms)
+        return accumulate_signed(terms, spec, n_bits, weights=weights,
+                                 shift=shift, fast=fast)
 
     def filter_chain(self, q, spec, stages, *, strategy="reference"):
         from repro_torch.kernels.conv_chain import filter_chain

@@ -164,20 +164,23 @@ class AxEngine:
         """Signed fixed-point weighted accumulation: ``sum_i w_i * q_i``
         with exact tap multiplies, approximate adds, and an exact final
         rounding right-shift.  ``qs`` stacks K signed int32 containers on
-        axis 0."""
+        axis 0, or is a sequence of K of one shape; on the ``"cuda"``
+        backend one kernel launch reads each where it lies (a sequence
+        is never stacked)."""
         fmt = self._require_fmt("accumulate_signed")
-        u = signed_to_container(self.tensor(qs), fmt)
-        s = container_to_signed(self.accumulate(u, weights), fmt)
-        if shift:
-            s = (s + (1 << (shift - 1))) >> shift
-        return s
+        if isinstance(qs, (list, tuple)):
+            terms = tuple(self.tensor(q) for q in qs)
+        else:
+            terms = self.tensor(qs).unbind(0)
+        return self.backend.accumulate_signed(terms, self.spec, fmt.n_bits,
+                                              weights=weights, shift=shift,
+                                              strategy=self.strategy)
 
     def scaled_add(self, qx, qy, wx: int = 1, wy: int = 1, shift: int = 0):
         """Two-term weighted fixed-point add, ``(wx*qx + wy*qy) >> shift``
-        with a single approximate add."""
-        return self.accumulate_signed(
-            torch.stack([self.tensor(qx), self.tensor(qy)]), (wx, wy),
-            shift=shift)
+        with a single approximate add (one kernel launch on the
+        ``"cuda"`` backend)."""
+        return self.accumulate_signed((qx, qy), (wx, wy), shift=shift)
 
     # -------------------------------------------------------------- misc
 

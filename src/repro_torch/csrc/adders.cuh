@@ -362,16 +362,6 @@ inline int with_adder(const AdderParams& p, Body&& body) {
   }
 }
 
-// Exact term * w mod 2^N (uint32 multiply wraps at 2^32, so only N < 32
-// needs the mask).  A weight of exactly 1 passes the term through
-// unmasked, as scale_mod_u32 in the reference does.
-__device__ __forceinline__ uint32_t scale_mod(uint32_t term, uint32_t w,
-                                              bool unit, int n_bits) {
-  if (unit) return term;
-  term *= w;
-  return n_bits < 32 ? (term & ones(n_bits)) : term;
-}
-
 // Blocks for a grid-stride loop over n items, capped so that large
 // inputs loop rather than launch millions of blocks.
 inline unsigned int blocks_for(long long n, int threads) {

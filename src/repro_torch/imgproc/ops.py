@@ -287,9 +287,9 @@ def _downsample2x_q(q, ax: AxEngine):
     h = q.shape[-2] & ~1
     w = q.shape[-1] & ~1
     q = q[..., :h, :w]
-    phases = torch.stack([q[..., 0::2, 0::2], q[..., 0::2, 1::2],
-                          q[..., 1::2, 0::2], q[..., 1::2, 1::2]])
-    return e.accumulate_signed(phases, shift=2)
+    return e.accumulate_signed((q[..., 0::2, 0::2], q[..., 0::2, 1::2],
+                                q[..., 1::2, 0::2], q[..., 1::2, 1::2]),
+                               shift=2)
 
 
 @register_operator("downsample2x", reference.downsample2x,

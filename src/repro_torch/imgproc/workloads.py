@@ -158,14 +158,25 @@ CONV3X3_KERNEL = ((1, 3, 1), (3, 5, 3), (1, 3, 1))
 _CONV3X3_SUM = 21
 
 
+def conv3x3_normalize(v: torch.Tensor) -> torch.Tensor:
+    """The workload's exact rounded /21 of the conv sums, clipped to
+    uint8, where ``v`` lies: ``clip((v + 10) // 21, 0, 255)`` with floor
+    division (approximate adders can make sums negative or above
+    255 * 21)."""
+    out = torch.div(v + _CONV3X3_SUM // 2, _CONV3X3_SUM,
+                    rounding_mode="floor")
+    return out.clamp_(0, 255).to(torch.uint8)
+
+
 def _conv3x3_run(imgs, kind="haloc_axa", backend=None, fast=False,
                  strategy=None, device=None, mul=None):
     """3x3 MAC convolution through ``engine.conv2d``: pixel values
     (|q| < 2^8, the 8-bit multiplier operand domain) hit the approximate
     multiplier at every tap, tap sums fold through the N=16 approximate
     adder (headroom: 255 * 21 = 5355 < 2^15), and the /21 normalization
-    is one exact rounded division on the host.  ``mul`` accepts a MulSpec
-    or kind name (default: truncated t=3)."""
+    is one exact rounded division on the engine's device, so only the
+    uint8 result comes back.  ``mul`` accepts a MulSpec or kind name
+    (default: truncated t=3)."""
     from repro_torch.ax.mul import MulSpec
     if mul is None:
         mul = MulSpec("truncated", n_bits=8, trunc_bits=3)
@@ -173,9 +184,7 @@ def _conv3x3_run(imgs, kind="haloc_axa", backend=None, fast=False,
                                    strategy=strategy,
                                    device=device).replace(mul=mul)
     q = ax.tensor(np.asarray(imgs)).to(torch.int32)
-    v = ax.conv2d(q, CONV3X3_KERNEL).cpu().numpy().astype(np.int64)
-    out = (v + _CONV3X3_SUM // 2) // _CONV3X3_SUM
-    return np.clip(out, 0, 255).astype(np.uint8)
+    return conv3x3_normalize(ax.conv2d(q, CONV3X3_KERNEL)).cpu().numpy()
 
 
 def _conv3x3_reference(imgs, mul=None, **_kw):

@@ -34,11 +34,13 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterable, List, Tuple
 
 PACKAGE = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
@@ -75,6 +77,8 @@ _LOCK = threading.Lock()
 #: nvcc's diagnostics (``-Xptxas -v``: registers, shared memory, spills)
 #: from the builds of this process, by source name.
 BUILD_LOGS: Dict[str, str] = {}
+#: Wall seconds of each source's nvcc in :func:`build_all`, by name.
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -141,13 +145,47 @@ def _finish(name: str, started) -> None:
 
 def build_all(names: Iterable[str] = SOURCES) -> float:
     """Compile every source that has no current library, one ``nvcc``
-    each, all started together; returns the wall seconds taken."""
+    each, all started together; returns the wall seconds taken and
+    records each source's in :data:`BUILD_SECONDS`."""
     t0 = time.perf_counter()
     started = {n: _start(n) for n in names}
-    for n, st in started.items():
-        if st is not None:
-            _finish(n, st)
+
+    def finish(name):
+        _finish(name, started[name])
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+
+    todo = [n for n, st in started.items() if st is not None]
+    with ThreadPoolExecutor(max_workers=max(len(todo), 1)) as pool:
+        for fut in [pool.submit(finish, n) for n in todo]:
+            fut.result()
     return time.perf_counter() - t0
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_kernels(log: str) -> List[Tuple[str, int, int, int]]:
+    """Each kernel of an ``-Xptxas -v`` log as (mangled name, registers,
+    stack frame bytes, spill bytes stored and loaded)."""
+    out, name, frame = [], None, (0, 0, 0)
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            name, frame = m.group(1), (0, 0, 0)
+            continue
+        m = _PTXAS_FRAME.search(line)
+        if m and name:
+            frame = tuple(int(x) for x in m.groups())
+            continue
+        m = _PTXAS_REGS.search(line)
+        if m and name:
+            out.append((name, int(m.group(1)), frame[0],
+                        frame[1] + frame[2]))
+            name = None
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

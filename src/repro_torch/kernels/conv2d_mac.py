@@ -11,10 +11,16 @@ replicated.  Inputs must satisfy ``|q| < 2^w`` (w = the multiplier's
 operand width): both versions raise ``ValueError`` otherwise, as the
 reference's ``numpy`` backend does.
 
-The CUDA kernel is ``csrc/conv2d_mac.cu``: one thread per output pixel
-(four per thread, 8 rows apart), replicate-clamped neighbours read from
-device memory, the tap tables in shared memory when they fit in 48 KB.
-It is bound by the operations (T - 1 approximate adds per pixel).
+The CUDA kernel is ``csrc/conv2d_mac.cu``.  It is bound by the
+operations (T - 1 approximate adds per pixel), so a tap is one gather
+from :func:`signed_tap_tables` (each tap's product of every signed v,
+masked to N bits) and an add; each block stages a :data:`TILE` of the
+image and its halo in shared memory as table indices (16-byte loads
+inside the image, clamped loads on its border), and each thread slides
+a window of indices down :data:`ROWS` output rows in registers.
+:func:`conv_route` picks the instance (3 x 3, 5 x 5, or the general one)
+and where the tables go (shared memory when they fit beside the tile in
+:data:`MAX_SMEM`, else global memory).
 
 :func:`conv2d_mac` routes by where the tensor lives: a CPU tensor takes
 :func:`conv2d_mac_plain`, a CUDA tensor launches the kernel or raises.
@@ -23,7 +29,10 @@ It is bound by the operations (T - 1 approximate adds per pixel).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.ax.backends import check_conv_kernel, conv_taps
@@ -34,6 +43,72 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.approx_add import (adder_args, approx_add_plain,
                                             check_cuda, on_cpu, signed32,
                                             stream_ptr, to_int32, u32_lanes)
+
+
+#: Output rows a thread computes, and a block's output tile (rows,
+#: columns): ``csrc/conv2d_mac.cu``'s ROWS and (TH, TW).
+ROWS = 8
+TILE = (8 * ROWS, 32)
+#: Square kernel sizes with an instance of their own.
+TEMPLATED = (3, 5)
+#: Shared memory one block may use on sm_90 (bytes).
+MAX_SMEM = 232448
+
+
+def frame_cols(kw: int) -> int:
+    """Columns the shared tile holds left and right of the output tile:
+    the kernel's half width rounded up to 4, so that its rows start
+    16-byte aligned."""
+    return 4 * -(-(kw // 2) // 4)
+
+
+def tile_bytes(kh: int, kw: int) -> int:
+    """Shared memory of one block's input tile: the output tile plus
+    the kernel's halo rows and :func:`frame_cols` on each side."""
+    return 4 * (TILE[0] + kh - 1) * (TILE[1] + 2 * frame_cols(kw))
+
+
+def conv_route(kh: int, kw: int, entries: int) -> Tuple[int, str]:
+    """The kernel's route as (instance, table place): ``"shared"`` when
+    the signed tables (``kh * kw`` of ``2 * entries`` int32) fit beside
+    the tile in :data:`MAX_SMEM`, and then instance 3 or 5 for a 3 x 3 or
+    5 x 5 kernel, 0 (the general one) for any other odd size; else
+    ``"global"`` on the general instance."""
+    if tile_bytes(kh, kw) > MAX_SMEM:
+        raise ValueError(f"conv2d_mac: a {kh} x {kw} kernel's tile needs "
+                         f"{tile_bytes(kh, kw)} bytes of shared memory; at "
+                         f"most {MAX_SMEM}")
+    if 2 * entries * kh * kw >= 2 ** 31:
+        raise ValueError(f"conv2d_mac: {kh * kw} tables of {2 * entries} "
+                         f"entries exceed int32 indices")
+    if tile_bytes(kh, kw) + 4 * 2 * entries * kh * kw > MAX_SMEM:
+        return 0, "global"
+    return (kh if kh == kw and kh in TEMPLATED else 0), "shared"
+
+
+@functools.lru_cache(maxsize=None)
+def _signed_tables(mul_spec: MulSpec, weights: Tuple[int, ...], n_bits: int,
+                   device: torch.device) -> torch.Tensor:
+    tab = mul_lut_lib.tap_tables(mul_spec, weights).astype(np.int64)
+    entries = tab.shape[1]
+    v = np.arange(-entries, entries)
+    prod = tab[:, np.minimum(np.abs(v), entries - 1)]
+    prod = np.where(v < 0, -prod, prod) & ((1 << n_bits) - 1)
+    prod[:, 0] = 0  # v = -2^w is outside the input range
+    rows = np.ascontiguousarray(prod.T).astype(np.uint32).view(np.int32)
+    return torch.from_numpy(rows).to(device)
+
+
+def signed_tap_tables(mul_spec: MulSpec, weights, n_bits: int,
+                      device) -> torch.Tensor:
+    """The kernel's tables: int32 (2^(w+1), T), row ``v + 2^w`` and
+    column t holding tap t's product of v as the plain version takes it,
+    ``(sign(v) * tap_tables[t][|v|]) & ones(N)``, for every |v| < 2^w
+    (row 0, v = -2^w, is 0).  So a tap is one gather at flat index
+    ``(v + 2^w) * T + t``.  Built once per (multiplier, weights, N,
+    device)."""
+    return _signed_tables(mul_spec, tuple(int(w) for w in weights),
+                          int(n_bits), torch.device(device))
 
 
 def check_conv_input(q: torch.Tensor, mul_spec: MulSpec, shift: int) -> None:
@@ -86,34 +161,48 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 
 
 def conv2d_mac(q: torch.Tensor, spec: AdderSpec, mul_spec: MulSpec, kernel,
                *, shift: int = 0, fast: bool = False) -> torch.Tensor:
     """The MAC convolution of a signed int32 (..., H, W) tensor; int32 of
-    the same shape out.  CPU tensor: the plain version.  CUDA tensor: one
+    the same shape out.  CPU tensor: the plain version.  CUDA tensor: the
+    ``|q| < 2^w`` check (one reduction, read on the host), then one
     kernel launch."""
     if on_cpu("conv2d_mac", q):
         return conv2d_mac_plain(q, spec, mul_spec, kernel, shift, fast)
-    kh, kw, weights = check_conv_kernel(kernel)
-    check_cuda("conv2d_mac", q)
     check_conv_input(q, mul_spec, shift)
+    return launch_conv2d_mac(q, spec, mul_spec, kernel, shift=shift,
+                             fast=fast)
+
+
+def launch_conv2d_mac(q: torch.Tensor, spec: AdderSpec, mul_spec: MulSpec,
+                      kernel, *, shift: int = 0,
+                      fast: bool = False) -> torch.Tensor:
+    """The kernel's launch alone, for a contiguous int32 CUDA tensor whose
+    values the caller has checked (``|q| < 2^w``, as :func:`conv2d_mac`
+    does): no host synchronisation, so its time is the kernel's."""
+    check_cuda("conv2d_mac", q)
+    kh, kw, weights = check_conv_kernel(kernel)
     args = adder_args(spec, fast)
-    tables = mul_lut_lib.device_tap_tables(mul_spec, weights, q.device)
+    entries = 1 << mul_spec.n_bits
+    shape, place = conv_route(kh, kw, entries)
     h, w = q.shape[-2:]
     planes = q.numel() // (h * w) if h * w else 0
-    if planes > 65535 or h * w >= 2 ** 31:
-        raise ValueError(f"conv2d_mac: {tuple(q.shape)} exceeds one "
-                         f"launch's grid (at most 65535 planes)")
+    tiles = planes * -(-h // TILE[0]) * -(-w // TILE[1])
+    if tiles >= 2 ** 31 or (h + TILE[0]) * w >= 2 ** 31:
+        raise ValueError(f"conv2d_mac: {tuple(q.shape)} exceeds the "
+                         f"kernel's int32 indices")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    tables = signed_tap_tables(mul_spec, weights, spec.n_bits, q.device)
     fn = _build.bind("conv2d_mac", "conv2d_mac_launch", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), tables.data_ptr(), out.data_ptr(), planes, h,
-                 w, kh, kw, tables.shape[1], shift, *args,
-                 stream_ptr(q.device))
+                 w, kh, kw, entries, shift, shape, int(place == "shared"),
+                 *args, stream_ptr(q.device))
     _build.check(err, "conv2d_mac")
     conv2d_mac.launches += 1
     return out

@@ -401,3 +401,246 @@ def test_filter_chain_routes_on_card(cuda_device, kind):
                                            fast=fast).cpu()
                 want = chain_k.filter_chain_plain(q, spec, stages, fast)
                 assert torch.equal(got, want), (name, shape, fast)
+
+
+# ------------------------ the redesigned accumulate and conv2d_mac kernels --
+
+def _offset_copy(x, device, offset=1):
+    """``x`` on ``device`` at an address ``offset`` elements past a
+    16-byte boundary (so 16-byte loads do not fit)."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("kind", specs.ALL_KINDS)
+def test_accumulate_routes_on_card(cuda_device, kind):
+    """The stacked entry on every route: K = 2 and 4 (their instances), K =
+    1, 3 and 9 (the general one), 16-byte loads (M % 4 == 0, aligned) and
+    one element a thread (ragged M, an unaligned stack), both forms."""
+    rng = np.random.default_rng(31)
+    spec = specs.AdderSpec(kind, 16, 8, 4)
+    cases = [((2, 3, 64, 40), (2, -1), (2, 4)), ((2, 5, 7), (2, -1), (2, 1)),
+             ((4, 2, 33, 64), (1, 1, 1, 1), (4, 4)),
+             ((4, 1, 3), (1, 2, 3, 4), (4, 1)),
+             ((9, 3, 37, 41), (1, 2, 1, -2, 4, -2, 1, 2, -1), (0, 1)),
+             ((9, 2, 16), (1, 2, 1, -2, 4, -2, 1, 2, -1), (0, 4)),
+             ((1, 4, 8), (3,), (0, 4)), ((3, 5), (1, 1, 1), (0, 1))]
+    for shape, ws, route in cases:
+        terms = torch.as_tensor(rng.integers(0, 1 << 16, shape)
+                                .astype(np.int32))
+        td = terms.to(cuda_device)
+        m = terms[0].numel()
+        assert acc_k.accumulate_route(len(ws), m, True) == route, shape
+        for fast in (False, True):
+            want = acc_k.accumulate_plain(terms, spec, ws, fast)
+            got = acc_k.accumulate(td, spec, weights=ws, fast=fast).cpu()
+            assert torch.equal(got, want), (shape, ws, fast)
+            off = _offset_copy(terms, cuda_device)
+            got = acc_k.accumulate(off, spec, weights=ws, fast=fast).cpu()
+            assert torch.equal(got, want), (shape, ws, fast, "unaligned")
+
+
+def _signed_cases(rng, device):
+    """(terms on the card, weights, shift) of the signed entry: scaled_add
+    shapes (aligned, W % 4 != 0), downsample2x's strided phases on odd
+    H and W, blend with shift 6, K = 9, leading dims, a broadcast term
+    and a transposed one."""
+    def q(shape, lim=2040):
+        return torch.as_tensor(rng.integers(-lim, lim, shape)
+                               .astype(np.int32)).to(device)
+
+    cases = [((q((3, 64, 40)), q((3, 64, 40))), (2, -1), 0),
+             ((q((2, 9, 7)), q((2, 9, 7))), (1, 1), 0),
+             ((q((2, 9, 7)), q((2, 9, 7))), (40, 24), 6)]
+    for shape in ((2, 37, 71), (1, 64, 130), (3, 5, 1), (1, 1), (2, 2)):
+        x = q(shape)
+        h, w = shape[-2] & ~1, shape[-1] & ~1
+        x = x[..., :h, :w]
+        cases.append(((x[..., 0::2, 0::2], x[..., 0::2, 1::2],
+                       x[..., 1::2, 0::2], x[..., 1::2, 1::2]), None, 2))
+    cases.append((tuple(q((2, 3, 16, 24)) for _ in range(9)),
+                  (1, 2, 1, -2, 4, -2, 1, 2, -1), 3))
+    base = q((4, 32))
+    cases.append(((base, q((1, 32)).expand(4, 32)), (1, 1), 1))
+    cases.append(((base, q((32, 4)).t()), (3, -1), 0))
+    return cases
+
+
+@pytest.mark.parametrize("kind", specs.ALL_KINDS)
+def test_accumulate_signed_on_card(cuda_device, kind):
+    """The signed entry reads every term where it lies (views, strided
+    phases, broadcast and transposed terms) and equals the plain
+    composition, both forms, containers of 16 and 12 bits."""
+    rng = np.random.default_rng(32)
+    for n_bits, m, k in ((16, 8, 4), (12, 6, 3)):
+        spec = specs.AdderSpec(kind, n_bits, m, k)
+        for terms, ws, shift in _signed_cases(rng, cuda_device):
+            for fast in (False, True):
+                got = acc_k.accumulate_signed(terms, spec, n_bits,
+                                              weights=ws, shift=shift,
+                                              fast=fast).cpu()
+                want = acc_k.accumulate_signed_plain(
+                    tuple(t.cpu() for t in terms), spec, n_bits, ws, shift,
+                    fast)
+                assert torch.equal(got, want), (tuple(terms[0].shape), ws,
+                                                shift, fast)
+
+
+def test_accumulate_entry_refuses_a_bad_route(cuda_device):
+    """The C entry checks the route it is given: a K instance that is not
+    K, 16-byte loads on a ragged row, an unaligned term or a strided
+    one, and a rounding shift on the unsigned entry are refused with
+    cudaErrorInvalidValue."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.approx_add import adder_args, stream_ptr
+    spec = specs.AdderSpec("haloc_axa", 16, 8, 4)
+    fn = _build.bind("accumulate", "accumulate_launch", acc_k._ARGTYPES)
+    buf = torch.zeros(4 * 64 + 4, dtype=torch.int32, device=cuda_device)
+    out = torch.empty(64, dtype=torch.int32, device=cuda_device)
+
+    def launch(ptrs, strides, width, kt, vec, bits=0, shift=0):
+        k = len(ptrs)
+        bases = (ctypes.c_void_p * k)(*ptrs)
+        flat = (ctypes.c_longlong * (3 * k))(*(s for st in strides
+                                                for s in st))
+        wts = (ctypes.c_uint * k)(*([1] * k))
+        err = fn(ctypes.cast(bases, ctypes.c_void_p),
+                 ctypes.cast(flat, ctypes.c_void_p), out.data_ptr(), 1, 1,
+                 width, k, ctypes.cast(wts, ctypes.c_void_p), bits, shift,
+                 kt, vec, *adder_args(spec, False), stream_ptr(cuda_device))
+        torch.cuda.synchronize(cuda_device)
+        return err
+
+    p = buf.data_ptr()
+    flat2 = [(0, 0, 1)] * 2
+    invalid = 1  # cudaErrorInvalidValue
+    assert launch([p, p + 256], flat2, 64, 4, 4) == invalid
+    assert launch([p, p + 256, p + 512], [(0, 0, 1)] * 3, 64, 2, 4) == invalid
+    assert launch([p, p + 256], flat2, 62, 2, 4) == invalid
+    assert launch([p + 4, p + 256], flat2, 60, 2, 4) == invalid
+    assert launch([p, p + 256], [(0, 0, 2), (0, 0, 1)], 32, 2, 4) == invalid
+    assert launch([p, p + 256], flat2, 64, 2, 1, 0, 2) == invalid
+    assert launch([p, p + 256], flat2, 64, 2, 4) == 0
+    assert launch([p + 4, p + 256], flat2, 60, 0, 1, 16, 2) == 0
+
+
+def _kernel_launches(fn):
+    """CUDA kernels ``fn()`` launches, counted by the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA)
+
+
+def test_scaled_add_and_accumulate_signed_are_one_launch(cuda_device):
+    """On the cuda backend the signed fold is one kernel: no stack, mask,
+    sign-extension or rounding kernel around it (sharpen's scaled_add and
+    downsample2x's strided phases)."""
+    from repro_torch.ax import make_engine
+    from repro_torch.numerics.fixed_point import FixedPointFormat
+    rng = np.random.default_rng(33)
+    eng = make_engine("haloc_axa", fmt=FixedPointFormat(16, 3))
+    x, y = (torch.as_tensor(rng.integers(-2040, 2040, (2, 64, 96))
+                            .astype(np.int32)).to(cuda_device)
+            for _ in range(2))
+    phases = (x[..., 0::2, 0::2], x[..., 0::2, 1::2], x[..., 1::2, 0::2],
+              x[..., 1::2, 1::2])
+    assert _kernel_launches(lambda: eng.scaled_add(x, y, 2, -1)) == 1
+    assert _kernel_launches(
+        lambda: eng.accumulate_signed(phases, shift=2)) == 1
+    cpu = make_engine("haloc_axa", fmt=FixedPointFormat(16, 3),
+                      backend="torch", device="cpu")
+    assert torch.equal(eng.scaled_add(x, y, 2, -1).cpu(),
+                       cpu.scaled_add(x.cpu(), y.cpu(), 2, -1))
+    assert torch.equal(eng.accumulate_signed(phases, shift=2).cpu(),
+                       cpu.accumulate_signed(tuple(p.cpu() for p in phases),
+                                             shift=2))
+
+
+@pytest.mark.parametrize("kind", specs.ALL_KINDS)
+def test_conv2d_mac_routes_on_card(cuda_device, kind):
+    """Every route: 3 x 3 and 5 x 5 instances with tables in shared
+    memory (5 x 5 at w = 8 is past 48 KB; at w = 10 200 KiB), the general
+    instance with tables in shared memory (1 x 1, 3 x 5) and in global
+    memory (5 x 5 at w = 11, 7 x 7 at w = 10); interior and border tiles,
+    W % 4 != 0, an unaligned input, shift 0 and 3, n16 and n32."""
+    from repro_torch.ax.mul import MulSpec
+    from repro_torch.kernels import conv2d_mac as conv_k
+    rng = np.random.default_rng(34)
+
+    def kern(kh, kw, lim):
+        return tuple(tuple(int(x) for x in row)
+                     for row in rng.integers(-lim, lim + 1, (kh, kw)))
+
+    cases = [(MulSpec("truncated", 8, 3), kern(3, 3, 9), (3, "shared")),
+             (MulSpec("truncated", 8, 3), kern(5, 5, 9), (5, "shared")),
+             (MulSpec("mitchell", 10), kern(5, 5, 20), (5, "shared")),
+             (MulSpec("mitchell", 11), kern(5, 5, 20), (0, "global")),
+             (MulSpec("truncated", 8, 3), kern(1, 1, 9), (0, "shared")),
+             (MulSpec("broken_array", 8, 3, 1), kern(3, 5, 9), (0, "shared")),
+             (MulSpec("mitchell", 10), kern(7, 7, 9), (0, "global"))]
+    shapes = [(1, 1), (70, 5), (2, 150, 100), (1, 200, 131)]
+    for n_bits, m, k in ((16, 8, 4), (32, 10, 5)):
+        spec = specs.AdderSpec(kind, n_bits, m, k)
+        for ms, kernel, route in cases:
+            assert conv_k.conv_route(len(kernel), len(kernel[0]),
+                                     1 << ms.n_bits) == route
+            lim = (1 << ms.n_bits) - 1
+            for shape in shapes:
+                qc = torch.as_tensor(rng.integers(-lim, lim + 1, shape)
+                                     .astype(np.int32))
+                for shift in (0, 3):
+                    want = conv_k.conv2d_mac_plain(qc, spec, ms, kernel,
+                                                   shift)
+                    got = conv_k.conv2d_mac(qc.to(cuda_device), spec, ms,
+                                            kernel, shift=shift,
+                                            fast=True).cpu()
+                    assert torch.equal(got, want), (ms, route, shape, shift)
+            qc = torch.as_tensor(rng.integers(-lim, lim + 1, (2, 150, 100))
+                                 .astype(np.int32))
+            got = conv_k.conv2d_mac(_offset_copy(qc, cuda_device), spec, ms,
+                                    kernel).cpu()
+            assert torch.equal(got, conv_k.conv2d_mac_plain(qc, spec, ms,
+                                                            kernel))
+
+
+def test_conv2d_mac_entry_refuses_a_bad_route(cuda_device):
+    """The C entry checks the route it is given: an instance of another
+    size, tables in shared memory past what a block may have, and a
+    sized instance without staged tables are refused with
+    cudaErrorInvalidValue."""
+    from repro_torch.ax.mul import MulSpec
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import conv2d_mac as conv_k
+    from repro_torch.kernels.approx_add import adder_args, stream_ptr
+    spec = specs.AdderSpec("haloc_axa", 16, 8, 4)
+    fn = _build.bind("conv2d_mac", "conv2d_mac_launch", conv_k._ARGTYPES)
+    q = torch.zeros((64, 64), dtype=torch.int32, device=cuda_device)
+    out = torch.empty_like(q)
+    k3 = ((1, 3, 1), (3, 5, 3), (1, 3, 1))
+    tabs = conv_k.signed_tap_tables(MulSpec("truncated", 8, 3),
+                                    sum(k3, ()), 16, cuda_device)
+
+    def launch(kh, kw, entries, shape, smem):
+        err = fn(q.data_ptr(), tabs.data_ptr(), out.data_ptr(), 1, 64, 64,
+                 kh, kw, entries, 0, shape, smem, *adder_args(spec, False),
+                 stream_ptr(cuda_device))
+        torch.cuda.synchronize(cuda_device)
+        return err
+
+    invalid = 1  # cudaErrorInvalidValue
+    assert launch(3, 3, 256, 5, 1) == invalid
+    assert launch(3, 5, 256, 3, 1) == invalid
+    assert launch(5, 5, 2048, 5, 1) == invalid
+    assert launch(3, 3, 256, 3, 0) == invalid
+    assert launch(3, 3, 256, 3, 1) == 0
+    assert launch(3, 3, 256, 0, 0) == 0

@@ -356,6 +356,22 @@ def test_conv3x3_workload_matches_reference(kind):
         get_workload_j("conv3x3").reference(batch))
 
 
+def test_conv3x3_normalize_equals_numpy_division():
+    """The workload's /21 on the engine's device equals the reference's
+    numpy ``clip((v + 10) // 21, 0, 255)`` (floor division), sums below 0
+    and above 255 * 21 included (approximate adders reach them)."""
+    from repro_torch.imgproc.workloads import conv3x3_normalize
+    rng = np.random.default_rng(70)
+    edges = np.array([-(1 << 20), -32768, -22, -21, -12, -11, -10, -1, 0, 1,
+                      10, 11, 31, 32, 5344, 5345, 5354, 5355, 5365, 5366,
+                      5376, 32767, 1 << 20], dtype=np.int64)
+    v = np.concatenate([edges, rng.integers(-70000, 70000, 4096)])
+    want = np.clip((v + 10) // 21, 0, 255).astype(np.uint8)
+    got = conv3x3_normalize(torch.as_tensor(v.astype(np.int32)))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_conv3x3_exact_mac_and_mul_knob():
     batch = synthetic_batch(2, 32)
     wl = get_workload("conv3x3")
