@@ -9,8 +9,8 @@ Phases (any failure exits non-zero before the result line):
 2. build: the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``
    for ``sm_90a`` (one ``nvcc`` per source, all at once); each source's
    nvcc seconds and its kernels' ``-Xptxas -v`` in sum (registers, and
-   any stack frame or spills: none allowed in ``accumulate`` and
-   ``conv2d_mac``);
+   any stack frame or spills: none allowed in ``accumulate``,
+   ``conv2d_mac``, ``butterfly`` and ``mac_matmul``);
 3. kernels: each kernel against its plain PyTorch version on the card,
    exact (``torch.equal``), every registered adder kind, reference and
    fused forms, at the main path's shapes and on edge shapes
@@ -52,29 +52,42 @@ The Fig-5 FFT and lut slice adds to phases 3-5:
 3b. ``butterfly`` against its plain version at every stage shape of the
    512 x 512 reconstruction (block 16 and whole image), full-range and
    +-2^24 values, every kind, both forms, forward and inverse, at N=32
-   and N=16; ``lut_add`` against its plain version and the ``approx_add``
-   kernel on 4096 x 4096 at n16m8k4 and n32m10k5, and exhaustively at
-   N=8 for every valid (m, k);
+   and N=16; ``fft_axis`` (every stage of an axis in one launch) against
+   the per-stage path (``butterfly`` chained) and its plain version: the
+   last axis at n = 2 ... 4096, the rows and columns of 512^2 whole and
+   in block-16 tiles read in place and of 4 x 1024^2 in tiles, every
+   kind, both forms, forward and inverse, full-range, in place; and
+   ``fft_fixed`` at n = 8192 through the per-stage route; ``lut_add``
+   against its plain version and the ``approx_add`` kernel on 4096 x
+   4096 at n16m8k4 and n32m10k5, and exhaustively at N=8 for every valid
+   (m, k);
 4b. the slice's own path, with the counts set to 0 just before and read
    just after: ``reconstruct(synthetic_image(512), paper_spec(kind))``
    for the seven Table-1 kinds (block 16), once at block 0 and once at
-   N=16 (the six-add route), ``run_corpus(include_fft=True,
+   N=16 (the six-add route), ``fft_fixed`` on a (4, 8192) signal (the
+   per-stage route), ``run_corpus(include_fft=True,
    workloads=("fft_reconstruct",))`` on the 4 x 1024 x 1024 batch, and
    ``strategy="lut"`` adds through ``engine.add_signed`` (N=16) and
    ``engine.add`` (N=32).  Every output must equal the port's CPU path;
    the paper's quality ordering must hold on ``synthetic_image(128)``,
    reconstructed on the card (the size ``tests/test_image.py`` asserts
-   it at);
-5b. both kernels' times and bounds, ``lut_add`` beside ``approx_add`` on
-   the same inputs, and the wall time and profile of ``reconstruct`` and
-   of the ``fft_reconstruct`` workload.
+   it at); one reconstruct at 512, block 16, must be four ``fft_axis``
+   launches by the counters and at most 16 kernels by the profiler;
+5b. the kernels' times and bounds, ``fft_axis`` on every axis of the
+   path with its device time, ``lut_add`` beside ``approx_add`` on the
+   same inputs, and the wall time, launches, busy and idle time and the
+   FFT kernels / glue split of ``reconstruct`` and of the
+   ``fft_reconstruct`` workload.
 
 The MAC slice adds to phases 3-5:
 
 3c. ``mul`` against its plain version for every multiplier kind in all
    three forms at the path's (4, 1024, 1024) shape and exhaustively at
-   N=8 (and at N=10, the uint32 table); ``mac_matmul`` and
-   ``approx_matmul`` at 1024^3 (bk 128), on the ragged (16, 300) @
+   N=8 (and at N=10, the uint32 table); ``mac_matmul``'s two table
+   routes (the int16 table in shared memory for every 8-bit multiplier
+   kind, the int32 one in global memory at w = 10) on ragged K with bk 1,
+   33 and 128 and at 1024^3, every adder kind, both forms; ``mac_matmul``
+   and ``approx_matmul`` at 1024^3 (bk 128), on the ragged (16, 300) @
    (300, 24) and on a single K tile, every adder kind at n32m10k5 and
    n16m8k4, on both of ``approx_matmul``'s staging routes (bk 100, 200,
    32 and 96 and K = 257 and 300 on the general one; bk > K and bk 192
@@ -92,13 +105,14 @@ The MAC slice adds to phases 3-5:
    kind's default 8-bit spec, and both ``engine.matmul`` paths at 1024^3
    (n32m10k5 and n16m8k4).  Every output equals the port's CPU path (the
    GEMMs on their first 64 rows);
-5c. the four kernels' times, plain times and bounds, ``conv2d_mac``'s
-   spread over five timings and its time on constant images (every
-   gather a broadcast), ``torch._int_mm`` on the same int8 operands
-   beside ``approx_matmul``,
-   one ``approx_matmul`` call's device time by kernel (the B transpose
-   and the GEMM), and ``approx_matmul`` through its general staging
-   route.
+5c. the four kernels' times, plain times and bounds (``mac_matmul``'s
+   the larger of its operations and its gathers at 32 shared-memory lanes
+   an SM), one ``mac_matmul`` call's profile and its global route's time,
+   ``conv2d_mac``'s spread over five timings and its time on constant
+   images (every gather a broadcast), ``torch._int_mm`` on the same int8
+   operands beside ``approx_matmul``, one ``approx_matmul`` call's device
+   time by kernel (the B transpose and the GEMM), and ``approx_matmul``
+   through its general staging route.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -158,21 +172,103 @@ def haloc_axa_masks(n_bits, m, k):
 #: through); a stage's sign extension from N bits (one SGXT); its
 #: rounding shift, when it has one (add the half, shift).
 OPS_PER_MASK, OPS_PER_SCALE, OPS_SIGN_EXTEND, OPS_ROUND_SHIFT = 0, 1, 1, 2
-#: One Q1.14 twiddle product (a 32 x 32 -> 64 multiply-add of the
-#: rounding constant, then the 64-bit shift to its low word); one exact
-#: negate; one inverse-stage halving (add, shift).
-OPS_PER_Q14_PRODUCT, OPS_PER_NEGATE, OPS_PER_HALVE = 2, 1, 2
+
+
+def s32(x):
+    """A 32-bit register pattern read as a signed value."""
+    return x - (((x >> 31) & 1) << 32)
+
+
+def _renamed(steps, names, prefix):
+    """``steps`` on other registers: ``names`` maps inputs and the result
+    ``out``; every other temporary gets ``prefix``; the masks stay."""
+    masks = set(haloc_axa_masks(32, 10, 5))
+
+    def ren(r):
+        return names.get(r, r if r in masks else prefix + r)
+
+    return tuple((ren(d), op, tuple(ren(x) for x in srcs), fn)
+                 for d, op, srcs, fn in steps)
+
+
+def butterfly_masks(n_bits, m, k):
+    """The hoisted constants ``BUTTERFLY_PAIR`` reads: the adder's masks
+    and the products' rounding constant 2^13."""
+    return {**haloc_axa_masks(n_bits, m, k), "round14": 1 << 13}
+
+
+def add_steps(a, b, out):
+    """``HALOC_AXA_ADD`` of registers ``a`` and ``b`` into ``out``."""
+    return _renamed(HALOC_AXA_ADD, {"a": a, "b": b, "out": out}, out + ".")
+
+
+def q14_steps(x, w, out):
+    """One Q1.14 twiddle product, the low word of ``(x * w + 2^13) >>
+    14``: a 32 x 32 -> 64 multiply-add of the hoisted rounding constant
+    (IMAD.WIDE, into a register pair) and the pair's funnel shift (SHF)."""
+    return ((out + ".wide", "IMAD.WIDE", (x, w, "round14"),
+             lambda x, w, c: s32(x) * s32(w) + c),
+            (out, "SHF", (out + ".wide",), lambda p: p >> 14))
+
+
+def negate_steps(x, out):
+    """The exact two's-complement negate ``0 - x`` (one IADD3)."""
+    return ((out, "IADD3", (x,), lambda v: -v),)
+
+
+def halve_steps(x, out):
+    """An inverse stage's ``(x + 1) >> 1`` on the int32 value, the +1
+    wrapping in 32 bits (IADD3, then an arithmetic SHF)."""
+    return ((out + ".p1", "IADD3", (x,), lambda v: v + 1),
+            (out, "SHF", (out + ".p1",), lambda v: s32(v) >> 1))
+
+
+#: One butterfly pair of the FFT (both entries of ``csrc/butterfly.cu``),
+#: haloc_axa, in instructions as ``HALOC_AXA_ADD``: the four Q1.14
+#: products of the odd element (br, bi) by the twiddle (wr, wi), then the
+#: six adds of the per-stage order, with the three exact negates of the
+#: subtractions: 4 x 2 + 3 + 6 x 8 = 59.  An inverse stage halves each
+#: output (``BUTTERFLY_INVERSE``, 67).  ``tests/test_torch_bounds.py`` runs
+#: both against ``butterfly_plain``.
+BUTTERFLY_PAIR = (
+    q14_steps("br", "wr", "rr") + q14_steps("br", "wi", "ri")
+    + q14_steps("bi", "wr", "ir") + q14_steps("bi", "wi", "ii")
+    + negate_steps("ii", "nii") + add_steps("rr", "nii", "t_re")
+    + add_steps("ri", "ir", "t_im")
+    + add_steps("ar", "t_re", "top_re") + add_steps("ai", "t_im", "top_im")
+    + negate_steps("t_re", "nt_re") + add_steps("ar", "nt_re", "bot_re")
+    + negate_steps("t_im", "nt_im") + add_steps("ai", "nt_im", "bot_im"))
+BUTTERFLY_INVERSE = BUTTERFLY_PAIR + sum(
+    (halve_steps(x, x + ".h") for x in ("top_re", "top_im", "bot_re",
+                                        "bot_im")), ())
 #: One lut add: the two low masks (LOP3), the index (LEA), the two high
 #: masks (LOP3), the high parts' and the entry's sum (IADD3) and the
 #: N-bit mask (the gather itself is counted in bytes: the table is read
 #: once).
 OPS_PER_LUT_ADD = 7
 
-#: One MAC product of mac_matmul: the table address from B's element and
-#: the row base of A's, hoisted out of the loop over N (one LEA), and half
-#: an IADD3 (which adds two products into the tile's partial); the gather
-#: itself is counted in neither bytes nor operations.
-OPS_PER_MAC_PRODUCT = 1.5
+#: Two MAC products of mac_matmul's inner loop, one A row by two B
+#: columns, in instructions as above: each table offset one LOP3 of the
+#: staged byte offsets (A's (a & mask) << (w + 1), B's (b & mask) << 1),
+#: each product one gather from the int16 table in shared memory (LDS,
+#: sign-extending), and one IADD3 adding both into the tile's partial.  So
+#: 1.5 int32 instructions and one gather a product; no route avoids the
+#: gather, and shared memory serves 32 lanes a clock an SM
+#: (``LDS_LANES_PER_SM``).  ``tests/test_torch_bounds.py`` runs the steps
+#: against the plain GEMM's partial.
+MAC_PRODUCT_PAIR = (
+    ("i0", "LOP3", ("a", "b0"), lambda a, b: a | b),
+    ("i1", "LOP3", ("a", "b1"), lambda a, b: a | b),
+    ("p0", "LDS", ("table", "i0"), lambda t, i: t[i >> 1]),
+    ("p1", "LDS", ("table", "i1"), lambda t, i: t[i >> 1]),
+    ("part", "IADD3", ("part", "p0", "p1"), lambda s, x, y: s + x + y),
+)
+OPS_PER_MAC_PRODUCT = sum(op != "LDS" for _, op, _, _ in MAC_PRODUCT_PAIR) / 2
+GATHERS_PER_MAC_PRODUCT = sum(op == "LDS"
+                              for _, op, _, _ in MAC_PRODUCT_PAIR) / 2
+#: Shared-memory lanes an SM serves a clock (32 banks of 4 bytes): the
+#: rate of the gathers, one lane each.
+LDS_LANES_PER_SM = 32
 #: One input value of conv2d_mac, in instructions as above: its row of the
 #: signed tap tables (``kernels/conv2d_mac.py``, signed_tap_tables), one
 #: IMAD.  Each of its taps is then one gather at row + t (counted in
@@ -186,7 +282,7 @@ CONV_INDEX = (
 OPS_PER_CONV_VALUE = len(CONV_INDEX)
 #: Sources whose every kernel must build with no stack frame and no
 #: spills (their parameters are read at compile-time indices).
-NO_STACK_SOURCES = ("accumulate", "conv2d_mac")
+NO_STACK_SOURCES = ("accumulate", "conv2d_mac", "butterfly", "mac_matmul")
 #: H100 SXM dense int8 tensor-core rate (ops/s), from the data sheet: the
 #: exact-product GEMM's int8 dot.
 INT8_TENSOR_OPS_PER_S = 1979e12
@@ -484,7 +580,7 @@ def check_fft_lut_kernels(torch, np, dev, errs):
     """butterfly and lut_add against their plain versions on the card,
     exact (and lut_add against the approx_add kernel too)."""
     from repro_torch.core import specs
-    from repro_torch.image.fft import stage_twiddles
+    from repro_torch.kernels.butterfly import stage_twiddles
     from repro_torch.kernels import approx_add as add_k
     from repro_torch.kernels import butterfly as bf_k
     from repro_torch.kernels import lut_add as lut_k
@@ -529,6 +625,7 @@ def check_fft_lut_kernels(torch, np, dev, errs):
         f"the {len(halves)} stage shapes (131072 pairs, strided halves), "
         f"full-range and +-2^24 at N=32, N=16 residues, 1001 ragged rows: "
         f"equal")
+    check_fft_axis(torch, np, dev, errs, rng)
 
     def lut_case(a, b, s, what):
         got = lut_k.lut_add(a, b, s)
@@ -563,6 +660,99 @@ def check_fft_lut_kernels(torch, np, dev, errs):
         f"4096x4096, {cells} (kind, m, k) cells exhaustive at N=8: equal to "
         f"the plain version and to the approx_add kernel")
     log(f"  phase 3b took {time.perf_counter() - t0:.1f} s")
+
+
+def check_fft_axis(torch, np, dev, errs, rng):
+    """fft_axis (every stage of an axis in one launch) against the
+    per-stage path, ``butterfly`` chained stage by stage on the same
+    transforms (what the FFT ran before), and against its plain version:
+    the last axis at n = 2 ... 4096, the row and column axes of the 512 x
+    512 image whole and in 16 x 16 tiles read in place and of the 4 x
+    1024^2 batch in tiles, every kind, both forms, forward and inverse,
+    full-range values; in place; and the per-stage route past 4096."""
+    from repro_torch.core.specs import paper_spec
+    from repro_torch.image.fft import (FixedFFTConfig, fft_fixed, fft_route,
+                                       image_layouts, to_fixed)
+    from repro_torch.core import specs
+    from repro_torch.kernels import butterfly as bf_k
+    kinds = specs.ALL_KINDS
+    t0 = time.perf_counter()
+    layouts = []
+    for log_n in range(1, 13):
+        n = 1 << log_n
+        shape = (max(2, (1 << 16) // n), n)
+        layouts.append((f"last axis n={n}", shape,
+                        bf_k.last_axis_layout(shape)))
+    for shape, block in (((FFT_SIZE, FFT_SIZE), 16), ((FFT_SIZE, FFT_SIZE),
+                                                      None),
+                         ((N_IMAGES, FULL_SIZE, FULL_SIZE), 16)):
+        rows, cols = image_layouts(shape, block)
+        for name, lay in (("rows", rows), ("cols", cols)):
+            layouts.append((f"{name} of {shape} block {block}", shape, lay))
+    plans = set()
+    for what, shape, lay in layouts:
+        plans.add((lay.n, bf_k.axis_plan(lay).log_per_block,
+                   bf_k.axis_plan(lay).t_fast))
+        re, im = (containers(torch, np, rng, shape, 32, dev)
+                  for _ in range(2))
+        rows = [lay.view(x).reshape(-1, lay.n) for x in (re, im)]
+        plain_kinds = kinds if lay.transforms * lay.n <= 1 << 16 \
+            else ("haloc_axa",)
+        for kind in kinds:
+            s = spec_at(kind, 32)
+            for inverse in (False, True):
+                for fast in (False, True):
+                    got = bf_k.fft_axis(re, im, lay, s, inverse=inverse,
+                                        fast=fast)
+                    staged = bf_k.fft_stages(
+                        *rows, inverse, lambda *p: bf_k.butterfly(
+                            *p, s, inverse=inverse, fast=fast))
+                    for g, w in zip(got, staged):
+                        compare_into(torch, errs, "fft_axis",
+                                     lay.view(g).reshape(-1, lay.n), w,
+                                     f"{s.short_name} {what} inverse="
+                                     f"{inverse} fast={fast} (per-stage)")
+                    if kind in plain_kinds:
+                        want = bf_k.fft_axis_plain(re, im, lay, s,
+                                                   inverse=inverse,
+                                                   fast=fast)
+                        for g, w in zip(got, want):
+                            compare_into(torch, errs, "fft_axis", g, w,
+                                         f"{s.short_name} {what} inverse="
+                                         f"{inverse} fast={fast}")
+    # In place: the column pass of fft2 writes over its input.
+    shape = (FFT_SIZE, FFT_SIZE)
+    rows, cols = image_layouts(shape, 16)
+    s = paper_spec("haloc_axa")
+    re, im = (containers(torch, np, rng, shape, 32, dev) for _ in range(2))
+    want = bf_k.fft_axis(re, im, cols, s, fast=True)
+    bf_k.fft_axis(re, im, cols, s, fast=True, out=(re, im))
+    compare_into(torch, errs, "fft_axis", re, want[0], "in place")
+    compare_into(torch, errs, "fft_axis", im, want[1], "in place")
+    # Past the axis kernel's 4096: the per-stage kernel, one launch a
+    # stage, equal to the CPU path.
+    check(fft_route(8192, 32) == "stages" and fft_route(4096, 32) == "axis"
+          and fft_route(16, 16) == "adds", "fft_route")
+    x = rng.uniform(-200, 200, (4, 8192))
+    cfg = FixedFFTConfig(spec=s)
+    cpu = FixedFFTConfig(spec=s, backend="torch", device="cpu")
+    for inverse in (False, True):
+        bf_k.fft_axis.launches = bf_k.butterfly.launches = 0
+        got = fft_fixed(to_fixed(x, cfg), to_fixed(-x, cfg), cfg, inverse)
+        check((bf_k.fft_axis.launches, bf_k.butterfly.launches) == (0, 13),
+              "fft_fixed at n = 8192 must take the per-stage route")
+        want = fft_fixed(to_fixed(x, cpu), to_fixed(-x, cpu), cpu, inverse)
+        for g, w in zip(got, want):
+            check(torch.equal(g.cpu(), w), "fft_fixed n = 8192 on the card "
+                  "differs from the CPU path")
+    torch.cuda.synchronize()
+    log(f"  fft_axis: {len(layouts)} layouts (last axis n = 2 ... 4096; "
+        f"rows and columns of 512^2 whole and block 16 and of 4 x 1024^2 "
+        f"block 16, in place) x {len(kinds)} kinds x 2 forms x "
+        f"forward/inverse, full-range: equal to the per-stage path and the "
+        f"plain version; plans (n, log2 T, t_fast) {sorted(plans)}; in "
+        f"place equal; n = 8192 through the per-stage route (13 launches) "
+        f"equal to the CPU path ({time.perf_counter() - t0:.1f} s)")
 
 
 def mul_specs():
@@ -712,6 +902,45 @@ def check_mac_kernels(torch, np, dev, errs):
         f"kind at 1024^3; approx_matmul's general route at 1024^3 and the "
         f"2^31 wrap on both routes: equal")
 
+    # mac_matmul's two table routes: the int16 table in shared memory for
+    # every 8-bit multiplier kind, the int32 one in global memory at w =
+    # 10; ragged K, bk 1, 33 and 128, every adder kind at both widths.
+    from repro_torch.ax.mul import lut as mul_lut
+    mac_muls = mul_specs() + [MulSpec("truncated", 10, 4),
+                              MulSpec("mitchell", 10)]
+    mac_cases = [((70, 300), (300, 130), 128), ((70, 300), (300, 130), 33),
+                 ((33, 97), (97, 65), 1), ((g, g), (g, g), GEMM_BK)]
+    mac_routes = {}
+    for ms in mac_muls:
+        route = mac_k.mac_route(ms.n_bits, mul_lut.signed_table_fits_int16(ms))
+        mac_routes[ms.short_name] = route
+        check(route == ("shared" if ms.n_bits <= 8 else "global"),
+              f"mac_matmul route of {ms.short_name}: {route}")
+        lim = 1 << (ms.n_bits - 1)
+        for sa, sb, bk in mac_cases:
+            if sa[0] == g and ms.n_bits > 8:
+                continue
+            a32 = torch.as_tensor(rng.integers(-lim, lim, sa)
+                                  .astype(np.int32), device=dev)
+            b32 = torch.as_tensor(rng.integers(-lim, lim, sb)
+                                  .astype(np.int32), device=dev)
+            rows = slice(0, GEMM_CPU_ROWS) if sa[0] == g else slice(None)
+            for n_bits in (32, 16):
+                for kind in (kinds if sa[0] != g else ("haloc_axa",)):
+                    spec = spec_at(kind, n_bits)
+                    for fast in (False, True):
+                        compare("mac_matmul",
+                                mac_k.mac_matmul(a32, b32, spec, ms, bk=bk,
+                                                 fast=fast)[rows],
+                                mac_k.mac_matmul_plain(a32[rows], b32, spec,
+                                                       ms, bk, fast),
+                                f"{spec.short_name} {ms.short_name} {sa} @ "
+                                f"{sb} bk {bk} fast={fast} ({route})")
+    torch.cuda.synchronize()
+    log(f"  mac_matmul routes {mac_routes}: {len(mac_cases)} shapes (ragged "
+        f"K, bk 1, 33, 128, 1024^3 on its first rows) x {len(kinds)} kinds "
+        f"x 2 forms at n32 and n16: equal")
+
     # conv2d_mac: the path shape, every kind (the 3 x 3 instance); negative
     # weights; 3 x 3 and 5 x 5; shift 0 and 2; w = 8 and w = 10, the tables
     # staged in shared memory (5 x 5 at w = 8 is 50 KiB, past the 48 KB of
@@ -819,9 +1048,14 @@ def run_main_path(torch, np, batch, backend=None, device=None, corpus=True):
 
 
 #: The kernels each path must launch: the 16-bit image path's, and the
-#: Fig-5 FFT and lut path's (approx_add carries its N=16 six-add route).
+#: Fig-5 FFT and lut path's (fft_axis runs every N=32 axis, butterfly the
+#: per-stage route past 4096, approx_add the N=16 six-add route).
 MAIN_PATH_KERNELS = ("approx_add", "accumulate", "filter_chain")
-FFT_PATH_KERNELS = ("butterfly", "lut_add", "approx_add")
+FFT_PATH_KERNELS = ("fft_axis", "butterfly", "lut_add", "approx_add")
+#: Most kernel launches (every kernel, by the profiler) one reconstruct
+#: of 512 x 512 at block 16, N = 32, may make: the four axes and the
+#: containers' glue.
+RECONSTRUCT_MAX_LAUNCHES = 16
 
 
 MAC_PATH_KERNELS = ("mul", "mac_matmul", "conv2d_mac", "approx_matmul")
@@ -839,7 +1073,8 @@ def counters():
     from repro_torch.kernels import mul as mul_k
     return {"approx_add": add_k.approx_add, "accumulate": acc_k.accumulate,
             "filter_chain": chain_k.filter_chain, "lut_add": lut_k.lut_add,
-            "butterfly": bf_k.butterfly, "mul": mul_k.mul,
+            "butterfly": bf_k.butterfly, "fft_axis": bf_k.fft_axis,
+            "mul": mul_k.mul,
             "mac_matmul": mac_k.mac_matmul, "conv2d_mac": conv_k.conv2d_mac,
             "approx_matmul": mm_k.approx_matmul}
 
@@ -947,6 +1182,7 @@ def run_fft_lut_path(torch, np, img, batch, backend=None, device=None,
     of ``batch`` (all by default)."""
     from repro_torch.ax import make_engine
     from repro_torch.core.specs import TABLE1_KINDS, AdderSpec, paper_spec
+    from repro_torch.image.fft import FixedFFTConfig, fft_fixed, to_fixed
     from repro_torch.image.pipeline import reconstruct
     from repro_torch.imgproc import get_workload, run_corpus
     from repro_torch.numerics.fixed_point import FixedPointFormat
@@ -960,6 +1196,11 @@ def run_fft_lut_path(torch, np, img, batch, backend=None, device=None,
         img, paper_spec("haloc_axa"), block=0, **where)
     outs[("reconstruct n16m8k4", "haloc_axa", 16)] = reconstruct(
         img, AdderSpec("haloc_axa", 16, 8, 4), frac_bits=0, **where)
+    # A transform past one block of the axis kernel: the per-stage route.
+    cfg = FixedFFTConfig(spec=paper_spec("haloc_axa"), **where)
+    x = np.random.default_rng(9).uniform(-255, 255, (N_IMAGES, 8192))
+    outs[("fft_fixed n8192", "haloc_axa")] = torch.stack(fft_fixed(
+        to_fixed(x, cfg), to_fixed(0 * x, cfg), cfg))
     outs[("fft_reconstruct", "haloc_axa")] = torch.as_tensor(
         get_workload("fft_reconstruct").run(batch[:fft_images],
                                             kind="haloc_axa", **where))
@@ -977,6 +1218,32 @@ def run_fft_lut_path(torch, np, img, batch, backend=None, device=None,
                       workloads=("fft_reconstruct",), **where) \
         if corpus else None
     return outs, rows
+
+
+def check_reconstruct_launches(torch, img, counts):
+    """One reconstruct of the 512 x 512 image at block 16, N = 32: four
+    fft_axis launches by the counters and no per-stage one, and at most
+    RECONSTRUCT_MAX_LAUNCHES kernels in all by the profiler."""
+    from repro_torch.core.specs import paper_spec
+    from repro_torch.image.pipeline import reconstruct
+    gimg = torch.as_tensor(img, device="cuda")
+    spec = paper_spec("haloc_axa")
+    reconstruct(gimg, spec)
+    for f in counts.values():
+        f.launches = 0
+    reconstruct(gimg, spec)
+    torch.cuda.synchronize()
+    ours = {name: f.launches for name, f in counts.items() if f.launches}
+    n_all = kernel_events(torch, lambda: reconstruct(gimg, spec))
+    log(f"  launches per reconstruct({FFT_SIZE} x {FFT_SIZE}, block 16, "
+        f"n32m10k5): the counters {ours}; every kernel, by the profiler: "
+        f"{n_all if n_all is not None else 'not measured'}")
+    check(ours == {"fft_axis": 4},
+          f"reconstruct must run four fft_axis launches and no other "
+          f"kernel of the port: {ours}")
+    check(n_all is None or n_all <= RECONSTRUCT_MAX_LAUNCHES,
+          f"reconstruct ran {n_all} kernels, more than "
+          f"{RECONSTRUCT_MAX_LAUNCHES}")
 
 
 def check_fft_outputs(torch, np, outs, cpu_outs):
@@ -1103,10 +1370,9 @@ def time_launches(torch, fns, reps):
 
 
 def butterfly_ops(inverse):
-    """Least instructions of one butterfly pair: six adds, four Q1.14
-    products, three negates, and four halvings when inverse."""
-    return (6 * OPS_PER_ADD + 4 * OPS_PER_Q14_PRODUCT + 3 * OPS_PER_NEGATE
-            + (4 * OPS_PER_HALVE if inverse else 0))
+    """Least instructions of one butterfly pair (``BUTTERFLY_PAIR``, and
+    the four halvings when inverse)."""
+    return len(BUTTERFLY_INVERSE if inverse else BUTTERFLY_PAIR)
 
 
 def int32_rate(torch, dev):
@@ -1117,17 +1383,21 @@ def int32_rate(torch, dev):
         * float(clock) * 1e6
     log(f"  int32 rate for the bound: {props.multi_processor_count} SMs x "
         f"{INT32_LANES_PER_SM} lanes x {clock} MHz = {rate / 1e12:.2f} "
-        f"Tops/s")
+        f"Tops/s; shared-memory gathers {LDS_LANES_PER_SM} lanes an SM: "
+        f"{rate * LDS_LANES_PER_SM / INT32_LANES_PER_SM / 1e12:.2f} T/s")
     return rate
 
 
 def bound(w, int32_ops_per_s):
     """(bound ms, bytes ms, operations ms) of one timed function: int32
-    operations at the int32 rate and int8 tensor-core operations at
-    theirs, on separate units, so the slower of the two bounds them."""
+    operations at the int32 rate, int8 tensor-core operations at theirs
+    and table gathers at the shared-memory lanes' (the same SMs and clock
+    as the int32 rate), on separate units, so the slowest bounds them."""
     bytes_ms = w["bytes"] / HBM_BYTES_PER_S * 1e3
+    lds_per_s = int32_ops_per_s * LDS_LANES_PER_SM / INT32_LANES_PER_SM
     ops_ms = max(w["ops"] / int32_ops_per_s,
-                 w.get("tensor_ops", 0) / INT8_TENSOR_OPS_PER_S) * 1e3
+                 w.get("tensor_ops", 0) / INT8_TENSOR_OPS_PER_S,
+                 w.get("gathers", 0) / lds_per_s) * 1e3
     return max(bytes_ms, ops_ms), bytes_ms, ops_ms
 
 
@@ -1199,6 +1469,8 @@ def measure(torch, np, dev, launches, errs, int32_ops_per_s):
     }
     work["butterfly"] = butterfly_work(torch, np, rng, dev, bf_k,
                                        FFT_SIZE * FFT_SIZE // 2, 8)
+    work["fft_axis"] = fft_axis_work(torch, np, rng, dev, bf_k,
+                                     (FFT_SIZE, FFT_SIZE), 16, "rows")
     entries = time_entries(torch, work, launches, errs, int32_ops_per_s, n)
     time_accumulate_routes(torch, np, rng, dev, spec, planes, int32_ops_per_s)
     # filter_chain's other routes and form on the same planes: the fused
@@ -1260,6 +1532,27 @@ def measure(torch, np, dev, launches, errs, int32_ops_per_s):
         bound_ms, _, _ = bound(w, int32_ops_per_s)
         log(f"  butterfly stage {what}, {w['what']}: kernel {ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms = {bound_ms / ms * 100:.1f}% of bound")
+    # fft_axis on every axis of the path: both axes of 512^2 in block-16
+    # tiles and whole, and of the 4 x 1024^2 workload batch; the inverse
+    # of the first; each with its device time (the profiler's).
+    for shape, block, axis, inverse in (
+            ((FFT_SIZE, FFT_SIZE), 16, "rows", True),
+            ((FFT_SIZE, FFT_SIZE), 16, "cols", False),
+            ((FFT_SIZE, FFT_SIZE), None, "rows", False),
+            ((FFT_SIZE, FFT_SIZE), None, "cols", False),
+            ((N_IMAGES, FULL_SIZE, FULL_SIZE), 16, "rows", False),
+            ((N_IMAGES, FULL_SIZE, FULL_SIZE), 16, "cols", False)):
+        w = fft_axis_work(torch, np, rng, dev, bf_k, shape, block, axis,
+                          inverse)
+        ms = time_launches(torch, w["kernel"], 40)
+        times = device_times(torch, w["kernel"][0], 10).values()
+        launches = sum(n for _, n in times)
+        dev_txt = (f"{sum(us for us, _ in times) / launches:.1f} us a "
+                   f"launch") if times else "not measured"
+        bound_ms, _, _ = bound(w, int32_ops_per_s)
+        log(f"  fft_axis {w['what']}: kernel {ms:.4f} ms (device "
+            f"{dev_txt}), bound {bound_ms:.4f} ms = "
+            f"{bound_ms / ms * 100:.1f}% of bound")
     return entries
 
 
@@ -1367,7 +1660,7 @@ def butterfly_work(torch, np, rng, dev, bf_k, pairs, half):
     at the paper's spec, fused form (as the cuda backend runs it), on
     strided halves; enough input sets rotated to pass the 50 MB L2."""
     from repro_torch.core.specs import paper_spec
-    from repro_torch.image.fft import stage_twiddles
+    from repro_torch.kernels.butterfly import stage_twiddles
     spec = paper_spec("haloc_axa")
     rows = pairs // half
     copies = max(2, -(-64 * 2 ** 20 // (pairs * 16)))
@@ -1385,6 +1678,39 @@ def butterfly_work(torch, np, rng, dev, bf_k, pairs, half):
                                                 fast=True) for p in sets],
         bytes=8 * 4 * pairs + 2 * 4 * half, ops=butterfly_ops(False) * pairs,
         units=pairs, unit="pair")
+
+
+def fft_axis_work(torch, np, rng, dev, bf_k, shape, block, axis,
+                  inverse=False):
+    """One axis of a 2-D transform of ``shape`` (whole planes, or block
+    tiles read in place), haloc_axa at the paper's spec, fused form (as
+    the cuda backend runs it), +-2^24 values; enough input sets rotated
+    to pass the 50 MB L2.  Bytes: each element of both planes read and
+    written once, and the twiddle table; operations: every pair of every
+    stage (``BUTTERFLY_PAIR``, ``BUTTERFLY_INVERSE``)."""
+    from repro_torch.core.specs import paper_spec
+    from repro_torch.image.fft import image_layouts
+    spec = paper_spec("haloc_axa")
+    lay = dict(zip(("rows", "cols"), image_layouts(shape, block)))[axis]
+    numel = int(np.prod(shape))
+    copies = max(2, -(-64 * 2 ** 20 // (numel * 8)))
+    sets = [tuple(torch.as_tensor(rng.integers(-(1 << 24), 1 << 24, shape)
+                                  .astype(np.int32), device=dev)
+                  for _ in range(2)) for _ in range(copies)]
+    pairs = numel // 2 * (lay.n.bit_length() - 1)
+    return dict(
+        source="src/repro_torch/csrc/butterfly.cu",
+        replaces="src/repro/kernels/butterfly.py:86",
+        what=f"haloc_axa n32m10k5 fused, {'inverse' if inverse else 'forward'}"
+             f" {axis} of {shape} {f'block {block}' if block else 'whole'} "
+             f"(n {lay.n}, every stage)",
+        kernel=[lambda p=p: bf_k.fft_axis(*p, lay, spec, inverse=inverse,
+                                          fast=True) for p in sets],
+        plain=[lambda p=p: bf_k.fft_axis_plain(*p, lay, spec,
+                                               inverse=inverse, fast=True)
+               for p in sets[:2]],
+        bytes=2 * 2 * 4 * numel + 2 * 4 * (lay.n - 1),
+        ops=butterfly_ops(inverse) * pairs, units=pairs, unit="pair-stage")
 
 
 def conv_ops(kernel, shift):
@@ -1451,8 +1777,9 @@ def measure_mac(torch, np, dev, launches, errs, int32_ops_per_s):
             plain=[lambda a=a, b=b: mac_k.mac_matmul_plain(a, b, spec32,
                                                            trunc, GEMM_BK)
                    for a, b in gemms32[:2]],
-            bytes=3 * 4 * g * g + 4 * (1 << 16),
+            bytes=3 * 4 * g * g + 2 * (1 << 16),
             ops=(OPS_PER_MAC_PRODUCT * g + OPS_PER_ADD * folds) * g * g,
+            gathers=GATHERS_PER_MAC_PRODUCT * g * g * g,
             units=g * g, unit="output"),
         "conv2d_mac": dict(
             source="src/repro_torch/csrc/conv2d_mac.cu",
@@ -1518,6 +1845,25 @@ def measure_mac(torch, np, dev, launches, errs, int32_ops_per_s):
         a, b, spec32, bk=GEMM_BK) for a, b in offs], 40)
     log(f"  approx_matmul through the general staging route (A one byte "
         f"off 16), haloc_axa n32m10k5: {ms_gen:.4f} ms")
+    # mac_matmul: one call's device time, and its global route (w = 10,
+    # the int32 table gathered from L2) at the same shape.
+    profile_calls(torch, lambda: mac_k.mac_matmul(
+        *gemms32[0], spec32, trunc, bk=GEMM_BK), time_wall(
+        torch, lambda: mac_k.mac_matmul(*gemms32[0], spec32, trunc,
+                                        bk=GEMM_BK), 10),
+        "mac_matmul 1024^3 wrapper", calls=10, top=2)
+    w10 = MulSpec("mitchell", 10)
+    gemms10 = [(a * 4, b * 4) for a, b in gemms32[:4]]
+    check(torch.equal(mac_k.mac_matmul(gemms10[0][0][:GEMM_CPU_ROWS],
+                                       gemms10[0][1], spec32, w10),
+                      mac_k.mac_matmul_plain(gemms10[0][0][:GEMM_CPU_ROWS],
+                                             gemms10[0][1], spec32, w10)),
+          "mac_matmul global route != plain version")
+    ms10 = time_launches(torch, [lambda a=a, b=b: mac_k.mac_matmul(
+        a, b, spec32, w10, bk=GEMM_BK) for a, b in gemms10], 10)
+    log(f"  mac_matmul route {mac_k.mac_route(10)} (w = 10, mitchell n10, "
+        f"the int32 table in global memory), n32m10k5, 1024^3: "
+        f"{ms10:.4f} ms")
     ms16 = time_launches(torch, [lambda a=a, b=b: mac_k.mac_matmul(
         a, b, spec16, trunc, bk=GEMM_BK) for a, b in gemms32], 20)
     mm16 = time_launches(torch, [lambda a=a, b=b: mm_k.approx_matmul(
@@ -1596,13 +1942,13 @@ def time_chain(torch, gbatch):
     return out
 
 
-def profile_calls(torch, fn, wall_s, label, calls=5, top=10):
-    """Device time by kernel over ``calls`` calls of ``fn``, from
-    ``torch.profiler`` (kernel events only, so no kernel is counted twice
-    through the op that launched it), and the device's idle share against
-    the unprofiled wall time ``wall_s`` per call (the profiler's own
-    overhead stretches its window).  Returns {kernel: us per call}, empty
-    when the profiler saw no device time."""
+def device_times(torch, fn, calls):
+    """{kernel: (device us, launches)} summed over ``calls`` calls of
+    ``fn``, from ``torch.profiler`` (kernel events only, so no kernel is
+    counted twice through the op that launched it); empty when the
+    profiler saw no device time.  The profiler can lose events: a count
+    that is not a multiple of ``calls`` shows it, and us / launches is
+    then still a launch's time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1612,23 +1958,38 @@ def profile_calls(torch, fn, wall_s, label, calls=5, top=10):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    rows = sorted(((ev.self_device_time_total, ev.count, ev.key)
-                   for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA
-                   and ev.self_device_time_total > 0), reverse=True)
-    if not rows:
+    return {ev.key: (ev.self_device_time_total, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0}
+
+
+def profile_calls(torch, fn, wall_s, label, calls=5, top=10):
+    """Device time by kernel over ``calls`` calls of ``fn``
+    (:func:`device_times`): each kernel's time a launch and launches a
+    call, the device's busy time a call and its idle share against the
+    unprofiled wall time ``wall_s`` per call (the profiler's own overhead
+    stretches its window).  Returns {kernel: us per call}, empty when the
+    profiler saw no device time."""
+    times = device_times(torch, fn, calls)
+    if not times:
         log(f"  profile of {label}: the profiler recorded no device time "
             f"(not measured)")
         return {}
-    busy_us = sum(r[0] for r in rows) / calls
+    rows = sorted(((us / calls, n, key) for key, (us, n) in times.items()),
+                  reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    lost = [key for _, n, key in rows if n % calls]
     log(f"  profile of {calls} {label} calls: device busy "
-        f"{busy_us:.1f} us per call in {sum(r[1] for r in rows) // calls} "
-        f"kernel launches; idle share against the unprofiled "
-        f"{wall_s * 1e6:.1f} us per call: {1 - busy_us / (wall_s * 1e6):.3f}")
-    for dev_us, count, key in rows[:top]:
-        log(f"    {dev_us / calls:9.1f} us/call  {count // calls:3d} "
-            f"launches/call  {key[:90]}")
-    return {key: dev_us / calls for dev_us, _, key in rows}
+        f"{busy_us:.1f} us per call in {sum(r[1] for r in rows) / calls:.1f}"
+        f" kernel launches; idle share against the unprofiled "
+        f"{wall_s * 1e6:.1f} us per call: {1 - busy_us / (wall_s * 1e6):.3f}"
+        + (f" (the profiler lost events of {len(lost)} kernels: busy is a "
+           f"lower bound, idle an upper one)" if lost else ""))
+    for us, count, key in rows[:top]:
+        log(f"    {us:9.1f} us/call  {count / calls:5.1f} launches/call  "
+            f"{us * calls / count:8.1f} us/launch  {key[:80]}")
+    return {key: us for us, _, key in rows}
 
 
 def profile_chain(torch, gbatch, wall_s):
@@ -1648,7 +2009,7 @@ def time_fft(torch, np, img, batch, dev):
     batch in, host batch out), haloc_axa."""
     from repro_torch.core.specs import paper_spec
     from repro_torch.image.pipeline import reconstruct
-    from repro_torch.image.fft import stage_twiddles
+    from repro_torch.kernels.butterfly import stage_twiddles
     from repro_torch.imgproc import get_workload
     from repro_torch.kernels import butterfly as bf_k
     # The wrapper's own cost: a loop of calls at a 512 block-16 stage
@@ -1679,9 +2040,10 @@ def time_fft(torch, np, img, batch, dev):
         if by_kernel:
             bf = sum(us for k, us in by_kernel.items() if "butterfly" in k)
             glue = sum(by_kernel.values()) - bf
-            log(f"    split per call: butterfly {bf:.1f} us, glue (every "
-                f"other kernel) {glue:.1f} us, idle "
-                f"{sec * 1e6 - bf - glue:.1f} us of {sec * 1e6:.1f} us")
+            log(f"    split per call: the FFT kernels (fft_axis, "
+                f"butterfly) {bf:.1f} us, glue (every other kernel) "
+                f"{glue:.1f} us, idle {sec * 1e6 - bf - glue:.1f} us of "
+                f"{sec * 1e6:.1f} us")
 
 
 def main():
@@ -1755,8 +2117,9 @@ def main():
     (f_outs, f_rows), f_launches = run_counted(
         torch, counts, FFT_PATH_KERNELS,
         lambda: run_fft_lut_path(torch, np, img, batch), "FFT and lut path")
-    for name in FFT_PATH_KERNELS[:2]:
+    for name in FFT_PATH_KERNELS[:3]:
         launches[name] = f_launches[name]
+    check_reconstruct_launches(torch, img, counts)
     t0 = time.perf_counter()
     cpu_f, _ = run_fft_lut_path(torch, np, img, batch, backend="torch",
                                 device="cpu", corpus=False, fft_images=1)

@@ -154,6 +154,13 @@ def check_conv_kernel(kernel) -> Tuple[int, int, Tuple[int, ...]]:
     return kh, kw, tuple(int(w) for row in kernel for w in row)
 
 
+def broadcast_operands(a: torch.Tensor, b: torch.Tensor):
+    """Two elementwise operands broadcast to one shape and made
+    contiguous, as the kernels take them (the ``"torch"`` backend's and
+    the reference's broadcasting; shapes that do not broadcast raise)."""
+    return tuple(t.contiguous() for t in torch.broadcast_tensors(a, b))
+
+
 def _lanes(x: torch.Tensor) -> torch.Tensor:
     """Operand lanes as the reference's ``jax`` backend takes them: a
     signed tensor as int32 read as its unsigned pattern, an unsigned one
@@ -242,6 +249,15 @@ class Backend:
         returns (top_re, top_im, bot_re, bot_im)."""
         raise NotImplementedError
 
+    def fft_axis(self, re, im, layout, spec: AdderSpec, *,
+                 inverse: bool = False, out=None):
+        """Every radix-2 DIT stage of the length-n transforms that
+        ``layout`` (a :class:`repro_torch.kernels.butterfly.AxisLayout`)
+        finds in contiguous int32 containers ``re``/``im``: the butterfly
+        stages of :meth:`butterfly` chained, bit-reversed load, natural
+        order out, into ``out`` (new tensors unless given)."""
+        raise NotImplementedError
+
     def mul(self, a, b, mul_spec: MulSpec, *, strategy: str = "reference"):
         """Elementwise approximate multiply on unsigned N-bit operand
         patterns; returns the FULL product (int32 for signed operands,
@@ -314,6 +330,11 @@ class TorchBackend(Backend):
         return butterfly_plain(a_re, a_im, b_re, b_im, w_re, w_im, spec,
                                inverse=inverse)
 
+    def fft_axis(self, re, im, layout, spec, *, inverse=False, out=None):
+        from repro_torch.kernels.butterfly import fft_axis_plain
+        return fft_axis_plain(re, im, layout, spec, inverse=inverse,
+                              out=out)
+
     def mul(self, a, b, mul_spec, *, strategy="reference"):
         from repro_torch.kernels.mul import mul_lanes
         p = mul_lanes(_lanes(a), _lanes(b), mul_spec,
@@ -370,12 +391,12 @@ class CudaBackend(Backend):
 
     def add(self, a, b, spec, *, strategy="reference"):
         self._require_cuda("add", a, b)
+        a, b = broadcast_operands(a, b)
         if _use_lut(spec, strategy):
             from repro_torch.kernels.lut_add import lut_add
-            return lut_add(a.contiguous(), b.contiguous(), spec)
+            return lut_add(a, b, spec)
         from repro_torch.kernels.approx_add import approx_add
-        return approx_add(a.contiguous(), b.contiguous(), spec,
-                          fast=_fast(strategy))
+        return approx_add(a, b, spec, fast=_fast(strategy))
 
     def accumulate(self, terms, spec, *, weights=None, strategy="reference"):
         from repro_torch.kernels.accumulate import accumulate
@@ -409,6 +430,14 @@ class CudaBackend(Backend):
         return butterfly(a_re, a_im, b_re, b_im, w_re.contiguous(),
                          w_im.contiguous(), spec, inverse=inverse, fast=True)
 
+    def fft_axis(self, re, im, layout, spec, *, inverse=False, out=None):
+        """One launch for the whole axis, on the fused form (as
+        :meth:`butterfly`)."""
+        from repro_torch.kernels.butterfly import fft_axis
+        self._require_cuda("fft_axis", re, im, *(out or ()))
+        return fft_axis(re, im, layout, spec, inverse=inverse, fast=True,
+                        out=out)
+
     def mul(self, a, b, mul_spec, *, strategy="reference"):
         """The kernel takes int32; other integer operands are converted
         and the product returned as :func:`_like` says."""
@@ -421,17 +450,22 @@ class CudaBackend(Backend):
             raise NotImplementedError(
                 f"no compilable product table for {mul_spec.short_name} "
                 f"(n_bits > {MAX_MUL_LUT_BITS}); use strategy='fused'")
-        p = mul(a.to(torch.int32).contiguous(),
-                b.to(torch.int32).contiguous(), mul_spec, strategy=strategy)
+        p = mul(*broadcast_operands(a.to(torch.int32), b.to(torch.int32)),
+                mul_spec, strategy=strategy)
         return p if a.dtype.is_signed else p.to(a.dtype)
 
     def conv2d(self, q, spec, mul_spec, kernel, *, shift=0,
                strategy="reference"):
-        from repro_torch.kernels.conv2d_mac import conv2d_mac
+        """``|q| < 2^w`` is checked on the caller's dtype, before the
+        kernel's int32 (an int64 value past 2^31 must not wrap into
+        range)."""
+        from repro_torch.kernels.conv2d_mac import (check_conv_input,
+                                                    launch_conv2d_mac)
         fast = self._kernel_fast(spec, strategy, "conv2d")
         self._require_cuda("conv2d", q)
-        return conv2d_mac(q.to(torch.int32).contiguous(), spec, mul_spec,
-                          kernel, shift=shift, fast=fast)
+        check_conv_input(q, mul_spec, shift)
+        return launch_conv2d_mac(q.to(torch.int32).contiguous(), spec,
+                                 mul_spec, kernel, shift=shift, fast=fast)
 
     def matmul(self, a, b, spec, *, block=(128, 128, 128),
                strategy="reference", mul_spec=None):

@@ -187,6 +187,35 @@ def device_signed_table(spec: MulSpec, device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+def _signed_table_fits_int16(spec: MulSpec) -> bool:
+    table = signed_mul_table(spec)
+    return bool(np.array_equal(table, table.astype(np.int16)))
+
+
+def signed_table_fits_int16(spec: MulSpec) -> bool:
+    """Whether every entry of :func:`signed_mul_table` is an int16 value
+    (computed from the table, once per canonical spec)."""
+    return _signed_table_fits_int16(_canonical(spec))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_signed_table16(spec: MulSpec,
+                           device: torch.device) -> torch.Tensor:
+    if not signed_table_fits_int16(spec):
+        raise ValueError(f"the signed product table of {spec.short_name} "
+                         f"has entries outside int16")
+    table = signed_mul_table(spec).astype(np.int16)
+    return torch.from_numpy(table).to(device)
+
+
+def device_signed_table16(spec: MulSpec, device) -> torch.Tensor:
+    """:func:`signed_mul_table` as an int16 tensor on ``device`` (half the
+    bytes: 128 KiB at N = 8); raises ``ValueError`` when an entry does not
+    fit int16."""
+    return _device_signed_table16(_canonical(spec), torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
 def _device_tap_tables(spec: MulSpec, weights: Tuple[int, ...],
                        device: torch.device) -> torch.Tensor:
     return _to_device(tap_tables(spec, weights), device)

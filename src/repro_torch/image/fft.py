@@ -17,30 +17,38 @@ Scaling: the FORWARD transform is unscaled, so spectral magnitudes
 dominate the approximate LSM error; INVERSE butterflies halve their
 outputs (overall 1/n per axis).
 
-Stage route
------------
-At N = 32 each stage is ONE :meth:`AxEngine.butterfly` call (one kernel
-launch on the ``"cuda"`` backend): the butterfly's int32 lanes hold the
-whole 32-bit pattern, so it equals the reference's stage bit for bit.
-At N < 32 the butterfly returns unsigned N-bit residues and halves them
-unsigned, which is not the reference FFT's arithmetic; there the stage
-runs the reference's own route: exact products on sign-extended values
-and six :meth:`AxEngine.add` calls.
+Routes
+------
+:func:`fft_route` picks how one axis of transforms runs:
+
+- ``"axis"`` (N = 32, n <= ``AXIS_MAX_ELEMS``): every stage of the axis in
+  one :func:`repro_torch.kernels.butterfly.fft_axis` call, one kernel
+  launch on the ``"cuda"`` backend.  The butterfly's int32 lanes hold the
+  whole 32-bit pattern, so it equals the reference's stages bit for bit.
+  The transforms are addressed where they lie (an ``AxisLayout``): the
+  rows, the columns and the block tiles of an image need no transpose,
+  tiling copy, concatenation or bit-reversal gather.
+- ``"stages"`` (N = 32, longer transforms, which one block of the axis
+  kernel cannot hold): one :meth:`AxEngine.butterfly` call per stage.
+- ``"adds"`` (N < 32): the butterfly returns unsigned N-bit residues and
+  halves them unsigned, which is not the reference FFT's arithmetic;
+  there each stage runs the reference's own route, exact products on
+  sign-extended values and six :meth:`AxEngine.add` calls.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
+import math
 from typing import Optional, Tuple, Union
 
-import numpy as np
 import torch
 
 from repro_torch.core.specs import AdderSpec
 from repro_torch.kernels.approx_add import to_int32
-
-TWIDDLE_FRAC = 14
+from repro_torch.kernels.butterfly import (AXIS_MAX_ELEMS, TWIDDLE_FRAC,
+                                           AxisLayout, last_axis_layout,
+                                           layout_stages)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,40 +98,23 @@ def _container(q: torch.Tensor, n_bits: int) -> torch.Tensor:
 
 def to_fixed(x, cfg: FixedFFTConfig) -> torch.Tensor:
     """Real values -> Q(N-f).f containers on the engine's device
-    (``torch.round`` rounds half to even, as ``np.round`` does)."""
-    x = torch.as_tensor(x, device=cfg.engine.device).to(torch.float64)
-    q = torch.round(x * (1 << cfg.frac_bits)).to(torch.int64)
+    (``torch.round`` rounds half to even, as ``np.round`` does).  A uint8
+    image whose largest value, 255 * 2^f, is a non-negative container
+    value is exactly ``x << f``, two kernels on the card."""
+    x = torch.as_tensor(x, device=cfg.engine.device)
+    f = cfg.frac_bits
+    if x.dtype == torch.uint8 and 255 << f < 1 << min(cfg.n_bits, 31):
+        return x.to(torch.int32) << f
+    q = torch.round(x.to(torch.float64) * (1 << f)).to(torch.int64)
     return _container(q, cfg.n_bits)
 
 
 def from_fixed(u: torch.Tensor, cfg: FixedFFTConfig) -> torch.Tensor:
-    """Containers -> float64 values."""
+    """Containers -> float64 values (an int32 container of N = 32 is its
+    own signed value)."""
+    if cfg.n_bits == 32 and u.dtype == torch.int32:
+        return u.to(torch.float64) / (1 << cfg.frac_bits)
     return _signed(u, cfg.n_bits).to(torch.float64) / (1 << cfg.frac_bits)
-
-
-@functools.lru_cache(maxsize=None)
-def _bit_reverse_perm(n: int, device: torch.device) -> torch.Tensor:
-    bits = n.bit_length() - 1
-    idx = np.arange(n)
-    rev = np.zeros(n, np.int64)
-    for b in range(bits):
-        rev |= ((idx >> b) & 1) << (bits - 1 - b)
-    return torch.as_tensor(rev, device=device)
-
-
-@functools.lru_cache(maxsize=None)
-def stage_twiddles(half: int, inverse: bool,
-                   device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Q1.14 twiddles of a stage, int32 (half,) on ``device``: numpy
-    float64 ``cos``/``sin`` and ``np.round`` on the host, as the
-    reference computes them (a device ``cos`` one ulp off could round a
-    .5 the other way)."""
-    sgn = 1.0 if inverse else -1.0
-    ang = sgn * 2.0 * np.pi * np.arange(half) / (2 * half)
-    wr = np.round(np.cos(ang) * (1 << TWIDDLE_FRAC)).astype(np.int32)
-    wi = np.round(np.sin(ang) * (1 << TWIDDLE_FRAC)).astype(np.int32)
-    return (torch.as_tensor(wr, device=device),
-            torch.as_tensor(wi, device=device))
 
 
 def _stage_by_adds(eng, a_re, a_im, b_re, b_im, w_re, w_im,
@@ -152,45 +143,80 @@ def _stage_by_adds(eng, a_re, a_im, b_re, b_im, w_re, w_im,
     return outs
 
 
+def fft_route(n: int, n_bits: int) -> str:
+    """How one axis of length-n transforms runs at adder width N:
+    ``"adds"`` below N = 32, else ``"axis"`` when one block of the axis
+    kernel holds a transform (n <= AXIS_MAX_ELEMS), else ``"stages"``."""
+    if n_bits < 32:
+        return "adds"
+    return "axis" if n <= AXIS_MAX_ELEMS else "stages"
+
+
+def _axis(eng, re, im, layout: AxisLayout, inverse: bool, out=None):
+    """One axis of transforms of contiguous containers ``re``/``im``,
+    written into ``out`` (new tensors unless given; may be ``re``/``im``)
+    by the route :func:`fft_route` picks."""
+    route = fft_route(layout.n, eng.spec.n_bits)
+    if route == "axis" and layout.n > 1:
+        return eng.backend.fft_axis(re, im, layout, eng.spec,
+                                    inverse=inverse, out=out)
+
+    def stage(*planes):  # n = 1 runs no stage
+        if route == "adds":
+            return _stage_by_adds(eng, *planes, inverse)
+        return eng.butterfly(*planes, inverse=inverse)
+
+    return layout_stages(re, im, layout, inverse, stage, out)
+
+
+def _check_length(n: int) -> None:
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"length must be a power of two; got {n}")
+
+
 def fft_fixed(re, im, cfg: FixedFFTConfig,
               inverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Iterative radix-2 DIT FFT along the LAST axis (batched over the
     leading axes) of int32 containers.  Forward: unscaled.  Inverse:
     each stage halves (overall 1/n)."""
     eng = cfg.engine
-    re, im = eng.tensor(re), eng.tensor(im)
-    n = re.shape[-1]
-    if n & (n - 1):
-        raise ValueError(f"length must be a power of two; got {n}")
-    shape = re.shape
-    perm = _bit_reverse_perm(n, eng.device)
-    re, im = re.index_select(-1, perm), im.index_select(-1, perm)
-    for s in range(1, n.bit_length()):
-        half = 1 << (s - 1)
-        w_re, w_im = stage_twiddles(half, inverse, eng.device)
-        x_re, x_im = re.reshape(-1, 2 * half), im.reshape(-1, 2 * half)
-        planes = (x_re[:, :half], x_im[:, :half], x_re[:, half:],
-                  x_im[:, half:])
-        if cfg.n_bits == 32:
-            top_re, top_im, bot_re, bot_im = eng.butterfly(
-                *planes, w_re, w_im, inverse=inverse)
-        else:
-            top_re, top_im, bot_re, bot_im = _stage_by_adds(
-                eng, *planes, w_re, w_im, inverse)
-        re = torch.cat([top_re, bot_re], dim=-1).reshape(shape)
-        im = torch.cat([top_im, bot_im], dim=-1).reshape(shape)
-    return re, im
+    re, im = eng.tensor(re).contiguous(), eng.tensor(im).contiguous()
+    _check_length(re.shape[-1])
+    return _axis(eng, re, im, last_axis_layout(re.shape), inverse)
+
+
+def image_layouts(shape, block: Optional[int] = None):
+    """The row and column layouts of the 2-D transforms of a contiguous
+    (..., H, W) tensor: over the whole of each (H, W) plane, or over each
+    of its ``block`` x ``block`` tiles, where they lie."""
+    *lead, h, w = shape
+    planes = math.prod(lead)
+    bh, bw = (block, block) if block else (h, w)
+    if h % bh or w % bw:
+        raise ValueError(f"{block} x {block} tiles do not cover a "
+                         f"{h} x {w} plane")
+    rows = AxisLayout(bw, planes * h * (w // bw), 1, bw, 0, 1)
+    cols = AxisLayout(bh, planes * (h // bh), w, bh * w, 1, w)
+    return rows, cols
+
+
+def transform2d(re, im, cfg: FixedFFTConfig, inverse: bool = False,
+                block: Optional[int] = None):
+    """The 2-D FFT (IFFT when ``inverse``) of each (H, W) plane of
+    ``re``/``im``, or of each of its ``block`` x ``block`` tiles: the rows,
+    then the columns in place.  Contiguous (..., H, W) containers out."""
+    eng = cfg.engine
+    re, im = eng.tensor(re).contiguous(), eng.tensor(im).contiguous()
+    rows, cols = image_layouts(tuple(re.shape), block)
+    _check_length(rows.n)
+    _check_length(cols.n)
+    out = _axis(eng, re, im, rows, inverse)
+    return _axis(eng, *out, cols, inverse, out=out)
 
 
 def fft2_fixed(re, im, cfg: FixedFFTConfig):
-    re, im = fft_fixed(re, im, cfg)                      # rows
-    re, im = re.transpose(-1, -2), im.transpose(-1, -2)
-    re, im = fft_fixed(re, im, cfg)                      # cols
-    return re.transpose(-1, -2), im.transpose(-1, -2)
+    return transform2d(re, im, cfg)
 
 
 def ifft2_fixed(re, im, cfg: FixedFFTConfig):
-    re, im = fft_fixed(re, im, cfg, inverse=True)
-    re, im = re.transpose(-1, -2), im.transpose(-1, -2)
-    re, im = fft_fixed(re, im, cfg, inverse=True)
-    return re.transpose(-1, -2), im.transpose(-1, -2)
+    return transform2d(re, im, cfg, inverse=True)

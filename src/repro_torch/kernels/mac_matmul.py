@@ -10,10 +10,13 @@ tiles' partials, at the multiples of ``bk`` counted from k = 0.  One tile
 returns the raw partial; more return the last fold's N-bit container
 (sign-extended int32 only when N = 32).  ``bk`` is part of the result.
 
-The CUDA kernel is ``csrc/mac_matmul.cu``: one block per 64 x 64 output
-tile loops over every K tile in one launch, with uint32 accumulators in
-registers and the table gathered through ``__ldg``.  It is bound by the
-operations (an index, a gather and an add per product).
+The CUDA kernel is ``csrc/mac_matmul.cu``: persistent blocks walk the
+64 x 64 output tiles and loop over every K tile in one launch, with
+uint32 accumulators in registers; the inter-tile fold runs the
+compile-time adder.  It is bound by the gathers, one a product.
+:func:`mac_route` picks where the table lies: an int16 copy in shared
+memory up to 8-bit operands (``"shared"``, 128 KiB at w = 8, staged once
+a block), else the int32 table in global memory (``"global"``).
 
 :func:`mac_matmul` routes by where its tensors live: CPU tensors take
 :func:`mac_matmul_plain`, CUDA tensors launch the kernel (or raise).
@@ -84,13 +87,22 @@ def mac_matmul_plain(a: torch.Tensor, b: torch.Tensor, spec: AdderSpec,
     return fold_tiles(a.shape[1], bk, partial, add)
 
 
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 11
+             + (ctypes.c_void_p,))
 
 #: Output tile edge of one block (``csrc/mac_matmul.cu``'s TILE).
 TILE = 64
+#: Widest operands whose table the shared route stages: 2 x 4^8 bytes =
+#: 128 KiB of int16 (``csrc/mac_matmul.cu``'s SHARED_MAX_BITS).
+SHARED_TABLE_BITS = 8
+
+
+def mac_route(w: int, fits_int16: bool = True) -> str:
+    """Where the kernel gathers w-bit products from: ``"shared"`` (the
+    int16 table in shared memory) when w <= SHARED_TABLE_BITS and every
+    entry fits int16, else ``"global"`` (the int32 table in global
+    memory)."""
+    return "shared" if w <= SHARED_TABLE_BITS and fits_int16 else "global"
 
 
 def mac_matmul(a: torch.Tensor, b: torch.Tensor, spec: AdderSpec,
@@ -106,18 +118,21 @@ def mac_matmul(a: torch.Tensor, b: torch.Tensor, spec: AdderSpec,
     check_cuda("mac_matmul", a, b)
     args = adder_args(spec, fast)
     (m, k), n = a.shape, b.shape[1]
-    if -(-m // TILE) > 65535 or max(m, n, k) >= 2 ** 31:
+    if -(-m // TILE) * -(-n // TILE) >= 2 ** 31 or max(m, n, k) >= 2 ** 31:
         raise ValueError(f"mac_matmul: ({m}, {k}) @ ({k}, {n}) exceeds "
                          f"one launch's grid")
-    table = mul_lut_lib.device_signed_table(mul_spec, a.device)
+    w = mul_spec.n_bits
+    route = mac_route(w, mul_lut_lib.signed_table_fits_int16(mul_spec))
+    table = (mul_lut_lib.device_signed_table16 if route == "shared"
+             else mul_lut_lib.device_signed_table)(mul_spec, a.device)
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
     if out.numel() == 0:
         return out
     fn = _build.bind("mac_matmul", "mac_matmul_launch", _ARGTYPES)
     with torch.cuda.device(a.device):
         err = fn(a.data_ptr(), b.data_ptr(), table.data_ptr(),
-                 out.data_ptr(), m, n, k, min(bk, k), mul_spec.n_bits,
-                 *args, stream_ptr(a.device))
+                 out.data_ptr(), m, n, k, min(bk, k), w,
+                 int(route == "shared"), *args, stream_ptr(a.device))
     _build.check(err, "mac_matmul")
     mac_matmul.launches += 1
     return out

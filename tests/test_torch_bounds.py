@@ -149,3 +149,115 @@ def test_conv_index_steps_and_gathers_equal_the_conv(kind):
             get_backend_j("numpy").conv2d(q, RefSpec(kind, n_bits, m, k),
                                           RefMulSpec("truncated", 8, 3),
                                           kernel)))
+
+
+def _run_wide_steps(steps, regs):
+    """Run spelt steps on int64 lanes: a 32-bit register keeps its low 32
+    bits after each step; an IMAD.WIDE result is a 64-bit register pair."""
+    for dest, op, srcs, fn in steps:
+        v = fn(*(regs[s] for s in srcs))
+        regs[dest] = v if op.endswith(".WIDE") else v & REGISTER
+    return regs
+
+
+def _steps_are_instructions(steps, inputs, ops):
+    defined = set(inputs)
+    for dest, op, srcs, fn in steps:
+        assert op in ops, (dest, op)
+        assert 1 <= len(srcs) <= 3 and set(srcs) <= defined, dest
+        assert fn.__code__.co_argcount == len(srcs), dest
+        defined.add(dest)
+
+
+def test_butterfly_steps_are_single_instructions():
+    inputs = {"ar", "ai", "br", "bi", "wr", "wi",
+              *CS.butterfly_masks(32, 10, 5)}
+    ops = ("LOP3", "IADD3", "LEA", "IMAD.WIDE", "SHF")
+    _steps_are_instructions(CS.BUTTERFLY_PAIR, inputs, ops)
+    _steps_are_instructions(CS.BUTTERFLY_INVERSE, inputs, ops)
+    assert len(CS.BUTTERFLY_PAIR) == CS.butterfly_ops(False) == 59
+    assert len(CS.BUTTERFLY_INVERSE) == CS.butterfly_ops(True) == 67
+    assert sum(op == "IMAD.WIDE" for _, op, _, _ in CS.BUTTERFLY_PAIR) == 4
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n_bits,m,k", [(32, 10, 5), (32, 8, 2), (16, 8, 4)])
+def test_butterfly_steps_equal_butterfly_plain(n_bits, m, k, inverse):
+    """The spelt butterfly pair (and the inverse halvings) on 32-bit
+    registers equals the plain butterfly, haloc_axa, full-range int32
+    planes and the FFT's own twiddles (stage halves 1 ... 256)."""
+    import torch
+
+    from repro_torch.kernels import butterfly as bf_k
+    rng = np.random.default_rng(62 + inverse)
+    spec = AdderSpec("haloc_axa", n_bits, m, k)
+    for half in (1, 4, 256):
+        planes = [rng.integers(-(1 << 31), 1 << 31, (9, half))
+                  .astype(np.int32) for _ in range(4)]
+        w_re, w_im = bf_k.stage_twiddles(half, inverse, torch.device("cpu"))
+        want = bf_k.butterfly_plain(*(torch.as_tensor(p) for p in planes),
+                                    w_re, w_im, spec, inverse=inverse)
+        regs = {name: np.int64(v) for name, v in
+                CS.butterfly_masks(n_bits, m, k).items()}
+        for name, p in zip(("ar", "ai", "br", "bi"), planes):
+            regs[name] = p.astype(np.int64) & REGISTER
+        regs["wr"] = w_re.numpy().astype(np.int64)[None] & REGISTER
+        regs["wi"] = w_im.numpy().astype(np.int64)[None] & REGISTER
+        steps = CS.BUTTERFLY_INVERSE if inverse else CS.BUTTERFLY_PAIR
+        regs = _run_wide_steps(steps, regs)
+        outs = ("top_re", "top_im", "bot_re", "bot_im")
+        for name, w in zip(outs, want):
+            got = regs[name + ".h" if inverse else name]
+            np.testing.assert_array_equal(
+                got.astype(np.uint32).view(np.int32), w.numpy(),
+                err_msg=f"{name} half={half}")
+
+
+def test_mac_product_steps_are_one_gather_and_1_5_instructions():
+    _steps_are_instructions(CS.MAC_PRODUCT_PAIR,
+                            {"a", "b0", "b1", "table", "part"},
+                            ("LOP3", "IADD3", "LDS"))
+    assert CS.OPS_PER_MAC_PRODUCT == 1.5
+    assert CS.GATHERS_PER_MAC_PRODUCT == 1
+
+
+def test_mac_product_steps_equal_the_gemm_partial():
+    """mac_matmul's inner loop as the bound counts it: the staged byte
+    offsets, two LOP3s, two gathers from the int16 table and one IADD3 a
+    pair of columns, over a whole K tile.  The pair's partial is the sum of
+    the plain GEMM's two columns (a single tile: the raw partial), and with
+    the second operand zero (entry 0) the one column's, for each 8-bit
+    multiplier kind."""
+    import torch
+
+    from repro_torch.ax.mul import MulSpec, lut, registered_multipliers
+    from repro_torch.core.specs import AdderSpec as PortSpec
+    from repro_torch.kernels import mac_matmul as mac_k
+    rng = np.random.default_rng(63)
+    mask, w = 255, 8
+    for kind in registered_multipliers():
+        ms = MulSpec(kind, 8, 3 if kind != "accurate" else 0,
+                     2 if kind == "broken_array" else 0)
+        table = lut.device_signed_table16(ms, "cpu").numpy().astype(np.int64)
+        a = rng.integers(-128, 128, (5, 40)).astype(np.int64)
+        b = rng.integers(-128, 128, (40, 6)).astype(np.int64)
+        want = mac_k.mac_matmul_plain(
+            torch.as_tensor(a).to(torch.int32),
+            torch.as_tensor(b).to(torch.int32), PortSpec("accurate", 32), ms,
+            bk=64).numpy().astype(np.int64) & REGISTER
+
+        def run(b0, b1):
+            regs = {"table": table, "part": np.zeros((5, b0.shape[1]),
+                                                     dtype=np.int64)}
+            for kk in range(40):
+                regs["a"] = (a[:, kk:kk + 1] & mask) << (w + 1)
+                regs["b0"] = (b0[kk][None] & mask) << 1
+                regs["b1"] = (b1[kk][None] & mask) << 1
+                regs = _run_wide_steps(CS.MAC_PRODUCT_PAIR, regs)
+            return regs["part"]
+
+        np.testing.assert_array_equal(
+            run(b[:, 0::2], b[:, 1::2]),
+            (want[:, 0::2] + want[:, 1::2]) & REGISTER, err_msg=kind)
+        np.testing.assert_array_equal(run(b, np.zeros_like(b)), want,
+                                      err_msg=kind)

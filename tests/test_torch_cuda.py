@@ -644,3 +644,193 @@ def test_conv2d_mac_entry_refuses_a_bad_route(cuda_device):
     assert launch(3, 3, 256, 3, 0) == invalid
     assert launch(3, 3, 256, 3, 1) == 0
     assert launch(3, 3, 256, 0, 0) == 0
+
+
+# ------------------------ the one-launch FFT axis and the shared-table GEMM --
+
+def _fft_layouts():
+    """(name, shape, layout): the last axis at n = 2 ... 4096, and the row
+    and column axes of (2, 48, 64) planes in 16 x 16 tiles read in place
+    (48 = three tiles: an inner count that is not a power of two) and of
+    whole (2, 32, 64) planes."""
+    from repro_torch.image.fft import image_layouts
+    from repro_torch.kernels.butterfly import last_axis_layout
+    out = [(f"last n={n}", (max(8192 // n, 3), n),
+            last_axis_layout((max(8192 // n, 3), n)))
+           for n in (2, 4, 8, 16, 64, 512, 4096)]
+    for block, shape in ((16, (2, 48, 64)), (None, (2, 32, 64))):
+        rows, cols = image_layouts(shape, block)
+        out += [(f"rows block={block}", shape, rows),
+                (f"cols block={block}", shape, cols)]
+    return out
+
+
+@pytest.mark.parametrize("kind", specs.ALL_KINDS)
+def test_fft_axis_on_card(cuda_device, kind):
+    """The one-launch axis kernel against its plain version (on the CPU)
+    and against the per-stage kernel chained on the card, every layout,
+    forward and inverse, both forms, full-range int32 values, out of
+    place and in place."""
+    from repro_torch.kernels.butterfly import fft_stages
+    spec = specs.AdderSpec(kind, 32, 10, 5)
+    rng = np.random.default_rng(41)
+    for name, shape, layout in _fft_layouts():
+        re, im = (torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, shape)
+                                  .astype(np.int32)) for _ in range(2))
+        for inverse in (False, True):
+            for fast in (False, True):
+                want = bf_k.fft_axis_plain(re, im, layout, spec,
+                                           inverse=inverse, fast=fast)
+                dre, dim = re.to(cuda_device), im.to(cuda_device)
+                got = bf_k.fft_axis(dre, dim, layout, spec, inverse=inverse,
+                                    fast=fast)
+                for g, w in zip(got, want):
+                    assert torch.equal(g.cpu(), w), (name, inverse, fast)
+                rows = [layout.view(x).reshape(-1, layout.n)
+                        for x in (dre, dim)]
+                staged = fft_stages(*rows, inverse, lambda *p: bf_k.butterfly(
+                    *p, spec, inverse=inverse, fast=fast))
+                for g, w in zip(got, staged):
+                    assert torch.equal(layout.view(g).reshape(-1, layout.n),
+                                       w), (name, "per-stage route")
+                bf_k.fft_axis(dre, dim, layout, spec, inverse=inverse,
+                              fast=fast, out=(dre, dim))
+                assert torch.equal(dre.cpu(), want[0]), (name, "in place")
+                assert torch.equal(dim.cpu(), want[1]), (name, "in place")
+
+
+def test_fft_routes_on_card(cuda_device):
+    """reconstruct at N = 32 is four axis launches and no per-stage one;
+    a transform past the axis kernel's length takes the per-stage kernel
+    (13 stages at n = 8192); both equal the CPU path."""
+    from repro_torch.image.fft import FixedFFTConfig, fft_fixed, to_fixed
+    from repro_torch.image.pipeline import reconstruct, synthetic_image
+    img = synthetic_image(64)
+    spec = specs.paper_spec("haloc_axa")
+    bf_k.fft_axis.launches = bf_k.butterfly.launches = 0
+    got = reconstruct(img, spec)
+    assert (bf_k.fft_axis.launches, bf_k.butterfly.launches) == (4, 0)
+    assert torch.equal(got.cpu(), reconstruct(img, spec, backend="torch",
+                                              device="cpu"))
+    rng = np.random.default_rng(42)
+    x = rng.uniform(-200, 200, (2, 8192))
+    cfg = FixedFFTConfig(spec=spec)
+    cpu = FixedFFTConfig(spec=spec, backend="torch", device="cpu")
+    for inverse in (False, True):
+        bf_k.fft_axis.launches = bf_k.butterfly.launches = 0
+        got = fft_fixed(to_fixed(x, cfg), to_fixed(-x, cfg), cfg, inverse)
+        assert (bf_k.fft_axis.launches, bf_k.butterfly.launches) == (0, 13)
+        want = fft_fixed(to_fixed(x, cpu), to_fixed(-x, cpu), cpu, inverse)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_fft_axis_entry_refuses_a_bad_layout(cuda_device):
+    """The C entry refuses what one block cannot hold (n x T past 4096
+    elements) and a bad divider shift; the wrapper refuses a layout that
+    reaches past the tensor and a transform longer than 4096."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.approx_add import adder_args, stream_ptr
+    spec = specs.paper_spec("haloc_axa")
+    fn = _build.bind("butterfly", "butterfly_axis_launch",
+                     bf_k._AXIS_ARGTYPES)
+    x = torch.zeros(8192, dtype=torch.int32, device=cuda_device)
+    w_re, w_im = bf_k.axis_twiddles(4096, False, cuda_device)
+
+    def launch(log_n, log_per_block, shift=0):
+        err = fn(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(), 1,
+                 0, 0, 1, 1, 1, shift, log_n, log_per_block, 0,
+                 w_re.data_ptr(), w_im.data_ptr(), *adder_args(spec, True),
+                 0, stream_ptr(cuda_device))
+        torch.cuda.synchronize(cuda_device)
+        return err
+
+    invalid = 1  # cudaErrorInvalidValue
+    assert launch(13, 0) == invalid
+    assert launch(11, 2) == invalid
+    assert launch(12, 0, shift=32) == invalid
+    assert launch(0, 0) == invalid
+    assert launch(12, 0) == 0
+    with pytest.raises(ValueError, match="reaches element"):
+        bf_k.fft_axis(x, x, bf_k.AxisLayout(4096, 3, 1, 4096, 0, 1), spec)
+    with pytest.raises(ValueError, match="power of two"):
+        bf_k.fft_axis(x, x, bf_k.AxisLayout(8192, 1, 1, 8192, 0, 1), spec)
+
+
+@pytest.mark.parametrize("n_bits,m,k", [(32, 10, 5), (16, 8, 4)])
+def test_mac_matmul_routes_on_card(cuda_device, n_bits, m, k):
+    """Both table routes against the plain version: the shared int16 table
+    for every 8-bit multiplier kind, the global int32 one at w = 10;
+    ragged K, bk 1, 33 and 128, M and N off the 64 grid, every adder
+    kind, both forms."""
+    from repro_torch.ax.mul import MulSpec, lut, registered_multipliers
+    from repro_torch.kernels import mac_matmul as mac_k
+    rng = np.random.default_rng(43)
+    muls = [MulSpec(kind, 8, 3, 2 if kind == "broken_array" else 0)
+            for kind in registered_multipliers()]
+    muls += [MulSpec("truncated", 10, 4), MulSpec("mitchell", 10)]
+    cases = [((70, 300), (300, 130), 128), ((33, 257), (257, 65), 33),
+             ((65, 40), (40, 63), 1), ((128, 96), (96, 128), 128)]
+    for ms in muls:
+        w = ms.n_bits
+        route = mac_k.mac_route(w, lut.signed_table_fits_int16(ms))
+        assert route == ("shared" if w <= 8 else "global")
+        lim = 1 << (w - 1)
+        for kind in specs.ALL_KINDS:
+            spec = specs.AdderSpec(kind, n_bits, m, k)
+            for sa, sb, bk in cases:
+                a = torch.as_tensor(rng.integers(-lim, lim, sa)
+                                    .astype(np.int32))
+                b = torch.as_tensor(rng.integers(-lim, lim, sb)
+                                    .astype(np.int32))
+                for fast in (False, True):
+                    got = mac_k.mac_matmul(a.to(cuda_device),
+                                           b.to(cuda_device), spec, ms,
+                                           bk=bk, fast=fast).cpu()
+                    assert torch.equal(got, mac_k.mac_matmul_plain(
+                        a, b, spec, ms, bk, fast)), (ms, kind, sa, bk)
+
+
+@pytest.mark.parametrize("strategy", ["reference", "fused", "lut"])
+def test_cuda_backend_broadcasts_like_torch(cuda_device, strategy):
+    """add, add_signed, mul and mul_signed broadcast their operands on the
+    card as the torch backend does (a (3, 4) tensor with a (4,) one)."""
+    from repro_torch.ax import make_engine
+    from repro_torch.numerics.fixed_point import FixedPointFormat
+    a = (torch.arange(12, dtype=torch.int32).reshape(3, 4) * 1000)
+    b = torch.arange(4, dtype=torch.int32) * 777
+    for spec, fmt in ((specs.AdderSpec("haloc_axa", 16, 8, 4),
+                       FixedPointFormat(16, 6)),
+                      (specs.paper_spec("haloc_axa"), None)):
+        gpu = make_engine(spec, fmt=fmt, mul="truncated", strategy=strategy)
+        cpu = make_engine(spec, fmt=fmt, mul="truncated", strategy=strategy,
+                          backend="torch", device="cpu")
+        assert torch.equal(gpu.add(a, b).cpu(), cpu.add(a, b))
+        assert torch.equal(gpu.add(b, a).cpu(), cpu.add(b, a))
+        assert torch.equal(gpu.mul(a % 256, b % 256).cpu(),
+                           cpu.mul(a % 256, b % 256))
+        assert torch.equal(gpu.mul_signed(a % 128 - 64, 64 - b % 128).cpu(),
+                           cpu.mul_signed(a % 128 - 64, 64 - b % 128))
+        if fmt is not None:
+            assert torch.equal(gpu.add_signed(a - 6000, b).cpu(),
+                               cpu.add_signed(a - 6000, b))
+    eng = make_engine(specs.AdderSpec("haloc_axa", 16, 8, 4),
+                      strategy=strategy)
+    assert int(eng.add(a, b)[0, 0]) == 15
+    with pytest.raises(RuntimeError):
+        eng.add(a, torch.arange(3, dtype=torch.int32))
+
+
+def test_cuda_conv2d_refuses_int64_past_2_31(cuda_device):
+    """An int64 input at 2^32 + 1 would wrap to 1 in int32: the
+    cuda backend checks |q| < 2^w before the cast and raises the numpy
+    backend's message, as the torch backend does."""
+    from repro_torch.ax import make_engine
+    from repro_torch.numerics.fixed_point import FixedPointFormat
+    q = torch.tensor([[1, (1 << 32) + 1], [2, 3]], dtype=torch.int64)
+    kernel = ((1, 3, 1), (3, -5, 3), (1, 3, 1))
+    for where in (dict(), dict(backend="torch", device="cpu")):
+        eng = make_engine("haloc_axa", fmt=FixedPointFormat(16, 0),
+                          mul="truncated", **where)
+        with pytest.raises(ValueError, match="2\\^8"):
+            eng.conv2d(q, kernel)

@@ -284,3 +284,310 @@ def test_default_reconstruct_needs_the_card(monkeypatch):
         get_workload("fft_reconstruct").run(img[None])
     with pytest.raises(ValueError, match="exceeds 32"):
         fft_t.FixedFFTConfig(spec=specs_t.AdderSpec("accurate", 40))
+
+
+# ------------------------------------------- the one-launch FFT axis route --
+#
+# At N = 32 an axis of transforms runs ``kernels.butterfly.fft_axis``: on
+# the CPU its plain version (bit reversal, then ``butterfly_plain`` stage
+# by stage), on the card one kernel launch that reads the transforms where
+# they lie.  The kernel runs only on the card (``tests/test_torch_cuda.py``
+# and ``chip_smoke.py``); here a model of its addressing is held against
+# the reshape/transpose path the FFT took before.
+
+
+def _containers(rng, shape):
+    """Full-range 32-bit container patterns: uint64 for the reference,
+    int32 for the port."""
+    u = rng.integers(0, 1 << 32, shape, dtype=np.uint64)
+    return u, torch.as_tensor(u.astype(np.uint32).view(np.int32))
+
+
+def _as_u64(t):
+    return t.numpy().view(np.uint32).astype(np.uint64)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("kind", specs_j.ALL_KINDS)
+def test_axis_route_matches_jax_fft(kind, inverse):
+    """The axis route's plain version, both forms, against the reference's
+    ``fft_fixed`` on the jax backend at N = 32, n = 2 ... 64, full-range
+    containers; ``fft_fixed`` on the port's torch backend takes it."""
+    sj, st = _specs(kind)
+    cj = fft_j.FixedFFTConfig(spec=sj, frac_bits=6, backend="jax")
+    ct = fft_t.FixedFFTConfig(spec=st, frac_bits=6, **CPU)
+    rng = np.random.default_rng(50 + inverse)
+    for n in (2, 4, 8, 16, 32, 64):
+        assert fft_t.fft_route(n, 32) == "axis"
+        (re_j, re_t), (im_j, im_t) = (_containers(rng, (3, n))
+                                      for _ in range(2))
+        want = fft_j.fft_fixed(re_j, im_j, cj, inverse=inverse)
+        layout = bf_k.last_axis_layout((3, n))
+        for fast in (False, True):
+            got = bf_k.fft_axis_plain(re_t, im_t, layout, st,
+                                      inverse=inverse, fast=fast)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(_as_u64(g), w, err_msg=str(n))
+        for g, w in zip(fft_t.fft_fixed(re_t, im_t, ct, inverse=inverse),
+                        want):
+            np.testing.assert_array_equal(_as_u64(g), w, err_msg=str(n))
+
+
+@pytest.mark.parametrize("kind", ["haloc_axa", "herloa", "eta", "accurate"])
+def test_axis_route_fft2_and_reconstruct_match_jax(kind):
+    """fft2/ifft2 (rows, then columns in place), and reconstruct on a
+    48 x 64 image in 16 x 16 tiles read where they lie (three tiles down:
+    a tile count that is not a power of two) and on a whole 32 x 64 one,
+    against the reference's jax backend."""
+    sj, st = _specs(kind)
+    cj = fft_j.FixedFFTConfig(spec=sj, frac_bits=6, backend="jax")
+    ct = fft_t.FixedFFTConfig(spec=st, frac_bits=6, **CPU)
+    rng = np.random.default_rng(52)
+    (re_j, re_t), (im_j, im_t) = (_containers(rng, (2, 16, 32))
+                                  for _ in range(2))
+    for fn in ("fft2_fixed", "ifft2_fixed"):
+        want = getattr(fft_j, fn)(re_j, im_j, cj)
+        got = getattr(fft_t, fn)(re_t, im_t, ct)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(_as_u64(g), w, err_msg=fn)
+    img = rng.integers(0, 256, (48, 64)).astype(np.uint8)
+    for block in (16, 0):
+        if not block:
+            img = img[:32]
+        want = pipe_j.reconstruct(img, sj, block=block, backend="jax")
+        got = pipe_t.reconstruct(img, st, block=block, **CPU)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=str(block))
+
+
+def _bit_reverse(e, bits):
+    r = torch.zeros_like(e)
+    for b in range(bits):
+        r |= ((e >> b) & 1) << (bits - 1 - b)
+    return r
+
+
+def _axis_kernel_model(re, im, layout, spec, inverse, fast):
+    """``butterfly_axis_launch`` in Python: the grid of axis_plan, each
+    thread slot's (t, e) and tensor offset (the multiply-high split of g
+    into (outer, inner)), the bit-reversed load into the block's shared
+    slots, each stage's pair q joining slots top = ((q >> s) << (s + 1)) |
+    (q & (h - 1)) and top + h with twiddle h - 1 + j of the one table, and
+    the natural-order store.  Returns the outputs and how often each
+    element was stored."""
+    plan = bf_k.axis_plan(layout)
+    n, log_n, log_t = layout.n, plan.log_n, plan.log_per_block
+    elems = n << log_t
+    magic, shift = bf_k.divider(layout.n_inner)
+    tw_re, tw_im = bf_k.axis_twiddles(n, inverse, torch.device("cpu"))
+    flat = (re.reshape(-1), im.reshape(-1))
+    out = (torch.zeros_like(flat[0]), torch.zeros_like(flat[1]))
+    stored = torch.zeros(flat[0].numel(), dtype=torch.int64)
+    idx = torch.arange(elems, dtype=torch.int64)
+    if plan.t_fast:
+        t, e = idx & ((1 << log_t) - 1), idx >> log_t
+    else:
+        t, e = idx >> log_n, idx & (n - 1)
+    for block in range(plan.blocks):
+        g = (block << log_t) + t
+        ok = g < layout.transforms
+        o = (((g * magic) >> 32) + g) >> shift
+        i = g - o * layout.n_inner
+        at = (o * layout.s_outer + i * layout.s_inner
+              + e * layout.s_elem)[ok]
+        slots = [torch.zeros(elems, dtype=torch.int32) for _ in range(2)]
+        load = ((t << log_n) | _bit_reverse(e, log_n))[ok]
+        for s_, f in zip(slots, flat):
+            s_[load] = f[at]
+        for s in range(log_n):
+            h = 1 << s
+            q = torch.arange(elems // 2)
+            j = q & (h - 1)
+            top = ((q >> s) << (s + 1)) | j
+            bot = top + h
+            res = bf_k.butterfly_plain(
+                slots[0][top][None], slots[1][top][None],
+                slots[0][bot][None], slots[1][bot][None],
+                tw_re[h - 1 + j], tw_im[h - 1 + j], spec, inverse=inverse,
+                fast=fast)
+            slots[0][top], slots[1][top] = res[0][0], res[1][0]
+            slots[0][bot], slots[1][bot] = res[2][0], res[3][0]
+        store = ((t << log_n) | e)[ok]
+        for o_, s_ in zip(out, slots):
+            o_[at] = s_[store]
+        stored[at] += 1
+    return (out[0].reshape(re.shape), out[1].reshape(im.shape)), stored
+
+
+def _transpose_path(re, im, spec, inverse, block):
+    """The FFT's path before the axis kernel: (..., H, W) cut into block
+    tiles by reshape and transpose, rows then transposed columns, each a
+    per-stage ``butterfly_plain`` after a bit-reversal gather."""
+    *lead, h, w = re.shape
+    bh, bw = (block, block) if block else (h, w)
+
+    def stage(*planes):
+        return bf_k.butterfly_plain(*planes, spec, inverse=inverse)
+
+    def tiles(x):
+        return (x.reshape(-1, h // bh, bh, w // bw, bw).transpose(2, 3)
+                .reshape(-1, bh, bw))
+
+    def untile(x):
+        return (x.reshape(-1, h // bh, w // bw, bh, bw).transpose(2, 3)
+                .reshape(re.shape))
+
+    x = [tiles(v) for v in (re, im)]
+    x = [v.reshape(-1, bw) for v in bf_k.fft_stages(
+        *(v.reshape(-1, bw) for v in x), inverse, stage)]
+    x = [v.reshape(-1, bh, bw).transpose(-1, -2).reshape(-1, bh) for v in x]
+    x = bf_k.fft_stages(*x, inverse, stage)
+    return tuple(untile(v.reshape(-1, bw, bh).transpose(-1, -2)) for v in x)
+
+
+@pytest.mark.parametrize("block", [16, 8, None])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_axis_kernel_model_equals_the_transpose_path(block, inverse):
+    """The model of the kernel's addressing, on the rows and then the
+    columns (in place) of (2, 48, 64) planes, whole or in tiles read where
+    they lie, equals the reshape/transpose path bit for bit; every element
+    is stored exactly once per axis."""
+    from repro_torch.image.fft import image_layouts
+    st = specs_t.paper_spec("haloc_axa")
+    rng = np.random.default_rng(53)
+    shape = (2, 48, 64) if block else (2, 32, 64)
+    re, im = (torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, shape)
+                              .astype(np.int32)) for _ in range(2))
+    rows, cols = image_layouts(shape, block)
+    assert not bf_k.axis_plan(rows).t_fast and bf_k.axis_plan(cols).t_fast
+    (y_re, y_im), stored = _axis_kernel_model(re, im, rows, st, inverse,
+                                              fast=True)
+    assert bool((stored == 1).all())
+    (y_re, y_im), stored = _axis_kernel_model(y_re, y_im, cols, st, inverse,
+                                              fast=False)
+    assert bool((stored == 1).all())
+    want = _transpose_path(re, im, st, inverse, block)
+    assert torch.equal(y_re, want[0]) and torch.equal(y_im, want[1])
+    got = fft_t.transform2d(re, im, fft_t.FixedFFTConfig(spec=st, **CPU),
+                            inverse=inverse, block=block)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n", [2, 4, 16, 512, 4096])
+def test_axis_kernel_model_on_the_last_axis(n):
+    """The model on the last axis at n = 2 ... 4096 (one transform a block
+    at 4096, 512 at n = 2), a ragged last block, against the plain
+    version."""
+    st = specs_t.paper_spec("loa")
+    rng = np.random.default_rng(54)
+    rows = max(3, 4100 // n)
+    re, im = (torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, (rows, n))
+                              .astype(np.int32)) for _ in range(2))
+    layout = bf_k.last_axis_layout((rows, n))
+    for inverse in (False, True):
+        (y_re, y_im), stored = _axis_kernel_model(re, im, layout, st,
+                                                  inverse, fast=False)
+        assert bool((stored == 1).all())
+        want = bf_k.fft_axis_plain(re, im, layout, st, inverse=inverse)
+        assert torch.equal(y_re, want[0]) and torch.equal(y_im, want[1])
+
+
+def test_divider_splits_every_index():
+    """The kernel's multiply-high division equals // for every divisor it
+    meets (1 ... 70, powers of two, odd and large ones) on seeded and
+    corner numerators below 2^31."""
+    rng = np.random.default_rng(55)
+    g = np.concatenate([rng.integers(0, 2 ** 31, 20000, dtype=np.uint64),
+                        np.array([0, 1, 2 ** 31 - 1, 2 ** 31 - 2],
+                                 dtype=np.uint64)])
+    for d in list(range(1, 71)) + [96, 127, 1000, 4096, 65535, 2 ** 20 + 3,
+                                   2 ** 30, 2 ** 31 - 1]:
+        magic, shift = bf_k.divider(d)
+        assert 0 < magic < 2 ** 32 and 0 <= shift <= 31
+        q = (((g * np.uint64(magic)) >> np.uint64(32)) + g) >> np.uint64(
+            shift)
+        np.testing.assert_array_equal(q, g // np.uint64(d), err_msg=str(d))
+
+
+def test_fft_routes_and_plans():
+    """fft_route: the six-add route below N = 32, the axis kernel up to
+    the 4096 one block holds, the per-stage kernel past it; axis_plan:
+    about 1024 elements a block, at least 8 neighbouring columns a block
+    on the column axis, 32 KB of shared memory at most."""
+    assert [fft_t.fft_route(n, 32) for n in (2, 16, 4096, 8192, 1 << 16)] \
+        == ["axis"] * 3 + ["stages"] * 2
+    assert {fft_t.fft_route(n, nb) for n in (2, 16, 8192)
+            for nb in (8, 16, 31)} == {"adds"}
+    from repro_torch.image.fft import image_layouts
+    rows, cols = image_layouts((4, 512, 512), 16)
+    assert rows == bf_k.AxisLayout(16, 4 * 512 * 32, 1, 16, 0, 1)
+    assert cols == bf_k.AxisLayout(16, 4 * 32, 512, 16 * 512, 1, 512)
+    assert bf_k.axis_plan(rows) == bf_k.AxisPlan(4, 6, False, 1024)
+    assert bf_k.axis_plan(cols) == bf_k.AxisPlan(4, 6, True, 1024)
+    rows, cols = image_layouts((512, 512))
+    assert bf_k.axis_plan(rows) == bf_k.AxisPlan(9, 1, False, 256)
+    assert bf_k.axis_plan(cols) == bf_k.AxisPlan(9, 3, True, 64)
+    for n in (2, 64, 1024, 4096):
+        for layout in (bf_k.last_axis_layout((5, n)),
+                       image_layouts((n, 64))[1]):
+            plan = bf_k.axis_plan(layout)
+            elems = n << plan.log_per_block
+            assert elems <= bf_k.AXIS_MAX_ELEMS and 8 * elems <= 32 * 1024
+    with pytest.raises(ValueError, match="do not cover"):
+        image_layouts((48, 40), 16)
+    with pytest.raises(ValueError, match="power of two"):
+        bf_k.check_layout(bf_k.AxisLayout(8192, 1, 1, 8192, 0, 1), 8192)
+    with pytest.raises(ValueError, match="reaches element"):
+        bf_k.check_layout(bf_k.AxisLayout(16, 3, 1, 16, 0, 1), 47)
+
+
+def test_fft_takes_each_route(monkeypatch):
+    """On the torch backend as on the card: N = 32 up to 4096 goes through
+    Backend.fft_axis, past it through one engine.butterfly per stage, and
+    N < 32 through neither; each equals the reference."""
+    from repro_torch.ax.backends import TorchBackend
+    from repro_torch.ax.engine import AxEngine
+    calls = {"fft_axis": 0, "butterfly": 0}
+    for name, cls in (("fft_axis", TorchBackend), ("butterfly", AxEngine)):
+        orig = getattr(cls, name)
+
+        def counted(*a, _orig=orig, _name=name, **kw):
+            calls[_name] += 1
+            return _orig(*a, **kw)
+        monkeypatch.setattr(cls, name, counted)
+    rng = np.random.default_rng(56)
+    for n_bits, n, expect in ((32, 64, (1, 0)), (32, 8192, (0, 13)),
+                              (16, 64, (0, 0))):
+        sj, st = _specs("haloc_axa", n_bits)
+        cj = fft_j.FixedFFTConfig(spec=sj, frac_bits=2, backend="jax")
+        ct = fft_t.FixedFFTConfig(spec=st, frac_bits=2, **CPU)
+        x = rng.uniform(-30, 30, (2, n))
+        calls.update(fft_axis=0, butterfly=0)
+        got = fft_t.fft_fixed(fft_t.to_fixed(x, ct), fft_t.to_fixed(-x, ct),
+                              ct)
+        assert (calls["fft_axis"], calls["butterfly"]) == expect, n
+        want = fft_j.fft_fixed(fft_j.to_fixed(x, cj), fft_j.to_fixed(-x, cj),
+                               cj)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(
+                g.numpy().view(np.uint32).astype(np.uint64) if n_bits == 32
+                else g.numpy().astype(np.uint64), w)
+
+
+def test_to_fixed_uint8_shortcut_equals_the_rounding_path():
+    """A uint8 image's containers are x << f when 255 * 2^f fits a
+    non-negative container; otherwise (N = 16, f = 8) the rounding path
+    runs; both equal the reference's to_fixed, and from_fixed at N = 32
+    reads int32 containers directly."""
+    img = np.arange(256, dtype=np.uint8).reshape(16, 16)
+    for n_bits, frac in ((32, 6), (32, 23), (16, 0), (16, 7), (16, 8)):
+        sj = specs_j.AdderSpec("accurate", n_bits)
+        st = specs_t.AdderSpec("accurate", n_bits)
+        cj = fft_j.FixedFFTConfig(spec=sj, frac_bits=frac)
+        ct = fft_t.FixedFFTConfig(spec=st, frac_bits=frac, **CPU)
+        got = fft_t.to_fixed(img, ct)
+        np.testing.assert_array_equal(
+            got.numpy().view(np.uint32).astype(np.uint64)
+            & np.uint64((1 << n_bits) - 1), fft_j.to_fixed(img, cj))
+        np.testing.assert_array_equal(fft_t.from_fixed(got, ct).numpy(),
+                                      fft_j.from_fixed(fft_j.to_fixed(
+                                          img, cj), cj))

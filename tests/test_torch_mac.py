@@ -441,3 +441,155 @@ def test_approx_matmul_staging_route_and_schedule(case):
         st, _ = _specs("haloc_axa", width)
         assert torch.equal(_schedule_model(a, b, st, bk),
                            mm_k.approx_matmul_plain(a, b, st, bk)), width
+
+
+# ------------------------------- mac_matmul's int16 table and its tile loop --
+
+def _mul_specs_upto(w_max):
+    """Every registered multiplier at w = 2 ... w_max, each with a few
+    truncation / row settings the spec accepts."""
+    from repro_torch.ax.mul import get_multiplier, registered_multipliers
+    out = []
+    for kind in registered_multipliers():
+        entry = get_multiplier(kind)
+        for w in range(2, w_max + 1):
+            for t in sorted({0, w // 2, w - 1 - entry.trunc_margin}):
+                for r in sorted({0, w // 4} if entry.uses_rows else {0}):
+                    try:
+                        out.append(MulSpec(kind, w, t if entry.uses_trunc
+                                           else 0, r))
+                    except ValueError:
+                        continue
+    return sorted(set(out), key=str)
+
+
+def test_int16_table_holds_every_entry_up_to_8_bits():
+    """For every registered multiplier at w <= 8 the signed product table
+    fits int16 (computed from the table), and the int16 device copy the
+    shared route stages holds every entry of the port's and the
+    reference's ``signed_mul_table``."""
+    from repro.ax.mul import lut as lut_j
+    from repro_torch.ax.mul import lut as lut_t
+    specs_seen = _mul_specs_upto(8)
+    assert {s.kind for s in specs_seen} >= {"accurate", "truncated",
+                                            "broken_array", "mitchell"}
+    for ms in specs_seen:
+        want = signed_mul_table(ms)
+        np.testing.assert_array_equal(want, lut_j.signed_mul_table(MulSpec_j(
+            ms.kind, ms.n_bits, ms.trunc_bits, ms.row_bits)))
+        assert lut_t.signed_table_fits_int16(ms), ms
+        got = lut_t.device_signed_table16(ms, "cpu")
+        assert got.dtype == torch.int16 and got.numel() == 4 ** ms.n_bits
+        np.testing.assert_array_equal(got.numpy().astype(np.int32), want,
+                                      err_msg=str(ms))
+        assert mac_k.mac_route(ms.n_bits, True) == "shared"
+
+
+def test_mac_route_and_the_int16_check():
+    """mac_route: shared at w <= 8, global at w = 9 and 10 and wherever a
+    table does not fit int16; device_signed_table16 refuses such a table
+    rather than narrowing it."""
+    from repro_torch.ax.mul import lut as lut_t
+    assert [mac_k.mac_route(w) for w in range(1, 11)] == \
+        ["shared"] * 8 + ["global"] * 2
+    assert mac_k.mac_route(8, fits_int16=False) == "global"
+    wide = MulSpec("accurate", 9)
+    assert not lut_t.signed_table_fits_int16(wide)
+    with pytest.raises(ValueError, match="outside int16"):
+        lut_t.device_signed_table16(wide, "cpu")
+    assert mac_k.mac_route(wide.n_bits,
+                           lut_t.signed_table_fits_int16(wide)) == "global"
+
+
+def _mac_kernel_model(a, b, spec, ms, bk, blocks, fast=False):
+    """``mac_matmul_launch`` in Python: ``blocks`` persistent blocks walk
+    the 64 x 64 output tiles (tile = block, block + blocks, ...); each
+    tile's K loop runs K tiles of bk in chunks of 32 that stop at the
+    tile's end, the chunk staged with zeros past it and past K (A as the
+    byte offset (a & mask) << (w + EB) in slot (r % 8) * 8 + r // 8 of its
+    row, B as (b & mask) << EB; EB = 1 for the int16 table, 2 for int32);
+    thread (warp, lane) reads A slots warp * 8 ... + 7 and B columns 2 *
+    lane, 2 * lane + 1, gathers at the OR of the two and sums mod 2^32;
+    the K tiles fold through the adder, the first taken as it is."""
+    from repro_torch.ax.mul import lut as lut_t
+    w = ms.n_bits
+    route = mac_k.mac_route(w, lut_t.signed_table_fits_int16(ms))
+    eb = 1 if route == "shared" else 2
+    table = (lut_t.device_signed_table16 if route == "shared"
+             else lut_t.device_signed_table)(ms, "cpu").to(torch.int64)
+    mask, tile, kc = (1 << w) - 1, 64, 32
+    (m, k), n = a.shape, b.shape[1]
+    tiles_n = -(-n // tile)
+    n_tiles = -(-m // tile) * tiles_n
+    out = torch.full((m, n), -7, dtype=torch.int32)
+    warp, lane, i, j = torch.meshgrid(torch.arange(8), torch.arange(32),
+                                      torch.arange(8), torch.arange(2),
+                                      indexing="ij")
+    a_slot = warp * 8 + i                      # the thread's A slot
+    rows, cols = warp + 8 * i, 2 * lane + j    # its output
+    r = torch.arange(tile)
+    a_of_slot = torch.empty(tile, dtype=torch.int64)
+    a_of_slot[(r % 8) * 8 + r // 8] = r        # the staging's row order
+    seen = torch.zeros(n_tiles, dtype=torch.int64)
+    for blk in range(blocks):
+        for t_ix in range(blk, n_tiles, blocks):
+            seen[t_ix] += 1
+            row0, col0 = (t_ix // tiles_n) * tile, (t_ix % tiles_n) * tile
+            acc = None
+            for k_lo in range(0, k, bk):
+                k_hi = min(k_lo + bk, k)
+                part = torch.zeros(rows.shape, dtype=torch.int64)
+                for k0 in range(k_lo, k_hi, kc):
+                    a_st = torch.zeros((kc, tile), dtype=torch.int64)
+                    b_st = torch.zeros((kc, tile), dtype=torch.int64)
+                    for c in range(kc):
+                        if k0 + c >= k_hi:
+                            break
+                        av = torch.zeros(tile, dtype=torch.int64)
+                        bv = torch.zeros(tile, dtype=torch.int64)
+                        nr, nc = min(tile, m - row0), min(tile, n - col0)
+                        av[:nr] = a[row0:row0 + nr, k0 + c].to(torch.int64)
+                        bv[:nc] = b[k0 + c, col0:col0 + nc].to(torch.int64)
+                        a_st[c][(r % 8) * 8 + r // 8] = (av & mask) << (w + eb)
+                        b_st[c] = (bv & mask) << eb
+                    for kk in range(kc):
+                        off = a_st[kk][a_slot] | b_st[kk][cols]
+                        part = (part + table[off >> eb]) & 0xFFFFFFFF
+                part32 = add_k.to_int32(part)
+                acc = part32 if acc is None else add_k.approx_add_plain(
+                    acc, part32, spec, fast)
+            assert torch.equal(a_of_slot[a_slot], rows)
+            gr, gc = rows + row0, cols + col0
+            ok = (gr < m) & (gc < n)
+            out[gr[ok], gc[ok]] = acc[ok]
+    assert bool((seen == 1).all())
+    return out
+
+
+@pytest.mark.parametrize("case", [
+    ("haloc_axa", "n32", ("truncated", 8, 3, 0), (70, 100, 65), 33, 3),
+    ("loa", "n16", ("mitchell", 8, 0, 0), (65, 75, 130), 40, 2),
+    ("eta", "n32", ("broken_array", 8, 3, 2), (64, 70, 64), 1, 1),
+    ("haloc_axa", "n16", ("truncated", 10, 4, 0), (33, 97, 70), 50, 4),
+    ("accurate", "n32", ("mitchell", 10, 0, 0), (20, 64, 20), 128, 2)],
+    ids=lambda c: "-".join(map(str, c[:2])) + f"-{c[2][0]}{c[2][1]}-bk{c[4]}")
+def test_mac_kernel_model_equals_plain_and_reference(case):
+    """The model of the kernel's persistent tile loop, K chunks at bk not
+    a multiple of 32 (33, 40, 50; 1; and bk > K), ragged M, N and K, both
+    table routes (w = 8 shared, w = 10 global), against mac_matmul_plain
+    and the reference's numpy backend."""
+    kind, width, mul, (m, k, n), bk, blocks = case
+    st, sj = _specs(kind, width)
+    ms, msj = MulSpec(*mul), MulSpec_j(*mul)
+    rng = np.random.default_rng(61)
+    lim = 1 << (ms.n_bits - 1)
+    a = rng.integers(-lim, lim, (m, k)).astype(np.int32)
+    b = rng.integers(-lim, lim, (k, n)).astype(np.int32)
+    got = _mac_kernel_model(torch.as_tensor(a), torch.as_tensor(b), st, ms,
+                            bk, blocks, fast=kind == "loa")
+    want = mac_k.mac_matmul_plain(torch.as_tensor(a), torch.as_tensor(b), st,
+                                  ms, bk)
+    assert torch.equal(got, want)
+    ref = np.asarray(get_backend_j("numpy").matmul(
+        a, b, sj, block=(128, 128, bk), mul_spec=msj))
+    np.testing.assert_array_equal(got.numpy(), ref)

@@ -366,3 +366,86 @@ def test_cuda_backend_refusals_on_mul():
         mul_k.mul(t, t, mul_t.MulSpec("truncated", 8, 3), strategy="nope")
     with pytest.raises(ValueError, match="shapes differ"):
         mul_k.mul(t, t[:2], mul_t.MulSpec("truncated", 8, 3))
+
+
+# ------------------------------------------- the cuda backend's operand rules --
+
+def _cuda_backend_on_cpu(monkeypatch):
+    """The cuda backend with its CUDA-only guard lifted: its kernel
+    wrappers then take CPU tensors to their plain versions, so what the
+    backend does around them runs here."""
+    cuda = be_t.get_backend("cuda")
+    monkeypatch.setattr(be_t.CudaBackend, "_require_cuda",
+                        staticmethod(lambda what, *ts: None))
+    return cuda
+
+
+def test_broadcast_operands():
+    a = torch.arange(12, dtype=torch.int32).reshape(3, 4)
+    b = torch.arange(4, dtype=torch.int32)
+    x, y = be_t.broadcast_operands(a, b)
+    assert x.shape == y.shape == (3, 4)
+    assert x.is_contiguous() and y.is_contiguous()
+    assert torch.equal(y, b.expand(3, 4))
+    x, y = be_t.broadcast_operands(a[:, :1], b)
+    assert torch.equal(x, a[:, :1].expand(3, 4))
+    with pytest.raises(RuntimeError):
+        be_t.broadcast_operands(a, torch.arange(3))
+
+
+@pytest.mark.parametrize("strategy", ["reference", "fused", "lut"])
+def test_cuda_backend_add_and_mul_broadcast(monkeypatch, strategy):
+    """A (3, 4) * 1000 operand with b = arange(4) * 777.  The
+    cuda backend's add (add_signed on top of it) and mul (mul_signed)
+    broadcast as the torch backend and the reference's jax backend do,
+    and out[0, 0] = 15 at haloc_axa n16m8k4."""
+    cuda = _cuda_backend_on_cpu(monkeypatch)
+    torch_be = be_t.get_backend("torch")
+    a = torch.arange(12, dtype=torch.int32).reshape(3, 4) * 1000
+    b = torch.arange(4, dtype=torch.int32) * 777
+    st = specs_t.AdderSpec("haloc_axa", 16, 8, 4)
+    sj = specs_j.AdderSpec("haloc_axa", 16, 8, 4)
+    want = np.asarray(get_backend_j("jax").add(
+        jnp.asarray(a.numpy()), jnp.asarray(b.numpy()), sj))
+    for x, y in ((a, b), (b, a)):
+        got = cuda.add(x, y, st, strategy=strategy)
+        assert torch.equal(got, torch_be.add(x, y, st, strategy=strategy))
+    np.testing.assert_array_equal(cuda.add(a, b, st, strategy=strategy),
+                                  want)
+    assert int(cuda.add(a, b, st, strategy=strategy)[0, 0]) == 15
+    ms = mul_t.MulSpec("truncated", 8, 3)
+    for x, y in ((a % 256, b % 256), (b % 256, (a % 256).to(torch.uint8))):
+        got = cuda.mul(x, y, ms, strategy=strategy)
+        assert torch.equal(got, torch_be.mul(x, y, ms, strategy=strategy))
+    from repro_torch.ax.engine import AxEngine
+    eng = AxEngine(st, FixedPointFormat(16, 6), cuda, strategy,
+                   torch.device("cpu"), ms)
+    cpu = make_engine(st, fmt=FixedPointFormat(16, 6), mul=ms,
+                      strategy=strategy, **CPU)
+    assert torch.equal(eng.add_signed(a - 6000, b), cpu.add_signed(a - 6000,
+                                                                   b))
+    assert torch.equal(eng.mul_signed(a % 128 - 64, 64 - b % 128),
+                       cpu.mul_signed(a % 128 - 64, 64 - b % 128))
+
+
+def test_cuda_backend_conv2d_checks_before_narrowing(monkeypatch):
+    """An int64 input of 2^32 + 1 wraps to 1 in int32, inside the range:
+    the cuda backend's conv2d checks |q| < 2^w on the caller's dtype
+    first and raises the numpy backend's message, as the torch backend
+    does; the kernel is never reached."""
+    from repro_torch.kernels import conv2d_mac as conv_k
+    cuda = _cuda_backend_on_cpu(monkeypatch)
+    launched = []
+    monkeypatch.setattr(conv_k, "launch_conv2d_mac",
+                        lambda *a, **kw: launched.append(a))
+    q = torch.tensor([[1, (1 << 32) + 1], [2, 3]], dtype=torch.int64)
+    assert int(q.to(torch.int32).abs().max()) < 256
+    st = specs_t.AdderSpec("haloc_axa", 16, 8, 4)
+    ms = mul_t.MulSpec("truncated", 8, 3)
+    kernel = ((1, 3, 1), (3, -5, 3), (1, 3, 1))
+    for be in (cuda, be_t.get_backend("torch")):
+        with pytest.raises(ValueError, match=r"\|q\| < 2\^8"):
+            be.conv2d(q, st, ms, kernel)
+    assert launched == []
+    cuda.conv2d(q % (1 << 32), st, ms, kernel)
+    assert len(launched) == 1 and launched[0][0].dtype == torch.int32
