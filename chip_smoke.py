@@ -114,6 +114,31 @@ The MAC slice adds to phases 3-5:
    time by kernel (the B transpose and the GEMM), and ``approx_matmul``
    through its general staging route.
 
+The Table-1 and Fig-6 slice adds phase 4d, at full size:
+
+4d. Table 1: ``exact_error_metrics_sweep(table1_specs())`` (N=32, m=10,
+   k=5) on the card, the six approximate rows equal to
+   ``BENCH_table1.json``'s ``table1/<kind>`` rows bit for bit, the
+   accurate row zero, the reports and ``exact_error_moments`` equal to the
+   CPU path, and ``hwcost.report`` printed beside the paper's Table I; the
+   Fig-6 design space: the 672 adder specs of ``design_space((8, 16,
+   32))`` (``cache_tables=False``: every table built on the card) and the
+   61 multiplier specs of ``mul_design_space((8,))``, exact reports and
+   hardware reports, each row equal to its ``pareto`` / ``pareto_mul`` row
+   of ``BENCH_table1.json`` / ``BENCH_mac.json`` on all eight fields, and
+   to the CPU path on the specs with m <= 8; the sweep's wall time and
+   device busy share (``torch.profiler``); the Monte-Carlo cross-check at
+   10^7 samples for the seven kinds, reference and lut strategies, every
+   |z| against the exact moments <= 4 and WCE <= the exact WCE, the
+   card's reports equal to the CPU path's at 10^6 samples (MRED within a
+   relative 1e-12), Msamples/s and the host's share (drawing and copying
+   the operands); and, with the counts set to 0 just before and read just
+   after, ``engine.sum`` over the last axis of a (4, 1024, 1024) signed
+   N=16 batch (10 ``approx_add`` launches, or ``lut_add`` under the lut
+   strategy) and ``residual_add``, both equal to the CPU path, the
+   gradients all ones.  Those launches are added to ``approx_add``'s and
+   ``lut_add``'s in the ``kernels`` line.
+
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 run from a directory without ``src/repro_torch``, it exits non-zero and
@@ -241,11 +266,32 @@ BUTTERFLY_PAIR = (
 BUTTERFLY_INVERSE = BUTTERFLY_PAIR + sum(
     (halve_steps(x, x + ".h") for x in ("top_re", "top_im", "bot_re",
                                         "bot_im")), ())
-#: One lut add: the two low masks (LOP3), the index (LEA), the two high
-#: masks (LOP3), the high parts' and the entry's sum (IADD3) and the
-#: N-bit mask (the gather itself is counted in bytes: the table is read
-#: once).
-OPS_PER_LUT_ADD = 7
+def lut_add_masks(n_bits, m):
+    """The hoisted constants ``LUT_ADD`` reads, for an n{N}m{m} lut add."""
+    n_mask = (1 << n_bits) - 1
+    low = (1 << m) - 1
+    return {"low": low, "hi": n_mask & ~low, "pow_m": 1 << m,
+            "n_mask": n_mask}
+
+
+#: One lut add mod 2^N (``csrc/lut_add.cu``) in instructions as
+#: ``HALOC_AXA_ADD``: the two low masks (LOP3), the table index
+#: ``a_low * 2^m + b_low`` (one IMAD, m being a run-time value), the
+#: gather (LDG, counted in bytes: the table is read once), the two high
+#: masks (LOP3), the high parts' and the entry's sum (IADD3) and the N-bit
+#: mask (LOP3): 7 instructions.  ``tests/test_torch_bounds.py`` runs the
+#: steps against the reference adder and the plain lut add.
+LUT_ADD = (
+    ("al", "LOP3", ("a", "low"), lambda a, lo: a & lo),
+    ("bl", "LOP3", ("b", "low"), lambda b, lo: b & lo),
+    ("idx", "IMAD", ("al", "pow_m", "bl"), lambda x, p, y: x * p + y),
+    ("entry", "LDG", ("table", "idx"), lambda t, i: t[i]),
+    ("ah", "LOP3", ("a", "hi"), lambda a, h: a & h),
+    ("bh", "LOP3", ("b", "hi"), lambda b, h: b & h),
+    ("s", "IADD3", ("ah", "bh", "entry"), lambda x, y, e: x + y + e),
+    ("out", "LOP3", ("s", "n_mask"), lambda v, n: v & n),
+)
+OPS_PER_LUT_ADD = sum(op != "LDG" for _, op, _, _ in LUT_ADD)
 
 #: Two MAC products of mac_matmul's inner loop, one A row by two B
 #: columns, in instructions as above: each table offset one LOP3 of the
@@ -1336,6 +1382,313 @@ def check_mac_outputs(torch, outs, cpu_outs):
               f"{key}: the card's output differs from the CPU path")
 
 
+# ------------------------------------------------------------ phase 4d --
+
+#: Monte-Carlo samples of the cross-check on the card (the paper's), and of
+#: the card-against-CPU comparison; the |z| the cross-check allows.
+MC_SAMPLES, MC_CPU_SAMPLES, MC_Z_BOUND = 10_000_000, 1_000_000, 4.0
+#: The Fig-6 specs whose exact reports and hardware reports phase 4d also
+#: computes on the CPU (the card runs all of them).
+FIG6_CPU_MAX_LSM = 8
+#: engine.sum's cell: the last axis of a (4, 1024, 1024) signed N=16 batch.
+SUM_SHAPE = (N_IMAGES, FULL_SIZE, FULL_SIZE)
+SUM_LEVELS = (SUM_SHAPE[-1] - 1).bit_length()
+TABLE1_PATH_KERNELS = ("approx_add", "lut_add")
+
+
+def golden_rows():
+    """``BENCH_table1.json``'s ``table1/<kind>`` rows, its ``pareto`` rows
+    keyed by (N, kind, m, k), and ``BENCH_mac.json``'s ``pareto_mul`` rows
+    keyed by (kind, N, t, v): the reference's results, committed."""
+    t1 = json.loads((ROOT / "BENCH_table1.json").read_text())
+    mac = json.loads((ROOT / "BENCH_mac.json").read_text())
+    table1 = {r["op"].split("/", 1)[1]: r for r in t1
+              if r["op"].startswith("table1/")}
+    pareto = {(r["N"], r["kind"], r["m"], r["k"]): r for r in t1
+              if r["op"] == "pareto"}
+    pareto_mul = {(r["kind"], r["N"], r["t"], r["v"]): r for r in mac
+                  if r["op"] == "pareto_mul"}
+    return table1, pareto, pareto_mul
+
+
+def error_row(rep):
+    return {"med": rep.med, "mred": rep.mred, "nmed": rep.nmed,
+            "er": rep.error_rate, "wce": rep.wce}
+
+
+def hw_row(hw):
+    return {"transistors": hw.transistors, "energy_fj": hw.energy_fj,
+            "delay_ns": hw.delay_ns}
+
+
+def check_rows(got, want, what):
+    """Every (key, field) of ``got`` equals ``want``'s, exactly; fails on
+    the first difference, naming it."""
+    check(set(got) == set(want),
+          f"{what}: {len(got)} rows on the card against {len(want)} in the "
+          f"golden file; first missing: "
+          f"{sorted(set(want) ^ set(got), key=str)[:1]}")
+    for key in sorted(got, key=str):
+        for field, value in got[key].items():
+            check(value == want[key][field],
+                  f"{what} {key} {field}: the card gives {value!r}, the "
+                  f"golden file {want[key][field]!r}")
+    return len(got)
+
+
+def pareto_key(spec, get_adder):
+    m = 0 if get_adder(spec.kind).is_exact else spec.lsm_bits
+    return (spec.n_bits, spec.kind, m, spec.effective_const_bits)
+
+
+def mul_key(spec):
+    return (spec.kind, spec.n_bits, spec.effective_trunc_bits,
+            spec.effective_row_bits)
+
+
+def fig6_rows(specs, mul_specs, device, get_adder):
+    """The Fig-6 adder rows (exact error, cache_tables=False, and hardware
+    report) and multiplier rows on ``device``, keyed as the golden files."""
+    from repro_torch.ax import analytics as an
+    from repro_torch.core import hwcost
+    reps = an.exact_error_metrics_sweep(specs, cache_tables=False,
+                                        device=device)
+    adders = {pareto_key(s, get_adder): {
+        **error_row(r), **hw_row(hwcost.report(s, device=device))}
+        for s, r in zip(specs, reps)}
+    mreps = an.exact_mul_error_metrics_sweep(mul_specs, cache_tables=False,
+                                             device=device)
+    muls = {mul_key(s): {**error_row(r),
+                         **hw_row(hwcost.mul_report(s, device=device))}
+            for s, r in zip(mul_specs, mreps)}
+    return adders, muls
+
+
+def z_scores(mc, ex, mo):
+    """(z MED, z MRED, z ER) of a Monte-Carlo report against the exact
+    population values, in exact standard errors (as
+    ``benchmarks/table1_error.py``'s ``_validate``)."""
+    import math
+    n = mc.n_samples
+    er_var = ex.error_rate * (1.0 - ex.error_rate)
+    return ((mc.med - ex.med) / math.sqrt(mo.var_ed / n),
+            (mc.mred - ex.mred) / math.sqrt(mo.var_red / n),
+            (mc.error_rate - ex.error_rate) / math.sqrt(er_var / n))
+
+
+def check_monte_carlo(torch, np, dev, specs, exact, moments):
+    """The cross-check at 10^7 samples on the card, both strategies: every
+    |z| <= 4 and WCE <= the exact WCE (the accurate adder's report is
+    zero); the card's MED, ER, WCE and NMED equal the port's CPU path at
+    10^6 samples on the same seed, MRED to a relative 1e-12.  Logs each
+    strategy's Msamples/s and the share of its wall time spent drawing
+    operands on the host and copying them to the card."""
+    from repro_torch.core import metrics
+    for strategy in ("reference", "lut"):
+        metrics.simulate_error_metrics_sweep(specs, n_samples=1_000,
+                                             strategy=strategy, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reports = metrics.simulate_error_metrics_sweep(
+            specs, n_samples=MC_SAMPLES, strategy=strategy, device=dev)
+        wall = time.perf_counter() - t0
+        # the sweep's own chunk: one distinct m, and the accurate adder
+        # (or every spec) off the table
+        chunk = metrics._auto_chunk(len(specs), 1, True, specs[0].n_bits)
+        t0 = time.perf_counter()
+        for a, _ in metrics.operand_stream(np.random.default_rng(2025),
+                                           MC_SAMPLES, chunk,
+                                           specs[0].n_bits, dev):
+            pass
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+        log(f"  Monte Carlo, {strategy} strategy, {MC_SAMPLES:.0e} samples x "
+            f"{len(specs)} kinds on the card: {wall * 1e3:.1f} ms = "
+            f"{MC_SAMPLES / wall / 1e6:.1f} Msamples/s; drawing the operands "
+            f"and copying them to the card alone: {host * 1e3:.1f} ms "
+            f"({host / wall:.2f} of the wall time)")
+        worst = 0.0
+        for spec, mc in zip(specs, reports):
+            ex, mo = exact[spec], moments[spec]
+            if mo.var_ed == 0.0:
+                check((mc.med, mc.error_rate, mc.wce) == (0.0, 0.0, 0),
+                      f"Monte Carlo {strategy} {spec.kind}: an exact adder "
+                      f"has error {mc}")
+                continue
+            zs = z_scores(mc, ex, mo)
+            worst = max(worst, *(abs(z) for z in zs))
+            log(f"    {spec.kind:10s} z(MED) {zs[0]:+6.2f} z(MRED) "
+                f"{zs[1]:+6.2f} z(ER) {zs[2]:+6.2f}  WCE {mc.wce} <= "
+                f"{ex.wce}")
+            check(max(abs(z) for z in zs) <= MC_Z_BOUND and mc.wce <= ex.wce,
+                  f"Monte Carlo {strategy} {spec.kind} deviates from the "
+                  f"exact values: z {zs}, WCE {mc.wce} > {ex.wce}")
+        log(f"    worst |z| = {worst:.2f} (bound {MC_Z_BOUND})")
+        card = metrics.simulate_error_metrics_sweep(
+            specs, n_samples=MC_CPU_SAMPLES, strategy=strategy, device=dev)
+        cpu = metrics.simulate_error_metrics_sweep(
+            specs, n_samples=MC_CPU_SAMPLES, strategy=strategy, device="cpu")
+        for g, w in zip(card, cpu):
+            check((g.med, g.nmed, g.error_rate, g.wce) ==
+                  (w.med, w.nmed, w.error_rate, w.wce)
+                  and abs(g.mred - w.mred) <= 1e-12 * abs(w.mred),
+                  f"Monte Carlo {strategy} {g.spec.kind} at "
+                  f"{MC_CPU_SAMPLES:.0e}: the card's report {g} differs "
+                  f"from the CPU path's {w}")
+        log(f"    at {MC_CPU_SAMPLES:.0e} samples the card's reports equal "
+            f"the CPU path's (MED, ER, WCE, NMED; MRED within 1e-12)")
+
+
+def run_table1_path(torch, np, dev):
+    """The engine methods of this slice's path on the card, reference and
+    lut strategies: ``engine.sum`` over the last axis of a (4, 1024,
+    1024) signed N=16 batch and ``residual_add`` on float planes of that
+    shape.  Returns {(what, strategy): output}."""
+    from repro_torch.ax import make_engine
+    from repro_torch.core.specs import AdderSpec
+    from repro_torch.numerics.fixed_point import FixedPointFormat
+    fmt = FixedPointFormat(16, 8)
+    spec = AdderSpec("haloc_axa", 16, 8, 4)
+    rng = np.random.default_rng(17)
+    q = torch.as_tensor(rng.integers(fmt.min_int, fmt.max_int + 1,
+                                     SUM_SHAPE).astype(np.int32), device=dev)
+    x = torch.as_tensor(rng.standard_normal(SUM_SHAPE, np.float32),
+                        device=dev)
+    y = torch.as_tensor(rng.standard_normal(SUM_SHAPE, np.float32),
+                        device=dev)
+    outs = {}
+    for strategy in ("reference", "lut"):
+        eng = make_engine(spec, fmt=fmt, strategy=strategy, device=dev)
+        outs[("sum", strategy)] = eng.sum(q)
+        outs[("residual_add", strategy)] = eng.residual_add(x, y)
+    return outs, (q, x, y)
+
+
+def check_table1_path(torch, outs, inputs):
+    """The card's sum and residual_add equal the port's CPU path; the
+    straight-through gradients are all ones."""
+    from repro_torch.ax import make_engine
+    from repro_torch.core.specs import AdderSpec
+    from repro_torch.numerics.fixed_point import FixedPointFormat
+    fmt = FixedPointFormat(16, 8)
+    spec = AdderSpec("haloc_axa", 16, 8, 4)
+    q, x, y = (t.cpu() for t in inputs)
+    for strategy in ("reference", "lut"):
+        eng = make_engine(spec, fmt=fmt, backend="torch", device="cpu",
+                          strategy=strategy)
+        want = {"sum": eng.sum(q), "residual_add": eng.residual_add(x, y)}
+        for what, w in want.items():
+            check(torch.equal(outs[(what, strategy)].cpu(), w),
+                  f"engine.{what} ({strategy}) on the card differs from the "
+                  f"CPU path")
+    gx = x.to(outs[("sum", "lut")].device).requires_grad_()
+    gy = y.to(gx.device).requires_grad_()
+    eng = make_engine(spec, fmt=fmt, device=gx.device)
+    eng.residual_add(gx, gy).sum().backward()
+    check(bool((gx.grad == 1).all()) and bool((gy.grad == 1).all()),
+          "residual_add's gradients on the card are not all ones")
+
+
+def table1_phase(torch, np, dev, counts, card):
+    """Phase 4d: Table 1, the Fig-6 design space and the Monte-Carlo
+    cross-check on the card, held against the golden files and the CPU
+    path; returns the launches of this slice's path."""
+    from repro_torch.ax import analytics as an
+    from repro_torch.ax import get_adder
+    from repro_torch.core import hwcost
+    from repro_torch.core.specs import table1_specs
+    table1, pareto, pareto_mul = golden_rows()
+    specs = list(table1_specs())
+
+    t0 = time.perf_counter()
+    exact = dict(zip(specs, an.exact_error_metrics_sweep(specs, device=dev)))
+    cold = time.perf_counter() - t0
+    sweep_s = time_wall(torch, lambda: an.exact_error_metrics_sweep(
+        specs, device=dev), 5)
+    moments = {s: an.exact_error_moments(s, device=dev) for s in specs}
+    got = {s.kind: error_row(exact[s]) for s in specs if s.kind != "accurate"}
+    check_rows(got, {k: table1[k] for k in got}, "Table 1")
+    check(error_row(exact[specs[0]]) == {"med": 0.0, "mred": 0.0,
+                                         "nmed": 0.0, "er": 0.0, "wce": 0},
+          f"Table 1 accurate: {exact[specs[0]]} is not the zero report")
+    for s in specs:
+        check(exact[s] == an.exact_error_metrics(s, device="cpu")
+              and moments[s] == an.exact_error_moments(s, device="cpu"),
+              f"Table 1 {s.kind}: the card's report or moments differ from "
+              f"the CPU path's")
+    log(f"  Table 1, exact (N=32, m=10, k=5), on the card: the 6 rows equal "
+        f"BENCH_table1.json and the CPU path; sweep {cold * 1e3:.1f} ms cold"
+        f", {sweep_s * 1e3:.2f} ms warm (median of 5), {card}")
+    log(f"    {'adder':10s} {'MED':>9s} {'MRED':>10s} {'ER':>7s} {'WCE':>5s}"
+        f" {'var ED':>10s} {'trans':>6s} {'E fJ':>7s} (paper) {'ns':>5s} "
+        f"{'P uW':>7s} (paper)")
+    for s in specs:
+        r, mo = exact[s], moments[s]
+        hw = hwcost.report(s, device=dev)
+        p = hwcost.PAPER_TABLE1[s.kind]
+        log(f"    {s.kind:10s} {r.med:9.3f} {r.mred:10.3e} "
+            f"{r.error_rate:7.4f} {r.wce:5d} {mo.var_ed:10.1f} "
+            f"{hw.transistors:6d} {hw.energy_fj:7.2f} ({p['energy_fj']:5.2f})"
+            f" {hw.delay_ns:5.3f} {hw.power_uw:7.2f} ({p['power_uw']:6.2f})")
+
+    design = an.design_space((8, 16, 32))
+    mul_design = an.mul_design_space((8,))
+    check(len(design) == 672 and len(mul_design) == 61,
+          f"design spaces of {len(design)} and {len(mul_design)} specs")
+    t0 = time.perf_counter()
+    adders, muls = fig6_rows(design, mul_design, dev, get_adder)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    n = check_rows(adders, pareto, "Fig 6 adders")
+    n_mul = check_rows(muls, pareto_mul, "Fig 6 multipliers")
+    t0 = time.perf_counter()
+    small = [s for s in design
+             if get_adder(s.kind).is_exact or s.lsm_bits <= FIG6_CPU_MAX_LSM]
+    cpu_adders, cpu_muls = fig6_rows(small, mul_design, "cpu", get_adder)
+    check(all(adders[k] == v for k, v in cpu_adders.items())
+          and cpu_muls == muls,
+          "Fig 6: a row of the card differs from the CPU path's")
+    log(f"  Fig 6 on the card: {n} adder rows (N = 8, 16, 32; m <= 12) and "
+        f"{n_mul} multiplier rows (N = 8) equal BENCH_table1.json and "
+        f"BENCH_mac.json on every field, exact and hardware: {cold:.2f} s "
+        f"cold; the CPU path agrees on the {len(cpu_adders)} adder specs "
+        f"with m <= {FIG6_CPU_MAX_LSM} and all multipliers "
+        f"({time.perf_counter() - t0:.1f} s on the CPU)")
+
+    def sweep():
+        an.exact_error_metrics_sweep(design, cache_tables=False, device=dev)
+
+    wall = time_wall(torch, sweep, 3)
+    log(f"  exact sweep of the {len(design)} adder specs (cache_tables=False) "
+        f"on the card: {wall:.3f} s wall (median of 3), {card}")
+    profile_calls(torch, sweep, wall, f"{len(design)}-spec exact sweep",
+                  calls=1, top=8)
+    for n_bits in (8, 16, 32):
+        part = [s for s in design if s.n_bits == n_bits]
+        sec = time_wall(torch, lambda: an.exact_error_metrics_sweep(
+            part, cache_tables=False, device=dev), 1)
+        log(f"    the {len(part)} specs at N={n_bits} alone "
+            f"({'compose' if n_bits <= an.MAX_COMPOSE_BITS else 'closed'} "
+            f"MRED): {sec:.3f} s")
+
+    check_monte_carlo(torch, np, dev, specs, exact, moments)
+
+    (outs, inputs), launches = run_counted(
+        torch, counts, TABLE1_PATH_KERNELS,
+        lambda: run_table1_path(torch, np, dev), "Table-1 engine path")
+    for name in TABLE1_PATH_KERNELS:
+        check(launches[name] == SUM_LEVELS + 1,
+              f"engine.sum over {SUM_SHAPE[-1]} ({SUM_LEVELS} levels) and one "
+              f"residual_add should be {SUM_LEVELS + 1} {name} launches; got "
+              f"{launches[name]}")
+    check_table1_path(torch, outs, inputs)
+    log(f"  engine.sum over the last axis of {SUM_SHAPE} ({SUM_LEVELS} "
+        f"levels) and "
+        f"residual_add on the card equal the CPU path (reference and lut); "
+        f"residual_add's gradients are all ones")
+    return launches
+
+
 # ------------------------------------------------------------- phase 5 --
 
 def fold_ops(weights):
@@ -1722,13 +2075,41 @@ def conv_ops(kernel, shift):
             + OPS_SIGN_EXTEND + (OPS_ROUND_SHIFT if shift else 0))
 
 
+def truncated_mul_masks(t):
+    """The hoisted constants ``truncated_mul_steps(t)`` reads: each
+    column's operand mask ones(t - i), its bit 2^i, and zero."""
+    return {"zero": 0, **{f"ones{j}": (1 << j) - 1 for j in range(t + 1)},
+            **{f"bit{i}": 1 << i for i in range(t)}}
+
+
+def truncated_mul_steps(t):
+    """One truncated product at t truncated columns in the fused form
+    (``truncated_mul_fast``, ``csrc/muls.cuh``), in instructions as
+    ``HALOC_AXA_ADD``: per column i < t the operand's mask a & ones(t - i)
+    (LOP3), the bit picked in place b & 2^i (LOP3, so no shift) and a
+    multiply-add of the two into the dropped mass (IMAD); then the full
+    product less that mass (one IMAD, its addend negated): 3t + 1."""
+    steps, mass = [], "zero"
+    for i in range(t):
+        steps += [(f"m{i}", "LOP3", ("a", f"ones{t - i}"),
+                   lambda a, o: a & o),
+                  (f"p{i}", "LOP3", ("b", f"bit{i}"), lambda b, c: b & c),
+                  (f"d{i}", "IMAD", (f"m{i}", f"p{i}", mass),
+                   lambda x, y, d: x * y + d)]
+        mass = f"d{i}"
+    steps.append(("out", "IMAD", ("a", "b", mass),
+                  lambda a, b, d: a * b - d))
+    return tuple(steps)
+
+
+#: The n8t3 product of the MAC path's ``mul`` cell (10 instructions).
+TRUNCATED_MUL_N8T3 = truncated_mul_steps(3)
+
+
 def ops_truncated_mul(t):
-    """Least instructions of one truncated product in the fused form
-    (truncated_mul_fast, csrc/muls.cuh) at t truncated columns: the low
-    mask; per column the operand's mask, the bit picked in place (b &
-    2^i, so no shift) and a multiply-add (IMAD); the full product less
-    the dropped mass (one IMAD)."""
-    return 1 + 3 * t + 1
+    """Least instructions of one truncated product at t truncated columns
+    (``truncated_mul_steps``)."""
+    return len(truncated_mul_steps(t))
 
 
 def measure_mac(torch, np, dev, launches, errs, int32_ops_per_s):
@@ -2175,6 +2556,14 @@ def main():
         "PSNR dB / SSIM:")
     for line in format_table(m_rows).splitlines():
         log("    " + line)
+
+    log("phase 4d: Table 1, the Fig-6 design space and the Monte-Carlo "
+        "cross-check on the card")
+    t0 = time.perf_counter()
+    t_launches = table1_phase(torch, np, dev, counts, card)
+    for name in TABLE1_PATH_KERNELS:
+        launches[name] += t_launches[name]
+    log(f"  phase 4d took {time.perf_counter() - t0:.1f} s")
 
     log("phase 5: times (CUDA events, median)")
     int32_ops_per_s = int32_rate(torch, dev)

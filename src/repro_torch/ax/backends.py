@@ -26,6 +26,10 @@ primitives of :mod:`repro_torch.ax.mul`'s multipliers: the elementwise
 :meth:`Backend.mul` (reference, fused and lut forms on both), the 2D MAC
 :meth:`Backend.conv2d` and both :meth:`Backend.matmul` paths (the
 exact-product int8 GEMM, and the MAC GEMM when a multiplier is given).
+The ``"torch"`` backend also runs :meth:`Backend.add_full`, the full
+(N+1)-bit sum of the error analysis (int64 lanes, N <= 62, on any
+device); the ``"cuda"`` backend raises for it, as the reference's
+``"jax"`` and Pallas backends do.
 The ``"torch"`` backend follows the reference's ``"jax"`` backend,
 every strategy included; the ``"cuda"`` backend's ``conv2d`` and
 ``matmul`` raise for the adder's lut strategy, as the reference's Pallas
@@ -161,6 +165,20 @@ def broadcast_operands(a: torch.Tensor, b: torch.Tensor):
     return tuple(t.contiguous() for t in torch.broadcast_tensors(a, b))
 
 
+#: Widest adder whose full (N+1)-bit sum :meth:`Backend.add_full` holds
+#: in int64 lanes.
+MAX_FULL_ADD_BITS = 62
+
+
+def full_lanes(x: torch.Tensor) -> torch.Tensor:
+    """Full-add operand lanes: int64 holding the N-bit unsigned value (a
+    uint64 tensor, as numpy's uint64 containers arrive, is reinterpreted;
+    its values are below 2^62)."""
+    if x.dtype == torch.uint64:
+        return x.view(torch.int64)
+    return x.to(torch.int64)
+
+
 def _lanes(x: torch.Tensor) -> torch.Tensor:
     """Operand lanes as the reference's ``jax`` backend takes them: a
     signed tensor as int32 read as its unsigned pattern, an unsigned one
@@ -214,6 +232,12 @@ class Backend:
     def add(self, a, b, spec: AdderSpec, *, strategy: str = "reference"):
         """Elementwise approximate add reduced mod 2^N (int32 container)."""
         raise NotImplementedError
+
+    def add_full(self, a, b, spec: AdderSpec, *, strategy: str = "reference"):
+        """Full (N+1)-bit unsigned sum on int64 lanes (error analysis)."""
+        raise NotImplementedError(
+            f"backend {self.name!r} has no full-width add; use the "
+            f"'torch' backend for error analysis")
 
     def accumulate(self, terms, spec: AdderSpec, *, weights=None,
                    strategy: str = "reference"):
@@ -299,6 +323,21 @@ class TorchBackend(Backend):
             return lut_add_plain(a, b, spec)
         from repro_torch.kernels.approx_add import approx_add_plain
         return approx_add_plain(a, b, spec, _fast(strategy))
+
+    def add_full(self, a, b, spec, *, strategy="reference"):
+        """The full (N+1)-bit sum on int64 lanes holding N-bit unsigned
+        values, on the operands' device; N <= 62, so that the sum fits
+        the lanes (the reference's uint64 containers reach N = 63)."""
+        if spec.n_bits > MAX_FULL_ADD_BITS:
+            raise ValueError(
+                f"add_full runs int64 lanes, which hold the (N+1)-bit sum "
+                f"for N <= {MAX_FULL_ADD_BITS}; got N={spec.n_bits}")
+        a, b = full_lanes(a), full_lanes(b)
+        if _use_lut(spec, strategy):
+            from repro_torch.ax.lut import lut_add_full
+            return lut_add_full(a, b, spec)
+        from repro_torch.core.adders import approx_add
+        return approx_add(a, b, spec, fast=_fast(strategy))
 
     def _lut_add(self, spec, strategy, device):
         """The lut strategy's lane-level add (its table gather), or None
@@ -397,6 +436,12 @@ class CudaBackend(Backend):
             return lut_add(a, b, spec)
         from repro_torch.kernels.approx_add import approx_add
         return approx_add(a, b, spec, fast=_fast(strategy))
+
+    def add_full(self, a, b, spec, *, strategy="reference"):
+        raise NotImplementedError(
+            "the 'cuda' backend has no full-width add (its kernels run "
+            "uint32 lanes mod 2^N); for error analysis on the card use "
+            "backend='torch', device='cuda'")
 
     def accumulate(self, terms, spec, *, weights=None, strategy="reference"):
         from repro_torch.kernels.accumulate import accumulate

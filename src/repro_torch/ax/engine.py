@@ -7,6 +7,8 @@ approximate-arithmetic call site consumes.
     ax = make_engine("haloc_axa", fmt=FixedPointFormat(16, 8))  # on the card
     s = ax.add_signed(qx, qy)          # fixed-point containers
     c = ax.add(a, b)                   # raw N-bit containers, mod 2^N
+    t = ax.sum(q)                      # log-depth tree of add_signed
+    y = ax.residual_add(x, r)          # float in/out, straight-through grad
 
     mac = make_engine("haloc_axa", fmt=FixedPointFormat(16, 0),
                       mul="truncated")                     # a MAC engine
@@ -38,7 +40,9 @@ from repro_torch.ax.registry import get_adder
 from repro_torch.core.specs import AdderSpec
 from repro_torch.numerics.fixed_point import (FixedPointFormat,
                                               container_to_signed,
+                                              dequantize, quantize,
                                               signed_to_container)
+from repro_torch.obs.caches import register_lru as _register_lru
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +81,14 @@ class AxEngine:
         """Elementwise approximate add mod 2^N on int32 N-bit containers."""
         return self.backend.add(self.tensor(a), self.tensor(b), self.spec,
                                 strategy=self.strategy)
+
+    def add_full(self, a, b):
+        """Full (N+1)-bit unsigned sum of N-bit unsigned operands, as int64
+        lanes on the engine's device (error analysis; the ``"torch"``
+        backend, N <= 62).  numpy uint64 containers are taken as they
+        come."""
+        return self.backend.add_full(self.tensor(a), self.tensor(b),
+                                     self.spec, strategy=self.strategy)
 
     def accumulate(self, terms, weights=None):
         """Weighted fold of K stacked container terms mod 2^N in one
@@ -182,6 +194,36 @@ class AxEngine:
         ``"cuda"`` backend)."""
         return self.accumulate_signed((qx, qy), (wx, wy), shift=shift)
 
+    def sum(self, q, axis: int = -1):
+        """Log-depth tree reduction with approximate partial sums (the
+        accumulator of a MAC array built from these adders): the axis is
+        zero-padded to a power of two and halved by one
+        :meth:`add_signed` a level (one kernel launch a level on the
+        ``"cuda"`` backend)."""
+        self._require_fmt("sum")
+        q = self.tensor(q).movedim(axis, -1)
+        n = q.shape[-1]
+        pow2 = 1 << (n - 1).bit_length()
+        if pow2 != n:
+            q = torch.cat([q, q.new_zeros(q.shape[:-1] + (pow2 - n,))], -1)
+        while q.shape[-1] > 1:
+            half = q.shape[-1] // 2
+            q = self.add_signed(q[..., :half], q[..., half:])
+        return q[..., 0]
+
+    # --------------------------------------------------------- float entry
+
+    def residual_add(self, x, y):
+        """Float-in/float-out residual-stream add: quantize -> approximate
+        add -> dequantize, with a straight-through estimator (the
+        gradient of an exact add) so the op is trainable.  Exact kinds
+        return ``x + y``."""
+        x, y = self.tensor(x), self.tensor(y)
+        if get_adder(self.spec.kind).is_exact:
+            return x + y
+        self._require_fmt("residual_add")
+        return _SteResidualAdd.apply(self, x, y)
+
     # -------------------------------------------------------------- misc
 
     def replace(self, **kw) -> "AxEngine":
@@ -220,6 +262,22 @@ class AxEngine:
                 f"AxEngine.{what} needs a multiplier; pass mul=... (a "
                 f"MulSpec or kind name) or a MacSpec to make_engine")
         return self.mul_spec
+
+
+class _SteResidualAdd(torch.autograd.Function):
+    """:meth:`AxEngine.residual_add`: the approximate add forward, the
+    exact add's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, engine, x, y):
+        fmt = engine.fmt
+        q = engine.add_signed(quantize(x, fmt), quantize(y, fmt))
+        return dequantize(q, fmt, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        # Straight-through: d(approx_add)/dx ~= d(x+y)/dx = 1.
+        return None, g, g
 
 
 def _default_spec(kind: str, n_bits: int) -> AdderSpec:
@@ -284,6 +342,9 @@ def _make_engine_cached(spec: AdderSpec, fmt: Optional[FixedPointFormat],
                         mul_spec: Optional[MulSpec]) -> AxEngine:
     return AxEngine(spec=spec, fmt=fmt, backend=backend, strategy=strategy,
                     device=device, mul_spec=mul_spec)
+
+
+_register_lru("ax.engine", _make_engine_cached)
 
 
 def make_engine(spec: Union[AdderSpec, MacSpec, str],

@@ -16,6 +16,12 @@ operands (the high parts are zero, so the returned "high sum" is exactly
 the carry); :func:`device_table` keeps one tensor copy of it per
 (canonical spec, device), so no call builds or uploads a table.
 
+:func:`error_delta_table` derives the signed full-sum error
+``approx(a, b) - (a + b)`` (a pure function of the same low bits), which
+turns error analysis into one gather and an ``abs``;
+:func:`build_delta` builds that table on a device, for the exact
+analytics of :mod:`repro_torch.ax.analytics`.
+
 Tables are ``2^{2m}`` entries: m=10, the paper's N=32 partition, is a
 2 MiB table; the N=16 image datapath's m=8 is 128 KiB.
 :data:`MAX_LUT_LSM_BITS` caps compilation at m=12 (32 MiB); wider LSMs
@@ -31,6 +37,7 @@ import torch
 
 from repro_torch.ax.registry import get_adder
 from repro_torch.core.specs import AdderSpec
+from repro_torch.obs.caches import register_lru as _register_lru
 
 #: Widest LSM the LUT strategy compiles (2^{2m} uint16 entries).
 MAX_LUT_LSM_BITS = 12
@@ -89,6 +96,9 @@ def _compile_canonical(spec: AdderSpec) -> np.ndarray:
     return _build_packed(spec)
 
 
+_register_lru("ax.lut.packed", _compile_canonical)
+
+
 def compile_lut(spec: AdderSpec) -> np.ndarray:
     """The packed low-part table for ``spec``: a read-only uint16 array of
     ``2^{2m}`` entries indexed by ``(a_low << m) | b_low``; each entry
@@ -111,3 +121,122 @@ def device_table(spec: AdderSpec, device) -> torch.Tensor:
     (canonical spec, device)."""
     _validate_lut_spec(spec)
     return _device_table(_canonical(spec), torch.device(device))
+
+
+# ------------------------------------------------------- error tables --
+
+def _delta_from_packed(packed: np.ndarray, m: int) -> np.ndarray:
+    vals = np.arange(1 << m, dtype=np.int64)
+    exact = (vals[:, None] + vals[None, :]).reshape(-1)
+    delta = (packed.astype(np.int64) - exact).astype(np.int32)
+    delta.flags.writeable = False
+    return delta
+
+
+@functools.lru_cache(maxsize=None)
+def _delta_canonical(spec: AdderSpec) -> np.ndarray:
+    return _delta_from_packed(_compile_canonical(spec), spec.lsm_bits)
+
+
+_register_lru("ax.lut.delta", _delta_canonical)
+
+
+def error_delta_table(spec: AdderSpec) -> np.ndarray:
+    """Signed full-sum error ``approx(a, b) - (a + b)`` per low-bit pair.
+
+    The exact and approximate sums share the high parts (up to the
+    speculated carry, which the packed entry already contains), so the
+    error of the FULL add is this table gathered at
+    ``(a_low << m) | b_low``.  int32, read-only, cached per canonical
+    spec (shared across ``n_bits``, like :func:`compile_lut`)."""
+    _validate_lut_spec(spec)
+    return _delta_canonical(_canonical(spec))
+
+
+def error_delta_table_nocache(spec: AdderSpec) -> np.ndarray:
+    """Like :func:`error_delta_table` but built transiently, NOT cached:
+    breadth sweeps reduce each table to a handful of scalars, and caching
+    every table would pin gigabytes (an m=12 delta table is 64 MiB)."""
+    canon = _canonical(spec)
+    return _delta_from_packed(_build_packed(canon), canon.lsm_bits)
+
+
+@functools.lru_cache(maxsize=None)
+def _abs_error_canonical(spec: AdderSpec) -> np.ndarray:
+    ed = np.abs(_delta_canonical(spec)).astype(np.uint16)
+    ed.flags.writeable = False
+    return ed
+
+
+_register_lru("ax.lut.abs_error", _abs_error_canonical)
+
+
+def abs_error_table(spec: AdderSpec) -> np.ndarray:
+    """``|approx(a, b) - (a + b)|`` per low-bit pair, uint16, read-only:
+    the unsigned view of :func:`error_delta_table` (|delta| < 2^{m+1}
+    fits uint16 for every compilable m)."""
+    _validate_lut_spec(spec)
+    return _abs_error_canonical(_canonical(spec))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_abs_error(spec: AdderSpec, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(
+        _abs_error_canonical(spec).astype(np.int32)).to(device)
+
+
+def device_abs_error_table(spec: AdderSpec, device) -> torch.Tensor:
+    """:func:`abs_error_table` as an int32 tensor on ``device``, uploaded
+    once per (canonical spec, device): the Monte-Carlo lut strategy
+    gathers from it, and the cached analytics reduce it."""
+    _validate_lut_spec(spec)
+    return _device_abs_error(_canonical(spec), torch.device(device))
+
+
+def build_delta(spec: AdderSpec, device) -> torch.Tensor:
+    """:func:`error_delta_table` built on ``device``, not cached: the
+    registered reference impl evaluated on int64 lanes of the ``2^m x
+    2^m`` low grid (a broadcast pair of ``arange`` columns), the packed
+    entry masked to its uint16 pattern, minus the exact low sum.  An
+    int32 tensor of ``4^m`` entries, equal bit for bit to the host build
+    (the analytics' transient tables)."""
+    _validate_lut_spec(spec)
+    canon = _canonical(spec)
+    vals = torch.arange(1 << canon.lsm_bits, dtype=torch.int64,
+                        device=torch.device(device))
+    a, b = vals[:, None], vals[None, :]
+    packed = get_adder(canon.kind).impl(a, b, canon) & 0xFFFF
+    return (packed - (a + b)).to(torch.int32).reshape(-1)
+
+
+# ---------------------------------------------------- gathers and adds --
+
+def lut_index(a, b, spec: AdderSpec):
+    """Gather index ``(a_low << m) | b_low`` (arrays or tensors)."""
+    m = spec.lsm_bits
+    low = (1 << m) - 1
+    return ((a & low) << m) | (b & low)
+
+
+def lut_gather_full(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor,
+                    spec: AdderSpec) -> torch.Tensor:
+    """THE lut add on int64 lanes, full width: one gather from the int16
+    ``table`` (:func:`device_table`, masked back to its uint16 pattern:
+    the approximate low sum, carry included) and one exact add of the
+    high parts above bit m."""
+    m = spec.lsm_bits
+    entry = torch.take(table, lut_index(a, b, spec)).to(torch.int64) & 0xFFFF
+    return (((a >> m) + (b >> m)) << m) + entry
+
+
+def lut_add_full(a: torch.Tensor, b: torch.Tensor,
+                 spec: AdderSpec) -> torch.Tensor:
+    """Full (N+1)-bit approximate sum via the table, on int64 lanes holding
+    N-bit unsigned values (N <= 62), on any device."""
+    return lut_gather_full(a, b, device_table(spec, a.device), spec)
+
+
+def lut_add_mod(a: torch.Tensor, b: torch.Tensor,
+                spec: AdderSpec) -> torch.Tensor:
+    """LUT add reduced mod 2^N (same contract as ``approx_add_mod``)."""
+    return lut_add_full(a, b, spec) & ((1 << spec.n_bits) - 1)

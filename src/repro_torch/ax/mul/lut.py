@@ -21,8 +21,11 @@ returned read-only:
 
 The ``device_*`` functions keep one tensor copy of each per (canonical
 spec, device), and per weights for the tap tables, so no call builds or
-uploads a table.  (The reference's integrity digests, cache registration
-and persistent store, and its error-delta tables, are not ported here.)
+uploads a table.  :func:`mul_error_delta_table` (host, cached) and
+:func:`build_mul_delta` (on a device, transient) give the signed error
+``approx(a, b) - a*b`` over the full domain for the exact analytics.
+(The reference's integrity digests and persistent store are not ported
+here.)
 """
 
 from __future__ import annotations
@@ -35,9 +38,14 @@ import torch
 
 from repro_torch.ax.mul.registry import get_multiplier
 from repro_torch.ax.mul.specs import MulSpec
+from repro_torch.obs.caches import register_lru as _register_lru
 
 #: Full-domain tables: 4^10 = 1M entries is the largest compiled.
 MAX_MUL_LUT_BITS = 10
+
+#: Widest operand the error-delta tables cover (4^12 = 16M entries: the
+#: exact analytics' compose path).
+MAX_MUL_DELTA_BITS = 12
 
 
 def mul_lut_supported(spec: MulSpec) -> bool:
@@ -81,10 +89,59 @@ def _mul_lut_cached(spec: MulSpec) -> np.ndarray:
     return table
 
 
+_register_lru("ax.mul.lut.product", _mul_lut_cached)
+
+
 def compile_mul_lut(spec: MulSpec) -> np.ndarray:
     """Unsigned full-product table ``T[(a << N) | b] = approx(a, b)``:
     uint16 when the product bus has at most 16 bits, else uint32."""
     return _mul_lut_cached(_canonical(spec))
+
+
+def _check_delta_bits(spec: MulSpec) -> None:
+    if spec.n_bits > MAX_MUL_DELTA_BITS:
+        raise ValueError(
+            f"mul delta table limited to n_bits <= {MAX_MUL_DELTA_BITS} "
+            f"(4^N-entry tables), got n_bits={spec.n_bits}")
+
+
+def mul_error_delta_table_nocache(spec: MulSpec) -> np.ndarray:
+    """Signed ``approx(a, b) - a*b`` over the full domain (int32; always
+    <= 0 for the builtin kinds, kept signed for plugins), built
+    transiently."""
+    _check_delta_bits(spec)
+    a, b = _operand_grids(spec.n_bits)
+    approx = get_multiplier(spec.kind).impl(a, b, spec).astype(np.int64)
+    delta = (approx - (a * b).astype(np.int64)).astype(np.int32)
+    delta.flags.writeable = False
+    return delta
+
+
+@functools.lru_cache(maxsize=None)
+def _delta_cached(spec: MulSpec) -> np.ndarray:
+    return mul_error_delta_table_nocache(spec)
+
+
+_register_lru("ax.mul.lut.delta", _delta_cached)
+
+
+def mul_error_delta_table(spec: MulSpec) -> np.ndarray:
+    """:func:`mul_error_delta_table_nocache`, cached per canonical spec."""
+    return _delta_cached(_canonical(spec))
+
+
+def build_mul_delta(spec: MulSpec, device) -> torch.Tensor:
+    """:func:`mul_error_delta_table` built on ``device``, not cached: the
+    registered impl on int64 lanes of the ``2^N x 2^N`` operand grid (a
+    broadcast pair of ``arange`` columns, row-major in ``a``) minus the
+    exact product; an int32 tensor of ``4^N`` entries, equal bit for bit
+    to the host build."""
+    _check_delta_bits(spec)
+    vals = torch.arange(1 << spec.n_bits, dtype=torch.int64,
+                        device=torch.device(device))
+    a, b = vals[:, None], vals[None, :]
+    approx = get_multiplier(spec.kind).impl(a, b, spec)
+    return (approx - a * b).to(torch.int32).reshape(-1)
 
 
 def mul_lut_index(a, b, n_bits: int):
@@ -108,6 +165,9 @@ def _signed_table_cached(spec: MulSpec) -> np.ndarray:
     table = (sgn * prod).astype(np.int32)
     table.flags.writeable = False
     return table
+
+
+_register_lru("ax.mul.lut.signed", _signed_table_cached)
 
 
 def signed_mul_table(spec: MulSpec) -> np.ndarray:
@@ -141,6 +201,9 @@ def _tap_tables_cached(spec: MulSpec,
     table = np.stack(rows)
     table.flags.writeable = False
     return table
+
+
+_register_lru("ax.mul.lut.taps", _tap_tables_cached)
 
 
 def tap_tables(spec: MulSpec, weights: Tuple[int, ...]) -> np.ndarray:

@@ -1,5 +1,6 @@
-"""The paper's adder family: specs and bit-exact behavioural models
-(the port's own copies of ``repro.core.specs`` and ``repro.core.adders``)."""
+"""The paper's adder family: specs, bit-exact behavioural models and
+error metrics (the port's own copies of ``repro.core.specs`` and
+``repro.core.adders``, and the port of ``repro.core.metrics``)."""
 
 from repro_torch.core.specs import (  # noqa: F401
     ACCURATE,
@@ -18,6 +19,15 @@ from repro_torch.core.adders import (  # noqa: F401
     approx_add,
     approx_add_mod,
     lsm_error_bound,
+)
+from repro_torch.core.metrics import (  # noqa: F401
+    ErrorReport,
+    error_distances,
+    exact_error_metrics,
+    exact_error_metrics_sweep,
+    exhaustive_error_metrics,
+    simulate_error_metrics,
+    simulate_error_metrics_sweep,
 )
 
 _REGISTRY_DERIVED = ("ALL_KINDS", "TABLE1_KINDS", "CONST_KINDS")

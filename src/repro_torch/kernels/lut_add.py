@@ -32,15 +32,10 @@ from repro_torch.kernels.approx_add import (check_cuda, on_cpu, stream_ptr,
 
 def lut_gather_add(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor,
                    spec: AdderSpec) -> torch.Tensor:
-    """THE lut add on int64 lanes holding 32-bit patterns: one gather from
-    the int16 ``table`` (masked back to its uint16 pattern) and one exact
-    high add, mod 2^N."""
-    m = spec.lsm_bits
-    low = (1 << m) - 1
-    entry = torch.take(table, ((a & low) << m) | (b & low)).to(torch.int64) \
-        & 0xFFFF
-    s = (((a >> m) + (b >> m)) << m) + entry
-    return s & ((1 << spec.n_bits) - 1)
+    """The lut add mod 2^N on int64 lanes holding 32-bit patterns
+    (:func:`repro_torch.ax.lut.lut_gather_full`, masked to N bits)."""
+    return lut_lib.lut_gather_full(a, b, table, spec) \
+        & ((1 << spec.n_bits) - 1)
 
 
 def lut_add_plain(a: torch.Tensor, b: torch.Tensor,

@@ -10,7 +10,10 @@ card can reach.  Exhaustive at N=8, seeded random pairs and the corners
 at N=16 and N=32, every valid (m, k).  ``chip_smoke.CONV_INDEX`` spells
 conv2d_mac's per-value step (its row of the signed tap tables); the conv
 computed from it, one gather a tap and the reference adder equals the
-plain conv and the reference's.
+plain conv and the reference's.  ``chip_smoke.LUT_ADD`` spells one lut
+add (7 instructions and a gather) and ``chip_smoke.truncated_mul_steps``
+one truncated product (3t + 1: 10 at n8t3); both run here against the
+reference adder and multiplier and the port's plain versions.
 """
 
 import importlib.util
@@ -261,3 +264,82 @@ def test_mac_product_steps_equal_the_gemm_partial():
             (want[:, 0::2] + want[:, 1::2]) & REGISTER, err_msg=kind)
         np.testing.assert_array_equal(run(b, np.zeros_like(b)), want,
                                       err_msg=kind)
+
+
+def test_lut_add_steps_are_seven_instructions_and_a_gather():
+    _steps_are_instructions(CS.LUT_ADD,
+                            {"a", "b", "table", *CS.lut_add_masks(16, 8)},
+                            ("LOP3", "IADD3", "IMAD", "LDG"))
+    assert CS.OPS_PER_LUT_ADD == 7
+    assert sum(op == "LDG" for _, op, _, _ in CS.LUT_ADD) == 1
+
+
+@pytest.mark.parametrize("kind", ["haloc_axa", "loa", "eta", "m_herloa"])
+@pytest.mark.parametrize("n_bits", [8, 16, 32])
+def test_lut_add_steps_equal_the_adder(kind, n_bits):
+    """The spelt lut add on 32-bit registers, gathering from the port's
+    uint16 table, equals the reference adder mod 2^N, the reference's lut
+    add and the port's plain lut add: exhaustive at N=8, seeded pairs and
+    the corners at N=16 and 32, m from 2 to 10."""
+    import torch
+
+    from repro.ax import lut as ref_lut
+    from repro_torch.ax import lut as port_lut
+    from repro_torch.kernels.lut_add import lut_add_plain
+    rng = np.random.default_rng(64 + n_bits)
+    a, b = _operands(n_bits, rng)
+    for m in range(2, min(n_bits, 10) + 1, 1 if n_bits == 8 else 4):
+        k = (m - 2) // 2 if kind in ("haloc_axa", "m_herloa") else 0
+        spec, ref_spec = (AdderSpec(kind, n_bits, m, k),
+                          RefSpec(kind, n_bits, m, k))
+        regs = {"a": a, "b": b, "table": port_lut.compile_lut(spec),
+                **{n: np.uint64(v) for n, v in
+                   CS.lut_add_masks(n_bits, m).items()}}
+        for dest, op, srcs, fn in CS.LUT_ADD:
+            v = fn(*(regs[x] for x in srcs))
+            regs[dest] = v.astype(np.uint64) & np.uint64(REGISTER)
+        want = ref_adders.approx_add_mod(a, b, ref_spec)
+        np.testing.assert_array_equal(regs["out"], want,
+                                      err_msg=f"{kind} n{n_bits}m{m}")
+        np.testing.assert_array_equal(ref_lut.lut_add_mod(a, b, ref_spec),
+                                      want)
+        lanes = [torch.as_tensor(x.astype(np.uint32).view(np.int32))
+                 for x in (a, b)]
+        np.testing.assert_array_equal(
+            lut_add_plain(*lanes, spec).numpy().view(np.uint32),
+            want.astype(np.uint32))
+
+
+def test_truncated_mul_steps_are_single_instructions():
+    for t in range(0, 8):
+        _steps_are_instructions(CS.truncated_mul_steps(t),
+                                {"a", "b", *CS.truncated_mul_masks(t)},
+                                ("LOP3", "IMAD"))
+        assert CS.ops_truncated_mul(t) == 3 * t + 1
+    assert [st[:3] for st in CS.TRUNCATED_MUL_N8T3] == \
+        [st[:3] for st in CS.truncated_mul_steps(3)]
+    assert len(CS.TRUNCATED_MUL_N8T3) == 10
+
+
+@pytest.mark.parametrize("t", range(0, 8))
+def test_truncated_mul_steps_equal_the_multiplier(t):
+    """The spelt truncated product on 32-bit registers equals the
+    reference multiplier's reference form and the port's plain ``mul``,
+    exhaustively over the 8-bit operands."""
+    import torch
+
+    from repro.ax.mul import MulSpec as RefMulSpec
+    from repro.ax.mul import approx_mul as ref_approx_mul
+    from repro_torch.ax.mul import MulSpec
+    from repro_torch.kernels.mul import mul_plain
+    a, b = _operands(8, None)
+    regs = {"a": a, "b": b, **{n: np.uint64(v) for n, v in
+                               CS.truncated_mul_masks(t).items()}}
+    for dest, op, srcs, fn in CS.truncated_mul_steps(t):
+        regs[dest] = fn(*(regs[x] for x in srcs)) & np.uint64(REGISTER)
+    want = ref_approx_mul(a, b, RefMulSpec("truncated", 8, t))
+    np.testing.assert_array_equal(regs["out"], want, err_msg=f"t={t}")
+    lanes = [torch.as_tensor(x.astype(np.int32)) for x in (a, b)]
+    np.testing.assert_array_equal(
+        mul_plain(*lanes, MulSpec("truncated", 8, t)).numpy(),
+        want.astype(np.int32))

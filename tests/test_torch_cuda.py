@@ -834,3 +834,57 @@ def test_cuda_conv2d_refuses_int64_past_2_31(cuda_device):
                           mul="truncated", **where)
         with pytest.raises(ValueError, match="2\\^8"):
             eng.conv2d(q, kernel)
+
+
+# -------------------------------- Table 1 and the Fig-6 design space --
+
+def test_exact_sweep_on_the_card_equals_the_cpu(cuda_device):
+    from repro_torch.ax import analytics as an
+    from repro_torch.core import hwcost
+    specs = an.design_space((8, 16, 32), max_lsm=12)[::5]
+    for cache in (False, True):
+        assert an.exact_error_metrics_sweep(specs, cache_tables=cache,
+                                            device=cuda_device) == \
+            an.exact_error_metrics_sweep(specs, cache_tables=cache,
+                                         device="cpu")
+    for spec in specs[::7]:
+        assert hwcost.report(spec, device=cuda_device) == \
+            hwcost.report(spec, device="cpu")
+    muls = an.mul_design_space((8,))
+    assert an.exact_mul_error_metrics_sweep(muls, device=cuda_device) == \
+        an.exact_mul_error_metrics_sweep(muls, device="cpu")
+
+
+@pytest.mark.parametrize("strategy", ["reference", "lut"])
+def test_monte_carlo_sweep_on_the_card_equals_the_cpu(cuda_device,
+                                                      strategy):
+    from repro_torch.core import metrics
+    sweep = list(specs.table1_specs())
+    card = metrics.simulate_error_metrics_sweep(
+        sweep, n_samples=300_000, chunk=110_000, strategy=strategy,
+        device=cuda_device)
+    cpu = metrics.simulate_error_metrics_sweep(
+        sweep, n_samples=300_000, chunk=110_000, strategy=strategy,
+        device="cpu")
+    for g, w in zip(card, cpu):
+        assert (g.med, g.nmed, g.error_rate, g.wce) == \
+            (w.med, w.nmed, w.error_rate, w.wce)
+        assert g.mred == pytest.approx(w.mred, rel=1e-12, abs=0)
+
+
+@pytest.mark.parametrize("strategy", ["reference", "lut"])
+def test_sum_on_the_card_is_one_launch_a_level(cuda_device, strategy):
+    from repro_torch.ax import make_engine
+    from repro_torch.numerics.fixed_point import FixedPointFormat
+    fmt = FixedPointFormat(16, 8)
+    spec = specs.AdderSpec("haloc_axa", 16, 8, 4)
+    q = torch.as_tensor(np.random.default_rng(3).integers(
+        fmt.min_int, fmt.max_int + 1, (4, 33, 100)).astype(np.int32))
+    counted = lut_k.lut_add if strategy == "lut" else add_k.approx_add
+    counted.launches = 0
+    got = make_engine(spec, fmt=fmt, strategy=strategy,
+                      device=cuda_device).sum(q, axis=-1)
+    assert counted.launches == 7
+    want = make_engine(spec, fmt=fmt, strategy=strategy, backend="torch",
+                       device="cpu").sum(q, axis=-1)
+    assert torch.equal(got.cpu(), want)

@@ -51,6 +51,14 @@ def test_import_and_cpu_pipeline_load_no_jax():
         "device='cpu')\n"
         "mac.matmul(np.ones((2, 3), np.int8), np.ones((3, 2), np.int8))\n"
         "mac.mul(np.ones(4, np.int32), np.ones(4, np.int32))\n"
+        "from repro_torch.ax.analytics import exact_error_metrics\n"
+        "from repro_torch.core import hwcost, metrics\n"
+        "from repro_torch.core.specs import AdderSpec\n"
+        "exact_error_metrics(AdderSpec('haloc_axa', 8, 4, 2), "
+        "device='cpu')\n"
+        "hwcost.report(AdderSpec('loa', 8, 4, 0), device='cpu')\n"
+        "metrics.simulate_error_metrics(AdderSpec('loa', 8, 4, 0), "
+        "n_samples=100, device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('LOADED', bad)\n"
