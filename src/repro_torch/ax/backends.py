@@ -27,8 +27,8 @@ primitives of :mod:`repro_torch.ax.mul`'s multipliers: the elementwise
 :meth:`Backend.conv2d` and both :meth:`Backend.matmul` paths (the
 exact-product int8 GEMM, and the MAC GEMM when a multiplier is given).
 The ``"torch"`` backend also runs :meth:`Backend.add_full`, the full
-(N+1)-bit sum of the error analysis (int64 lanes, N <= 62, on any
-device); the ``"cuda"`` backend raises for it, as the reference's
+(N+1)-bit sum of the error analysis (int64 lanes holding the uint64
+pattern, N <= 63, on any device); the ``"cuda"`` backend raises for it, as the reference's
 ``"jax"`` and Pallas backends do.
 The ``"torch"`` backend follows the reference's ``"jax"`` backend,
 every strategy included; the ``"cuda"`` backend's ``conv2d`` and
@@ -166,14 +166,15 @@ def broadcast_operands(a: torch.Tensor, b: torch.Tensor):
 
 
 #: Widest adder whose full (N+1)-bit sum :meth:`Backend.add_full` holds
-#: in int64 lanes.
-MAX_FULL_ADD_BITS = 62
+#: in int64 lanes: at N = 63 the sum reaches bit 63, and the lanes hold
+#: the bit pattern of the reference's uint64 value.
+MAX_FULL_ADD_BITS = 63
 
 
 def full_lanes(x: torch.Tensor) -> torch.Tensor:
     """Full-add operand lanes: int64 holding the N-bit unsigned value (a
     uint64 tensor, as numpy's uint64 containers arrive, is reinterpreted;
-    its values are below 2^62)."""
+    its values are below 2^63)."""
     if x.dtype == torch.uint64:
         return x.view(torch.int64)
     return x.to(torch.int64)
@@ -326,8 +327,12 @@ class TorchBackend(Backend):
 
     def add_full(self, a, b, spec, *, strategy="reference"):
         """The full (N+1)-bit sum on int64 lanes holding N-bit unsigned
-        values, on the operands' device; N <= 62, so that the sum fits
-        the lanes (the reference's uint64 containers reach N = 63)."""
+        values, on the operands' device; N <= 63.  At N = 63 the sum
+        wraps into the sign bit: the lanes hold the bit pattern of the
+        reference's uint64 sum (read it with ``.view(torch.uint64)`` or
+        numpy's ``.view(np.uint64)``).  Every right shift of the adders
+        and of the lut add reads an operand, below 2^63, so no shift
+        sees the wrapped bit."""
         if spec.n_bits > MAX_FULL_ADD_BITS:
             raise ValueError(
                 f"add_full runs int64 lanes, which hold the (N+1)-bit sum "

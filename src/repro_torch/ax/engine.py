@@ -15,6 +15,10 @@ approximate-arithmetic call site consumes.
     y = mac.conv2d(q, ((1, 3, 1), (3, 5, 3), (1, 3, 1)))  # 2D MAC conv
     z = mac.matmul(a8, b8)             # MAC GEMM, K tiles of 128
 
+A fault (``make_engine(..., fault=FaultSpec(...))``) is applied to every
+``add``, ``accumulate`` and ``filter_chain`` output bus, as in the
+reference; on the card it is plain torch after the kernel.
+
 Engines are frozen, hashable and cached.  ``backend=None`` is the
 ``"cuda"`` backend on ``torch.device("cuda")``; with no CUDA device that
 default raises and names the CPU spelling, ``backend="torch",
@@ -38,11 +42,16 @@ from repro_torch.ax.mul import (MAX_MUL_LUT_BITS, MacSpec, MulSpec,
                                 mul_lut_supported)
 from repro_torch.ax.registry import get_adder
 from repro_torch.core.specs import AdderSpec
+from repro_torch.kernels.accumulate import check_shift
 from repro_torch.numerics.fixed_point import (FixedPointFormat,
                                               container_to_signed,
                                               dequantize, quantize,
                                               signed_to_container)
+from repro_torch.obs import drift as _drift
+from repro_torch.obs import trace as _obs
 from repro_torch.obs.caches import register_lru as _register_lru
+from repro_torch.resilience.faults import (FaultSpec, apply_fault,
+                                          validate_fault)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +71,10 @@ class AxEngine:
         ``mul_signed`` run the multiplier alone, and ``conv2d`` and
         ``matmul`` route every product through it (with the adder on the
         accumulations).
+      fault: an injected hardware fault
+        (:class:`repro_torch.resilience.faults.FaultSpec`) applied to every
+        ``add``/``accumulate``/``filter_chain`` output bus, or ``None`` for
+        the healthy datapath.
     """
 
     spec: AdderSpec
@@ -70,6 +83,7 @@ class AxEngine:
     strategy: str
     device: torch.device
     mul_spec: Optional[MulSpec] = None
+    fault: Optional[FaultSpec] = None
 
     def tensor(self, x) -> torch.Tensor:
         """``x`` (tensor or array) as a tensor on the engine's device."""
@@ -79,13 +93,25 @@ class AxEngine:
 
     def add(self, a, b):
         """Elementwise approximate add mod 2^N on int32 N-bit containers."""
-        return self.backend.add(self.tensor(a), self.tensor(b), self.spec,
-                                strategy=self.strategy)
+        a, b = self.tensor(a), self.tensor(b)
+        if _obs._ENABLED:
+            with _obs.span("ax:add", kind=self.spec.kind,
+                           backend=self.backend.name):
+                out = self._faulted(self.backend.add(
+                    a, b, self.spec, strategy=self.strategy))
+            # A faulted datapath's error is no longer a function of the
+            # spec's delta table, so capture measures the actual output.
+            _drift.capture_add(self.spec, a, b,
+                               out=out if self.fault is not None else None)
+            return out
+        return self._faulted(self.backend.add(a, b, self.spec,
+                                              strategy=self.strategy))
 
     def add_full(self, a, b):
         """Full (N+1)-bit unsigned sum of N-bit unsigned operands, as int64
         lanes on the engine's device (error analysis; the ``"torch"``
-        backend, N <= 62).  numpy uint64 containers are taken as they
+        backend, N <= 63; at N = 63 the int64 lanes hold the uint64 sum's
+        bit pattern).  numpy uint64 containers are taken as they
         come."""
         return self.backend.add_full(self.tensor(a), self.tensor(b),
                                      self.spec, strategy=self.strategy)
@@ -94,20 +120,27 @@ class AxEngine:
         """Weighted fold of K stacked container terms mod 2^N in one
         backend dispatch.  ``weights`` are K static ints, multiplied
         exactly before the K-1 approximate adds."""
-        return self.backend.accumulate(self.tensor(terms), self.spec,
-                                       weights=weights,
-                                       strategy=self.strategy)
+        terms = self.tensor(terms)
+        out = self._faulted(self.backend.accumulate(
+            terms, self.spec, weights=weights, strategy=self.strategy))
+        if _obs._ENABLED:
+            _drift.capture_accumulate(self.spec, terms, weights, out)
+        return out
 
     def filter_chain(self, q, stages):
         """Chained separable-filter passes on signed containers: each
         :class:`FilterStage` taps the previous stage's output (replicate
         edges), folds the taps through one weighted approximate
         accumulation and applies its exact rounding shift.  One kernel
-        launch on the ``"cuda"`` backend."""
+        launch on the ``"cuda"`` backend; a fault lands once, on the
+        whole chain's output, as in the reference."""
         self._require_fmt("filter_chain")
-        return self.backend.filter_chain(self.tensor(q), self.spec,
-                                         tuple(stages),
-                                         strategy=self.strategy)
+        q, stages = self.tensor(q), tuple(stages)
+        out = self._faulted(self.backend.filter_chain(
+            q, self.spec, stages, strategy=self.strategy), signed=True)
+        if _obs._ENABLED:
+            _drift.capture_filter_chain(self.spec, q, stages, out)
+        return out
 
     def butterfly(self, a_re, a_im, b_re, b_im, w_re, w_im,
                   inverse: bool = False):
@@ -150,8 +183,12 @@ class AxEngine:
         on the ``"cuda"`` backend."""
         self._require_fmt("conv2d")
         ms = self._require_mul("conv2d")
-        return self.backend.conv2d(self.tensor(q), self.spec, ms, kernel,
-                                   shift=shift, strategy=self.strategy)
+        with _obs.span("ax:conv2d", kind=self.spec.kind, mul=ms.kind,
+                       backend=self.backend.name) if _obs._ENABLED \
+                else _obs._NOOP:
+            return self.backend.conv2d(self.tensor(q), self.spec, ms,
+                                       kernel, shift=shift,
+                                       strategy=self.strategy)
 
     def matmul(self, a, b, block=(128, 128, 128)):
         """int8 GEMM with approximate inter-K-tile accumulation
@@ -159,9 +196,13 @@ class AxEngine:
         engine (``mul_spec`` set and not exact) every product also runs
         the approximate multiplier.  One kernel launch on the ``"cuda"``
         backend."""
-        return self.backend.matmul(self.tensor(a), self.tensor(b), self.spec,
-                                   block=tuple(block), strategy=self.strategy,
-                                   mul_spec=self.mul_spec)
+        with _obs.span("ax:matmul", kind=self.spec.kind,
+                       backend=self.backend.name) if _obs._ENABLED \
+                else _obs._NOOP:
+            return self.backend.matmul(self.tensor(a), self.tensor(b),
+                                       self.spec, block=tuple(block),
+                                       strategy=self.strategy,
+                                       mul_spec=self.mul_spec)
 
     # --------------------------------------------------------- fixed point
 
@@ -178,15 +219,29 @@ class AxEngine:
         rounding right-shift.  ``qs`` stacks K signed int32 containers on
         axis 0, or is a sequence of K of one shape; on the ``"cuda"``
         backend one kernel launch reads each where it lies (a sequence
-        is never stacked)."""
+        is never stacked).
+
+        A faulted engine, or a call a drift monitor captures, takes the
+        reference's composition instead — mask, the stacked
+        :meth:`accumulate` (whose output bus the fault hits, before sign
+        extension), sign extension and the rounding shift — since the
+        one-launch fold has no seam between the fold and the sign
+        extension."""
         fmt = self._require_fmt("accumulate_signed")
         if isinstance(qs, (list, tuple)):
             terms = tuple(self.tensor(q) for q in qs)
         else:
             terms = self.tensor(qs).unbind(0)
-        return self.backend.accumulate_signed(terms, self.spec, fmt.n_bits,
-                                              weights=weights, shift=shift,
-                                              strategy=self.strategy)
+        if self.fault is None and not _drift.capturing():
+            return self.backend.accumulate_signed(
+                terms, self.spec, fmt.n_bits, weights=weights, shift=shift,
+                strategy=self.strategy)
+        check_shift(shift)
+        u = signed_to_container(torch.stack(terms), fmt)
+        s = container_to_signed(self.accumulate(u, weights), fmt)
+        if shift:
+            s = (s + (1 << (shift - 1))) >> shift
+        return s
 
     def scaled_add(self, qx, qy, wx: int = 1, wy: int = 1, shift: int = 0):
         """Two-term weighted fixed-point add, ``(wx*qx + wy*qy) >> shift``
@@ -248,6 +303,13 @@ class AxEngine:
                 kw["strategy"] = kw.get("backend", self.backend) \
                     .preferred_strategy(kw.get("spec", self.spec))
         return dataclasses.replace(self, **kw)
+
+    def _faulted(self, out, signed: bool = False):
+        """Apply the installed fault to an adder output bus (identity on
+        healthy engines — one ``is None`` test on the hot path)."""
+        if self.fault is None:
+            return out
+        return apply_fault(out, self.fault, self.spec.n_bits, signed=signed)
 
     def _require_fmt(self, what: str) -> FixedPointFormat:
         if self.fmt is None:
@@ -339,9 +401,10 @@ def resolve_device(backend: Backend, device=None) -> torch.device:
 def _make_engine_cached(spec: AdderSpec, fmt: Optional[FixedPointFormat],
                         backend: Backend, strategy: str,
                         device: torch.device,
-                        mul_spec: Optional[MulSpec]) -> AxEngine:
+                        mul_spec: Optional[MulSpec],
+                        fault: Optional[FaultSpec] = None) -> AxEngine:
     return AxEngine(spec=spec, fmt=fmt, backend=backend, strategy=strategy,
-                    device=device, mul_spec=mul_spec)
+                    device=device, mul_spec=mul_spec, fault=fault)
 
 
 _register_lru("ax.engine", _make_engine_cached)
@@ -372,18 +435,18 @@ def make_engine(spec: Union[AdderSpec, MacSpec, str],
         needs ``lsm_bits <= MAX_LUT_LSM_BITS``; on the ``"cuda"`` backend
         it covers the elementwise ``add`` only.
       device: where the engine's tensors live; ``None`` is the card.
-      fault: hardware fault injection is not ported yet; anything but
-        ``None`` raises ``NotImplementedError``.
+      fault: optional injected hardware fault
+        (:class:`repro_torch.resilience.faults.FaultSpec`), validated
+        against the adder width (out-of-range bit positions raise
+        ``ValueError`` here) and applied to every adder output bus.  A
+        faulted engine runs where a healthy one would: on the card unless
+        ``backend``/``device`` say otherwise.
       mul: optional approximate multiplier: a :class:`MulSpec`, a
         registered multiplier kind name (default knobs at 8 bits), or
         ``None`` for an adder-only engine.  With a multiplier the engine
         exposes ``mul``/``mul_signed``/``conv2d`` and its ``matmul``
         becomes a full approximate MAC.
     """
-    if fault is not None:
-        raise NotImplementedError(
-            "fault injection (repro.resilience) is not ported yet; "
-            "pass fault=None")
     strategy = resolve_strategy(strategy, fast)
     if isinstance(spec, MacSpec):
         if mul is not None:
@@ -406,8 +469,10 @@ def make_engine(spec: Union[AdderSpec, MacSpec, str],
         raise ValueError(
             f"no compilable LUT for {mul_spec.short_name} (n_bits > "
             f"{MAX_MUL_LUT_BITS}); use strategy='reference' or 'fused'")
+    validate_fault(fault, spec.n_bits, what=f"{spec.kind} adder bus")
     resolved = get_backend(backend)
     dev = resolve_device(resolved, device)
     if strategy == "auto":
         strategy = resolved.preferred_strategy(spec)
-    return _make_engine_cached(spec, fmt, resolved, strategy, dev, mul_spec)
+    return _make_engine_cached(spec, fmt, resolved, strategy, dev, mul_spec,
+                               fault)

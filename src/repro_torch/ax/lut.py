@@ -109,10 +109,21 @@ def compile_lut(spec: AdderSpec) -> np.ndarray:
     return _compile_canonical(_canonical(spec))
 
 
+def compile_lut_nocache(spec: AdderSpec) -> np.ndarray:
+    """Like :func:`compile_lut` but built transiently, NOT cached: the
+    fault injector (:mod:`repro_torch.resilience.faults`) corrupts a copy
+    of it, and building off-cache keeps the shared table (and its device
+    copies) clean."""
+    return _build_packed(_canonical(spec))
+
+
 @functools.lru_cache(maxsize=None)
 def _device_table(spec: AdderSpec, device: torch.device) -> torch.Tensor:
     table = compile_lut(spec)
     return torch.from_numpy(table.view(np.int16).copy()).to(device)
+
+
+_register_lru("ax.lut.device", _device_table)
 
 
 def device_table(spec: AdderSpec, device) -> torch.Tensor:
@@ -185,6 +196,9 @@ def _device_abs_error(spec: AdderSpec, device: torch.device) -> torch.Tensor:
         _abs_error_canonical(spec).astype(np.int32)).to(device)
 
 
+_register_lru("ax.lut.device_abs_error", _device_abs_error)
+
+
 def device_abs_error_table(spec: AdderSpec, device) -> torch.Tensor:
     """:func:`abs_error_table` as an int32 tensor on ``device``, uploaded
     once per (canonical spec, device): the Monte-Carlo lut strategy
@@ -232,7 +246,8 @@ def lut_gather_full(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor,
 def lut_add_full(a: torch.Tensor, b: torch.Tensor,
                  spec: AdderSpec) -> torch.Tensor:
     """Full (N+1)-bit approximate sum via the table, on int64 lanes holding
-    N-bit unsigned values (N <= 62), on any device."""
+    N-bit unsigned values (N <= 63: the high-part shifts read operands,
+    below 2^63), on any device."""
     return lut_gather_full(a, b, device_table(spec, a.device), spec)
 
 

@@ -231,6 +231,9 @@ def _device_mul_table(spec: MulSpec, device: torch.device) -> torch.Tensor:
     return _to_device(compile_mul_lut(spec), device)
 
 
+_register_lru("ax.mul.lut.device", _device_mul_table)
+
+
 def device_mul_table(spec: MulSpec, device) -> torch.Tensor:
     """:func:`compile_mul_lut` on ``device``: int16 holding the uint16
     pattern when ``2N <= 16``, else int32; built once per (canonical
@@ -242,6 +245,9 @@ def device_mul_table(spec: MulSpec, device) -> torch.Tensor:
 def _device_signed_table(spec: MulSpec,
                          device: torch.device) -> torch.Tensor:
     return _to_device(signed_mul_table(spec), device)
+
+
+_register_lru("ax.mul.lut.device_signed", _device_signed_table)
 
 
 def device_signed_table(spec: MulSpec, device) -> torch.Tensor:
@@ -271,6 +277,9 @@ def _device_signed_table16(spec: MulSpec,
     return torch.from_numpy(table).to(device)
 
 
+_register_lru("ax.mul.lut.device_signed16", _device_signed_table16)
+
+
 def device_signed_table16(spec: MulSpec, device) -> torch.Tensor:
     """:func:`signed_mul_table` as an int16 tensor on ``device`` (half the
     bytes: 128 KiB at N = 8); raises ``ValueError`` when an entry does not
@@ -282,6 +291,9 @@ def device_signed_table16(spec: MulSpec, device) -> torch.Tensor:
 def _device_tap_tables(spec: MulSpec, weights: Tuple[int, ...],
                        device: torch.device) -> torch.Tensor:
     return _to_device(tap_tables(spec, weights), device)
+
+
+_register_lru("ax.mul.lut.device_taps", _device_tap_tables)
 
 
 def device_tap_tables(spec: MulSpec, weights, device) -> torch.Tensor:

@@ -27,8 +27,9 @@ totals (int64 on the device, exact, so they equal the reference's float
 sums of integers), NMED follows MED, and the exhaustive and population
 reports group integer numerators by exact sum before an exactly-rounded
 :func:`math.fsum`.  The Monte-Carlo MRED is a float64 sum of ``ed /
-exact`` whose value depends on the order of the sum: the device's order
-differs from numpy's pairwise sum, by a relative 1e-12 at most.
+exact`` whose value depends on the order of the sum, so it is summed in
+numpy's own order (:func:`numpy_order_sum`): every report, MRED included,
+equals the reference's bit for bit.
 """
 
 from __future__ import annotations
@@ -185,8 +186,8 @@ def simulate_error_metrics(
 
     ``strategy`` picks the adder evaluation path (all bit-identical):
     ``"lut"`` replaces the per-sample bit-level emulation with one
-    delta-table gather.  MRED agrees with the reference to a relative
-    1e-12 (module docstring); the other metrics are equal.
+    delta-table gather.  Every metric equals the reference's bit for bit
+    (module docstring).
     """
     rng = rng or np.random.default_rng(seed)
     return _simulate([spec], n_samples, rng, chunk, strategy,
@@ -226,12 +227,65 @@ def _auto_chunk(n_specs: int, n_distinct_m: int, any_reference: bool,
     return int(max(min(chunk, _SWEEP_CHUNK_CAP), _SWEEP_CHUNK_FLOOR))
 
 
+#: The reduction block of numpy's float64 ``sum``: its iterator hands the
+#: add loop at most this many elements at a time (the ufunc buffer size),
+#: the loop sums each block pairwise, and the block totals are added left
+#: to right, starting from 0.0.
+NUMPY_SUM_BLOCK = 8192
+
+
+def pairwise_blocks(x: torch.Tensor):
+    """The pairwise totals of ``x``'s full 8192-element blocks, on its
+    device, in numpy's order, and the tail of ``x`` after them.
+
+    numpy's pairwise sum of a block halves it (at multiples of 8) down to
+    leaves of 128 elements; a leaf runs 8 accumulators left to right over
+    its 16 rows of 8 and combines them as ``((r0 + r1) + (r2 + r3)) +
+    ((r4 + r5) + (r6 + r7))``.  A full block is 64 leaves, so the leaves
+    are a ``(blocks, 64, 16, 8)`` view folded one row at a time, and the
+    halving is six levels of adjacent pairs.  Adds only, each rounded as
+    numpy rounds it: the totals are numpy's to the last bit."""
+    x = x.contiguous()
+    full = x.numel() // NUMPY_SUM_BLOCK
+    v = x[:full * NUMPY_SUM_BLOCK].view(full, 64, 16, 8)
+    acc = v[:, :, 0]
+    for i in range(1, 16):
+        acc = acc + v[:, :, i]
+    r = acc.unbind(-1)
+    t = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]))
+    while t.shape[1] > 1:
+        t = t[:, 0::2] + t[:, 1::2]
+    return t[:, 0], x[full * NUMPY_SUM_BLOCK:]
+
+
+def _fold_blocks(blocks, tail: np.ndarray) -> float:
+    """numpy's block fold: the block totals left to right from 0.0, then
+    the tail (under one block, so ``numpy.sum`` of it is its pairwise
+    total)."""
+    total = 0.0
+    for b in blocks:
+        total += b
+    if tail.size:
+        total += float(np.sum(tail))
+    return total
+
+
+def numpy_order_sum(x: torch.Tensor) -> float:
+    """``float(numpy.sum(x))`` for a 1-D float64 tensor, bit for bit: the
+    full blocks reduced on ``x``'s device, the tail summed by numpy on
+    the host (:func:`pairwise_blocks`)."""
+    blocks, tail = pairwise_blocks(x)
+    return _fold_blocks(blocks.cpu().tolist(), tail.cpu().numpy())
+
+
 def _simulate(specs, n_samples: int, rng: np.random.Generator, chunk: int,
               strategy: str, dev: torch.device) -> List[ErrorReport]:
     """THE Monte-Carlo loop: every spec on one operand stream.  The totals
-    stay on the device (int64 sums, counts and maxima, one float64 MRED
-    partial a chunk) and come back once; the MRED partials are added on
-    the host in chunk order, as the reference adds them."""
+    stay on the device (int64 sums, counts and maxima; a chunk's MRED as
+    its compacted ratios' block totals and tail, :func:`pairwise_blocks`)
+    and come back once; each chunk's MRED is folded as numpy folds it and
+    the chunks are added on the host in order, as the reference adds
+    them."""
     from repro_torch.ax import get_adder
     from repro_torch.ax.lut import device_abs_error_table, lut_index
     n_bits = specs[0].n_bits
@@ -241,9 +295,10 @@ def _simulate(specs, n_samples: int, rng: np.random.Generator, chunk: int,
     acc = {s: [zero, [], zero, zero] for s in specs}  # ed, red, err, wce
     for a, b in operand_stream(rng, n_samples, chunk, n_bits, dev):
         exact = a + b
-        exact_f = exact.to(torch.float64)
-        # P(exact == 0) is ~2^-2N; MRED skips those pairs.
-        pos = exact > 0
+        # P(exact == 0) is ~2^-2N; MRED skips those pairs, and sums the
+        # others compacted, as the reference's ed[nz] / exact[nz] does.
+        pos = torch.nonzero(exact > 0).squeeze(1)
+        exact_f = exact.index_select(0, pos).to(torch.float64)
         idx_by_m: Dict[int, torch.Tensor] = {}
         for s in specs:
             if use_lut[s]:
@@ -256,8 +311,8 @@ def _simulate(specs, n_samples: int, rng: np.random.Generator, chunk: int,
                 ed = _ed_lanes(a, b, s, strategy)
             st = acc[s]
             st[0] = st[0] + ed.sum()
-            st[1].append(torch.where(pos, ed.to(torch.float64) / exact_f,
-                                     0.0).sum())
+            st[1].append(pairwise_blocks(
+                ed.index_select(0, pos).to(torch.float64) / exact_f))
             st[2] = st[2] + torch.count_nonzero(ed)
             st[3] = torch.maximum(st[3], ed.max())
     out = []
@@ -267,8 +322,9 @@ def _simulate(specs, n_samples: int, rng: np.random.Generator, chunk: int,
         ints = torch.stack([ed, err, wce]).cpu().tolist()
         total_ed = float(ints[0])
         total_red = 0.0
-        for r in torch.stack(reds).cpu().tolist() if reds else ():
-            total_red += r
+        for blocks, tail in reds:
+            total_red += _fold_blocks(blocks.cpu().tolist(),
+                                      tail.cpu().numpy())
         out.append(ErrorReport(
             spec=s, n_samples=n_samples,
             med=total_ed / n_samples,

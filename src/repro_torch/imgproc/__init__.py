@@ -2,7 +2,8 @@
 workloads on the port's engines (the port of ``repro.imgproc``): eight
 operators whose every addition routes through an approximate adder, the
 plan compiler (``requant="stage"`` or ``"fused"``), the halo-aware tile
-streamer, the workload registry and the corpus runner.
+streamer, the workload registry, the corpus runner and the hardened
+double-buffered stream executor (``run_streaming``).
 
     from repro_torch.imgproc import compile_pipeline, run_corpus
 
@@ -15,8 +16,11 @@ from __future__ import annotations
 
 from repro_torch.imgproc.corpus import (  # noqa: F401
     CorpusResult,
+    StreamResult,
+    clear_golden_cache,
     format_table,
     run_corpus,
+    run_streaming,
     synthetic_batch,
 )
 from repro_torch.imgproc.ops import (  # noqa: F401

@@ -51,7 +51,9 @@ def make_image_engine(kind: Union[str, AdderSpec] = "haloc_axa",
     A bare kind name gets the paper's scaled partition at ``n_bits``
     (m = n/2, k = m/2 — the Fig-4 example at N=16).  The format's
     fractional split is re-derived per operator, so only the width
-    matters here."""
+    matters here.  ``fault`` injects a hardware defect
+    (:class:`repro_torch.resilience.faults.FaultSpec`) into every adder
+    output bus, validated against the datapath width."""
     if isinstance(kind, AdderSpec):
         n_bits = kind.n_bits
     if not (2 <= n_bits <= 30):
@@ -64,11 +66,13 @@ def make_image_engine(kind: Union[str, AdderSpec] = "haloc_axa",
 
 
 def _with_frac(ax: AxEngine, frac_bits: int) -> AxEngine:
-    """The cached engine with the operator's Q-format split."""
+    """The cached engine with the operator's Q-format split (the injected
+    fault, when present, rides along: each operator's engine runs the
+    same defective hardware)."""
     return make_engine(ax.spec,
                        fmt=FixedPointFormat(ax.spec.n_bits, frac_bits),
                        backend=ax.backend, strategy=ax.strategy,
-                       device=ax.device)
+                       device=ax.device, fault=ax.fault)
 
 
 def _q(img, e: AxEngine) -> torch.Tensor:

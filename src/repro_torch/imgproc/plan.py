@@ -23,6 +23,13 @@ Two requantization modes select what flows BETWEEN stages:
     pipe = compile_pipeline(("gaussian_blur", "sharpen", "downsample2x"),
                             kind="haloc_axa", requant="fused")
     out = pipe(batch)            # uint8 (B, H, W) in -> uint8 tensor out
+
+With telemetry on (:mod:`repro_torch.obs`) a call records a
+``plan:call`` span around ``stage:<name>`` spans and counts
+``plan.pixels_in``; a compile records ``plan:compile``.  On the
+``"cuda"`` backend a call records no drift (the counterpart of the
+reference's jit): a :class:`~repro_torch.resilience.degrade.DegradePolicy`
+watches a CPU shadow instead.
 """
 
 from __future__ import annotations
@@ -37,6 +44,10 @@ import torch
 
 from repro_torch.ax.backends import resolve_strategy
 from repro_torch.imgproc import ops as ops_lib
+from repro_torch.obs import drift as _drift
+from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import trace as _obs
+from repro_torch.obs.caches import register_lru as _register_lru
 
 #: One stage: an operator name, optionally with fixed keyword arguments.
 StageSpec = Union[str, Tuple[str, Dict[str, Any]]]
@@ -98,7 +109,25 @@ class CompiledPipeline:
     downs: Tuple[int, ...] = ()
 
     def __call__(self, imgs) -> torch.Tensor:
+        if _obs._ENABLED:
+            x = self.engine.tensor(imgs)
+            with _obs.span("plan:call", stages=self.stage_names,
+                           requant=self.requant,
+                           backend=self.engine.backend.name):
+                if self.engine.backend.name == "cuda":
+                    with _drift.suppressed():
+                        out = self.chain(x)
+                else:
+                    out = self.chain(x)
+            _metrics.counter("plan.pixels_in").inc(x.numel())
+            return out
         return self.chain(self.engine.tensor(imgs))
+
+    @property
+    def device(self) -> torch.device:
+        """Where the plan runs (the streaming runner stages batches
+        there)."""
+        return self.engine.device
 
     @property
     def stage_names(self) -> Tuple[str, ...]:
@@ -136,7 +165,13 @@ def _stage_chain(stages, ax) -> Callable:
     def chain(img):
         x = img
         for name, kw_items in stages:
-            x = ops_lib.get_operator(name).fn(x, ax, **dict(kw_items))
+            # The span labels each stage's drift capture.
+            if _obs._ENABLED:
+                with _obs.span(f"stage:{name}"):
+                    x = ops_lib.get_operator(name).fn(x, ax,
+                                                      **dict(kw_items))
+            else:
+                x = ops_lib.get_operator(name).fn(x, ax, **dict(kw_items))
         return x
 
     return chain
@@ -152,7 +187,11 @@ def _fused_chain(stages, ax) -> Callable:
     def chain(img):
         q = ax.tensor(img).to(torch.int32) << qforms[0].in_frac
         for i, ((name, kw_items), qf) in enumerate(zip(stages, qforms)):
-            q = qf.fn(q, ax, **dict(kw_items))
+            if _obs._ENABLED:
+                with _obs.span(f"stage:{name}", requant="fused"):
+                    q = qf.fn(q, ax, **dict(kw_items))
+            else:
+                q = qf.fn(q, ax, **dict(kw_items))
             f = qf.out_frac
             if i + 1 < len(qforms):
                 if f:
@@ -165,10 +204,23 @@ def _fused_chain(stages, ax) -> Callable:
 
 @functools.lru_cache(maxsize=None)
 def _compile_cached(stages, kind, backend_name, strategy, n_bits,
-                    requant, device) -> CompiledPipeline:
+                    requant, device, fault=None) -> CompiledPipeline:
+    with _obs.span("plan:compile", kind=str(kind), backend=backend_name,
+                   requant=requant,
+                   stages=tuple(n for n, _ in stages)) \
+            if _obs._ENABLED else _obs._NOOP:
+        return _compile_uncached(stages, kind, backend_name, strategy,
+                                 n_bits, requant, device, fault)
+
+
+_register_lru("imgproc.plan.compiled", _compile_cached)
+
+
+def _compile_uncached(stages, kind, backend_name, strategy, n_bits,
+                      requant, device, fault) -> CompiledPipeline:
     ax = ops_lib.make_image_engine(kind, backend=backend_name,
                                    strategy=strategy, n_bits=n_bits,
-                                   device=device)
+                                   device=device, fault=fault)
     qforms = [ops_lib.get_operator(name).qform for name, _ in stages]
     if requant == "fused":
         missing = [name for (name, _), qf in zip(stages, qforms)
@@ -201,26 +253,33 @@ def compile_pipeline(stages: Sequence[StageSpec],
     ``backend``/``device`` say otherwise.
 
     The result is cached by (stages, kind, backend, strategy, n_bits,
-    requant, device).  ``kind`` is a registered kind name or a full
-    :class:`~repro_torch.core.specs.AdderSpec`."""
+    requant, device, fault).  ``kind`` is a registered kind name or a
+    full :class:`~repro_torch.core.specs.AdderSpec` (what lets the
+    degradation ladder compile fallback plans at any (m, k)).  ``fault``
+    injects a hardware defect
+    (:class:`repro_torch.resilience.faults.FaultSpec`) into every adder
+    of the plan; it is validated (via ``make_engine``) before anything
+    compiles."""
     strategy = resolve_strategy(strategy, fast)
     check_requant(requant)
     ax = ops_lib.make_image_engine(kind, backend=backend, strategy=strategy,
                                    n_bits=n_bits, device=device,
                                    fault=fault)
     return _compile_cached(_norm_stages(stages), kind, ax.backend.name,
-                           ax.strategy, ax.spec.n_bits, requant, ax.device)
+                           ax.strategy, ax.spec.n_bits, requant, ax.device,
+                           fault)
 
 
 def run_pipeline(stages: Sequence[StageSpec], imgs, *,
                  kind="haloc_axa", backend: Optional[str] = None,
                  fast: bool = False, strategy: Optional[str] = None,
-                 requant: str = "stage", device=None) -> np.ndarray:
+                 requant: str = "stage", device=None,
+                 fault=None) -> np.ndarray:
     """One-shot convenience: compile (or fetch) the plan, run it, and
     return a host uint8 array."""
     pipe = compile_pipeline(stages, kind=kind, backend=backend, fast=fast,
                             strategy=strategy, requant=requant,
-                            device=device)
+                            device=device, fault=fault)
     return pipe(imgs).cpu().numpy()
 
 

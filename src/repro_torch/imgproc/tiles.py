@@ -18,6 +18,11 @@ core into one preallocated output.  Bit-identity is by construction:
     pipe = compile_pipeline(("gaussian_blur", "sharpen", "downsample2x"),
                             kind="haloc_axa", requant="fused")
     out = run_tiled(pipe, batch, tile=(256, 256))
+
+With telemetry on, a call records a ``tiles:dispatch`` span around one
+``tiles:tile`` span a region and counts ``tiles.dispatches`` and
+``tiles.tiles_dispatched``; the executor's ``raw`` attribute is the
+same loop with no hook at all, the baseline the overhead check times.
 """
 
 from __future__ import annotations
@@ -30,6 +35,10 @@ import numpy as np
 import torch
 
 from repro_torch.imgproc.plan import CompiledPipeline, compile_pipeline
+from repro_torch.obs import drift as _drift
+from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import trace as _obs
+from repro_torch.obs.caches import register_lru as _register_lru
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,20 +123,55 @@ def _compile_tiled_cached(pipe: CompiledPipeline, shape: Tuple[int, ...],
             for cs, co, cf in zip(cols.starts, cols.outs, cols.offs)]
     out_hw = (pipe.out_size(shape[-2]), pipe.out_size(shape[-1]))
 
-    def run(imgs) -> torch.Tensor:
+    def prepare(imgs):
         imgs = pipe.engine.tensor(imgs)
         if tuple(imgs.shape) != shape:
             raise ValueError(f"this tiled executor was compiled for shape "
                              f"{shape}; got {tuple(imgs.shape)}")
-        out = torch.empty(imgs.shape[:-2] + out_hw, dtype=torch.uint8,
-                          device=imgs.device)
+        return imgs, torch.empty(imgs.shape[:-2] + out_hw,
+                                 dtype=torch.uint8, device=imgs.device)
+
+    def raw(imgs) -> torch.Tensor:
+        imgs, out = prepare(imgs)
         for rs, ro, rf, cs, co, cf in grid:
             y = pipe.chain(imgs[..., rs:rs + rows.size, cs:cs + cols.size])
             out[..., ro:ro + rows.tile_out, co:co + cols.tile_out] = \
                 y[..., rf:rf + rows.tile_out, cf:cf + cols.tile_out]
         return out
 
+    def traced(imgs) -> torch.Tensor:
+        # Host-side spans: they measure enqueue time, never force a sync
+        # (that would serialize the streaming runner's overlap).
+        imgs, out = prepare(imgs)
+        with _obs.span("tiles:dispatch", tiles=len(grid), shape=shape):
+            for rs, ro, rf, cs, co, cf in grid:
+                with _obs.span("tiles:tile", row=ro, col=co):
+                    y = pipe.chain(imgs[..., rs:rs + rows.size,
+                                        cs:cs + cols.size])
+                out[..., ro:ro + rows.tile_out, co:co + cols.tile_out] = \
+                    y[..., rf:rf + rows.tile_out, cf:cf + cols.tile_out]
+        _metrics.counter("tiles.dispatches").inc()
+        _metrics.counter("tiles.tiles_dispatched").inc(len(grid))
+        return out
+
+    cuda = pipe.engine.backend.name == "cuda"
+
+    def run(imgs) -> torch.Tensor:
+        # One branch a call when telemetry is off; ``run.raw`` is the
+        # hook-free loop itself.
+        if not _obs._ENABLED:
+            return raw(imgs)
+        if cuda:
+            with _drift.suppressed():
+                return traced(imgs)
+        return traced(imgs)
+
+    run.raw = raw
+    run.device = pipe.engine.device
     return run
+
+
+_register_lru("imgproc.tiles.compiled", _compile_tiled_cached)
 
 
 def compile_tiled(pipe: CompiledPipeline, shape: Sequence[int],
@@ -135,9 +179,11 @@ def compile_tiled(pipe: CompiledPipeline, shape: Sequence[int],
                   halo: Optional[int] = None):
     """The cached tiled executor for ``pipe`` on ``shape``-shaped
     batches: ``uint8 (..., H, W) -> uint8`` tensor on the engine's
-    device.  ``tile`` is the output-tile extent in INPUT pixels;
-    ``halo`` overrides the per-side region overlap (default: the chain's
-    receptive-field radius; wider is valid and recomputes more)."""
+    device (on the card the launches are asynchronous: the streaming
+    runner overlaps them with the host).  ``tile`` is the output-tile
+    extent in INPUT pixels; ``halo`` overrides the per-side region
+    overlap (default: the chain's receptive-field radius; wider is valid
+    and recomputes more)."""
     return _compile_tiled_cached(pipe, tuple(shape), tuple(tile), halo)
 
 

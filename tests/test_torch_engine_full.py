@@ -4,9 +4,10 @@ device="cpu"``).
 
 - ``add_full`` — the full (N+1)-bit sum of the error analysis — equals
   the reference's ``numpy`` backend exhaustively at N=8 for every kind,
-  every valid (m, k) and every strategy, and on seeded operands at N=16,
-  32 and 62; the ``cuda`` backend refuses it, naming the spelling that
-  runs it on the card;
+  every valid (m, k) and every strategy, on seeded operands at N=16,
+  32 and 62, and at N=63, where the sum reaches bit 63 and the int64
+  lanes hold the reference's uint64 bit pattern; the ``cuda`` backend
+  refuses it, naming the spelling that runs it on the card;
 - ``sum`` (the log-depth tree of ``add_signed``) equals the reference's
   ``jax`` ``sum`` on odd lengths (zero padding) and along other axes;
 - ``residual_add``'s forward equals the reference's, and its backward is
@@ -86,16 +87,34 @@ def test_add_full_sampled_wide(n_bits, m, k):
                 err_msg=f"{spec} {strategy}")
 
 
-def test_add_full_refuses_n63_and_the_cuda_backend():
-    spec = AdderSpec("haloc_axa", 63, 10, 5)
-    eng = make_engine(spec, backend="torch", device=CPU)
-    with pytest.raises(ValueError, match="N <= 62"):
-        eng.add_full(np.zeros(2, np.uint64), np.zeros(2, np.uint64))
+@pytest.mark.parametrize("kind", registered_kinds())
+def test_add_full_n63_equals_reference_and_cuda_refuses(kind):
+    """At N = 63 the sum reaches bit 63: the int64 lanes hold the bit
+    pattern of the reference's uint64 sum, for operands with the top bit
+    set, every strategy."""
+    rng = np.random.default_rng(63)
+    top = np.uint64((1 << 63) - 1)
+    bit62 = np.uint64(1 << 62)
+    a = np.concatenate([rng.integers(0, 1 << 63, 3000, dtype=np.uint64)
+                        | bit62, np.array([top, top, 0, bit62], np.uint64)])
+    b = np.concatenate([rng.integers(0, 1 << 63, 3000, dtype=np.uint64)
+                        | bit62, np.array([top, 0, top, bit62], np.uint64)])
+    try:
+        spec = AdderSpec(kind, 63, 10, 5)
+    except ValueError:
+        spec = AdderSpec(kind, 63, 10, 0)
+    for strategy in STRATEGIES:
+        port, ref = _engines(spec, strategy)
+        want = ref.add_full(a, b)
+        assert want[:3000].min() >= np.uint64(1 << 63)  # past int64
+        got = port.add_full(a, b)
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy().view(np.uint64), want,
+                                      err_msg=f"{spec} {strategy}")
     zeros = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(NotImplementedError,
                        match="backend='torch', device='cuda'"):
-        get_backend("cuda").add_full(zeros, zeros,
-                                     AdderSpec("haloc_axa", 32, 10, 5))
+        get_backend("cuda").add_full(zeros, zeros, spec)
 
 
 @pytest.mark.parametrize("kind", ["haloc_axa", "loa", "eta", "accurate"])

@@ -1,8 +1,10 @@
 """The port's package boundary and device rules, and its fixed point.
 
 - ``repro_torch`` imports neither jax nor the ``repro`` package (checked
-  in a subprocess: other test files load jax into the same worker) and
-  no source file under ``src/repro_torch`` names them;
+  in a subprocess: other test files load jax into the same worker, with
+  telemetry on, a fault injected, a degrade policy and a stream) and no
+  source file under ``src/repro_torch`` (``obs``, ``resilience`` and
+  ``runtime`` included) names them;
 - a default engine asks for the card and raises without one, naming the
   explicit CPU spelling;
 - ``quantize`` and the container conversions equal ``repro``'s on the
@@ -59,6 +61,24 @@ def test_import_and_cpu_pipeline_load_no_jax():
         "hwcost.report(AdderSpec('loa', 8, 4, 0), device='cpu')\n"
         "metrics.simulate_error_metrics(AdderSpec('loa', 8, 4, 0), "
         "n_samples=100, device='cpu')\n"
+        "from repro_torch import obs\n"
+        "from repro_torch.imgproc import run_streaming\n"
+        "from repro_torch.resilience import FaultSpec, DegradePolicy\n"
+        "from repro_torch.resilience.harness import run_campaign\n"
+        "from repro_torch.runtime.straggler import StragglerConfig\n"
+        "obs.enable()\n"
+        "bad_pipe = compile_pipeline(('gaussian_blur', 'sharpen', "
+        "'downsample2x'), backend='torch', device='cpu', "
+        "fault=FaultSpec('stuck_at_1', (11,)))\n"
+        "pol = DegradePolicy(bad_pipe, min_samples=64, "
+        "ladder=(AdderSpec('accurate', 16),))\n"
+        "with obs.installed(obs.DriftMonitor(AdderSpec('haloc_axa', 16, 8, "
+        "4))):\n"
+        "    r = run_streaming(bad_pipe, [synthetic_batch(1, 16)] * 2, "
+        "degrade=pol, straggler=StragglerConfig())\n"
+        "assert len(r.outputs) == 2\n"
+        "obs.sync_span(out)\n"
+        "obs.disable()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('LOADED', bad)\n"
@@ -77,6 +97,9 @@ def test_sources_name_neither_jax_nor_repro():
         r"from\s+repro\s+import|import\s+repro\s*$)", re.M)
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    for sub in ("obs", "resilience", "runtime"):
+        scanned = [f for f in files if f.parent == PKG / sub]
+        assert len(scanned) >= 2, sub
     for path in files:
         text = path.read_text()
         assert not pattern.search(text), path
@@ -110,7 +133,12 @@ def test_backend_and_device_rules():
 def test_unported_options_raise():
     assert make_engine("haloc_axa", backend="torch", device="cpu",
                        strategy="lut").strategy == "lut"
-    with pytest.raises(NotImplementedError, match="fault"):
+    # fault injection is ported: a FaultSpec is taken, anything else is
+    # refused as the reference refuses it
+    from repro_torch.resilience.faults import FaultSpec
+    assert make_engine("haloc_axa", backend="torch", device="cpu",
+                       fault=FaultSpec("stuck_at_1", (3,))).fault.bits == (3,)
+    with pytest.raises(ValueError, match="FaultSpec or None"):
         make_engine("haloc_axa", backend="torch", device="cpu",
                     fault=object())
     spec = AdderSpec("haloc_axa", 16, 8, 4)

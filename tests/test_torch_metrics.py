@@ -3,8 +3,10 @@
 
 - ``simulate_error_metrics`` and its sweep draw the reference's operand
   stream: at 2 x 10^5 samples, both strategies and a chunk that splits
-  the stream, MED, ER, WCE and NMED equal the reference's, and MRED (a
-  float sum whose order differs) agrees to a relative 1e-12;
+  the stream, every metric equals the reference's, MRED (a float sum,
+  summed in numpy's order) included;
+- ``numpy_order_sum`` equals ``numpy.sum`` bit for bit at lengths that
+  cross its leaves and blocks, over 16 decades of magnitude;
 - ``_auto_chunk`` is the reference's rule;
 - ``exhaustive_error_metrics`` at N=8 and ``exhaustive_mul_error_metrics``
   at N=6 equal the reference's with ``==``.
@@ -39,10 +41,17 @@ def fields(report):
 
 
 def assert_mc_equal(got, want):
-    assert (got.n_samples, got.med, got.nmed, got.error_rate, got.wce,
-            got.exact) == (want.n_samples, want.med, want.nmed,
-                           want.error_rate, want.wce, want.exact), got.spec
-    assert got.mred == pytest.approx(want.mred, rel=1e-12, abs=0), got.spec
+    assert fields(got) == fields(want), got.spec
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 127, 128, 129, 8191, 8192, 8193,
+                               3 * 8192 + 5, 2_000_000])
+def test_numpy_order_sum_equals_numpy_sum(n):
+    rng = np.random.default_rng(n)
+    x = rng.random(n) * 10.0 ** rng.integers(-8, 8, n)
+    assert m.numpy_order_sum(torch.from_numpy(x)) == float(np.sum(x))
+    assert m.numpy_order_sum(torch.from_numpy(x)) == \
+        float(x.sum(dtype=np.float64))
 
 
 @pytest.mark.parametrize("strategy", ["reference", "lut"])
