@@ -165,6 +165,38 @@ after (its ``accumulate``, ``filter_chain``, ``approx_add`` and
    must name ``plan:call``, ``stage:*``, ``tiles:dispatch``,
    ``stream:dispatch`` and ``stream:drain``.
 
+The integrity and serving slice adds phase 4f, at full width, with the
+counts set to 0 just before its path and read just after (its launches
+of every kernel but ``butterfly`` join the ``kernels`` line):
+
+4f. (a) ``benchmarks/bench_serve.py``'s three simulated cells rebuilt
+   from ``repro_torch.serving`` equal ``BENCH_serve.json``'s ``sim``
+   records field for field; (b) ``Scheduler`` -> ``PlanExecutor`` of
+   ``pipe_blur_sharpen_down`` on the card, wall clock, 32 requests of
+   1024 x 1024 at 0.25x the calibrated capacity, guarded by a
+   ``LutScrubber`` patrolling the registry (host tables and device
+   copies) 4 MiB a run and ``CanarySuite``s on a lut engine with a
+   multiplier and on a reference engine: every request completes, each
+   output equals the plan called on the card, the first the CPU path,
+   no alarm; p50/p99, goodput, the device's idle share and the host ms
+   of one scrub run and one canary run; the same arrivals once more
+   under the default scrubber (a whole pass a run), its shed requests
+   printed; (c) a
+   stuck-at-1 burned into the live n16m8k4 device table: the canary
+   flags it at its first tick and trips a breaker that steps its
+   ``DegradePolicy``, the scrubber repairs the device entry in place,
+   the canary passes again; (d) ``detection_campaign(backend="cuda")``,
+   quick and full grids, equal to ``BENCH_faults.json``'s ten
+   ``fault_detection`` records; (e) ``AbftChecker`` over the 1024^3 GEMMs
+   (``approx_matmul`` n32m10k5, ``mac_matmul`` with n8t3 products) and
+   conv3x3 (n8t3, shift 2) on 4 x 1024^2, healthy and with a stuck bus
+   bit in one column or image, which alone is flagged and repaired
+   exactly; every verdict at a CPU-sized shape equal to the CPU path's;
+   each check's wall ms beside the unchecked call's; (f)
+   ``make_engine(..., strategy="lut", integrity=True)`` repairs a
+   flipped device-table cell before serving and raises ``IOError`` when
+   the rebuild disagrees with the golden.
+
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 run from a directory without ``src/repro_torch``, it exits non-zero and
@@ -2072,6 +2104,581 @@ def faults_phase(torch, np, dev, counts, card):
     return launches
 
 
+# ------------------------------------------------------------ phase 4f --
+
+#: The served cell: requests of one full-width ``synthetic_image``,
+#: Poisson arrivals at this share of the calibrated capacity.
+SERVE_PIPELINE = "pipe_blur_sharpen_down"
+SERVE_REQUESTS, SERVE_LOAD, SERVE_DEADLINE_S = 32, 0.25, 2.0
+#: The watchdogs' cadence on the served stream, wall seconds: short
+#: enough to run several times in a stream of a few tenths of a second.
+#: They run on the serving thread, so the scrubber patrols the whole
+#: registry a slice of ``SERVE_SCRUB_SLICE`` bytes a run: a whole pass
+#: (hundreds of tables by phase 4f, the Table-1 tables of phase 4d among
+#: them) blocks the loop longer than the interval.  The default
+#: scrubber, a whole pass a run, serves the same stream once more, and
+#: its shed requests are printed.
+WATCHDOG_INTERVAL_S = 0.03
+SERVE_SCRUB_SLICE = 4 << 20
+#: The kernels phase 4f's path runs: every one but ``butterfly``.
+INTEGRITY_PATH_KERNELS = ("accumulate", "filter_chain", "approx_add",
+                          "lut_add", "mul", "mac_matmul", "conv2d_mac",
+                          "approx_matmul")
+#: ``benchmarks/bench_serve.py``'s simulated cells at its quick
+#: parameters: (mix, load_x, cell knobs).
+SIM_CELLS = (("uncontended", 0.2, dict(n=120, seed=3)),
+             ("overload", 2.0, dict(n=400, seed=4, depth=12,
+                                    backlog_s=0.010)),
+             ("breaker", 0.5, dict(n=60, seed=5, fail_first=2)))
+#: A served record's provenance fields (not results).
+SERVE_PROVENANCE = ("host_platform", "jax_version", "device_kind")
+#: The ABFT cross-check against the CPU path, at shapes it runs in
+#: seconds: (M, K) @ (K, N) and a (B, H, W) conv batch.
+ABFT_CPU_GEMM = ((96, 512), (512, 80))
+ABFT_CPU_IMAGES = (2, 96, 128)
+#: The injected output faults ABFT must catch: a stuck bus bit in one
+#: GEMM column, and one in every pixel of one conv image.
+ABFT_COL, ABFT_COL_BIT = 3, 19
+ABFT_IMAGE, ABFT_IMAGE_BIT, ABFT_SHIFT = 1, 12, 2
+
+
+def sim_serve_cell(name, load_x, n, seed, depth=64, backlog_s=float("inf"),
+                   fail_first=0):
+    """``benchmarks/bench_serve.py``'s ``_sim_cell`` on the port: a
+    seeded virtual-clock traffic cell at ``load_x`` times the simulated
+    executor's capacity."""
+    from repro_torch import serving as sv
+    pix_per_s = 1e6
+    mix = sv.TrafficMix(name, rate_rps=1.0, sizes=(32, 64),
+                        size_weights=(0.8, 0.2), deadline_s=0.05)
+    mix = sv.TrafficMix(name, rate_rps=load_x * pix_per_s / mix.mean_pixels,
+                        sizes=mix.sizes, size_weights=mix.size_weights,
+                        deadline_s=mix.deadline_s)
+    clk = sv.VirtualClock()
+    ex = sv.SimExecutor(clk, pix_per_s=pix_per_s, fail_first=fail_first)
+    breaker = sv.CircuitBreaker(sv.BreakerConfig(
+        failure_threshold=2, cooldown_s=0.005)) if fail_first else None
+    sched = sv.Scheduler(
+        ex, clock=clk, estimator=sv.CostEstimator(pix_per_s=pix_per_s),
+        admission=sv.AdmissionConfig(max_depth=depth,
+                                     max_backlog_s=backlog_s),
+        batching=sv.BatcherConfig(max_batch=4, max_wait_s=0.002),
+        config=sv.SchedulerConfig(max_retries=2, backoff_s=0.001),
+        breaker=breaker)
+    return sv.run_traffic(sched, sv.make_arrivals(mix, n=n, seed=seed),
+                          name)
+
+
+def committed_serve_records():
+    """``BENCH_serve.json``'s simulated records by mix, provenance
+    dropped."""
+    recs = json.loads((ROOT / "BENCH_serve.json").read_text())
+    sim = {r["mix"]: {k: v for k, v in r.items()
+                      if k not in SERVE_PROVENANCE}
+           for r in recs if r["backend"] == "sim"}
+    check(set(sim) == {c[0] for c in SIM_CELLS},
+          f"BENCH_serve.json's sim records: {sorted(sim)}")
+    return sim
+
+
+def committed_detection_records():
+    """``BENCH_faults.json``'s ten ``fault_detection`` records by (grid,
+    detector, kind, fault)."""
+    recs = json.loads((ROOT / "BENCH_faults.json").read_text())
+    det = {(r["grid"], r["detector"], r["kind"], r["fault"]): r
+           for r in recs if r["op"] == "fault_detection"}
+    check(len(det) == 10, f"BENCH_faults.json: {len(det)} fault_detection "
+          f"records, 10 expected")
+    return det
+
+
+def serving_stack(torch, dev, ex, est, clk, slice_bytes=SERVE_SCRUB_SLICE):
+    """A Scheduler over ``ex`` on the wall clock ``clk``, guarded by the
+    integrity watchdogs on the card: a scrubber of the whole registry,
+    host tables and the device copies the kernels gather from,
+    ``slice_bytes`` a run (``None``: all of it), and canaries on a lut
+    engine with the truncated n8t3 multiplier (``lut_add``, ``mul``) and
+    on a reference-strategy engine (``approx_add``), every alarm feeding
+    a breaker that steps a ``DegradePolicy``.  Returns (scheduler,
+    watchdogs)."""
+    from repro_torch import serving as sv
+    from repro_torch.ax import make_engine
+    from repro_torch.ax.mul import MulSpec
+    from repro_torch.integrity import CanarySuite, LutScrubber
+    from repro_torch.resilience import DegradePolicy
+    spec = spec_at("haloc_axa", 16)
+    breaker = sv.CircuitBreaker(
+        policy=DegradePolicy(ex.plan(SERVE_PIPELINE)))
+    kw = dict(interval_s=WATCHDOG_INTERVAL_S, clock=clk, breaker=breaker)
+    watchdogs = (
+        LutScrubber(slice_bytes=slice_bytes, **kw),
+        CanarySuite(make_engine(spec, strategy="lut",
+                                mul=MulSpec("truncated", 8, 3)), **kw),
+        CanarySuite(make_engine(spec), **kw))
+    sched = sv.Scheduler(
+        ex, clock=clk, estimator=est,
+        admission=sv.AdmissionConfig(max_depth=64, max_backlog_s=1.0),
+        batching=sv.BatcherConfig(max_batch=4, max_wait_s=0.002),
+        breaker=breaker, integrity=watchdogs)
+    return sched, watchdogs
+
+
+def serve_on_card(torch, np, dev):
+    """(b): the compiled plan behind the Scheduler on the card, on the
+    wall clock: capacity calibrated after a warm-up call, then
+    ``SERVE_REQUESTS`` full-width requests at ``SERVE_LOAD`` of it."""
+    from repro_torch import serving as sv
+    from repro_torch.image.pipeline import synthetic_image
+    ex = sv.PlanExecutor.compile((SERVE_PIPELINE,))
+    clk = sv.WallClock()
+    est = sv.CostEstimator()
+    pix_per_s = est.calibrate(ex, synthetic_image(FULL_SIZE, seed=0),
+                              SERVE_PIPELINE, clk)
+    mix = sv.TrafficMix("card_lowload",
+                        rate_rps=SERVE_LOAD * pix_per_s / FULL_SIZE ** 2,
+                        sizes=(FULL_SIZE,), deadline_s=SERVE_DEADLINE_S)
+    arrivals = sv.make_arrivals(mix, n=SERVE_REQUESTS, seed=0)
+    sched, watchdogs = serving_stack(torch, dev, ex, est, clk)
+    report = sv.run_traffic(sched, arrivals, mix.name)
+    return dict(ex=ex, pix_per_s=pix_per_s, mix=mix, arrivals=arrivals,
+                report=report, sched=sched, watchdogs=watchdogs)
+
+
+def close_the_loop(torch, np, dev):
+    """(c): a stuck-at-1 at bit m/2 burned into the live device table of
+    a lut engine; its canary flags it at the first tick and trips a
+    breaker (which steps its policy), the scrubber finds the device entry
+    and repairs it in place, and the canary passes again."""
+    from repro_torch import serving as sv
+    from repro_torch.ax import make_engine
+    from repro_torch.ax.lut import _canonical, device_table
+    from repro_torch.imgproc import PIPELINES, compile_pipeline
+    from repro_torch.integrity import CanarySuite, LutScrubber
+    from repro_torch.resilience import DegradePolicy, FaultSpec, corrupt_lut
+    spec = spec_at("haloc_axa", 16)
+    eng = make_engine(spec, strategy="lut")
+    clk = sv.VirtualClock()
+    policy = DegradePolicy(compile_pipeline(PIPELINES[SERVE_PIPELINE]))
+    breaker = sv.CircuitBreaker(policy=policy)
+    canary = CanarySuite(eng, interval_s=1.0, clock=clk, breaker=breaker)
+    live = device_table(spec, dev)
+    golden, ptr = live.clone(), live.data_ptr()
+    fault = FaultSpec("stuck_at_1", bits=(spec.lsm_bits // 2,))
+    bad = corrupt_lut(spec, fault)
+    live.copy_(torch.from_numpy(bad.view(np.int16).copy()))
+    clk.advance(1.0)
+    first = canary.maybe_run()
+    scrub = LutScrubber(clock=clk, cache="ax.lut.device").scrub_once()
+    label = ("ax.lut.device", repr((_canonical(spec), dev)))
+    return dict(fault=fault, first=first, breaker=breaker, policy=policy,
+                scrub=scrub, label=label, in_place=live.data_ptr() == ptr,
+                repaired=torch.equal(live, golden),
+                again=canary.run_once(), eng=eng)
+
+
+def abft_cases():
+    """(label, ``make_engine`` arguments, GEMM block or None for conv2d)
+    of ABFT's checks: the two GEMM paths at n32m10k5 and conv3x3's engine
+    (n16m8k4, truncated n8t3)."""
+    from repro_torch.ax.mul import MulSpec
+    from repro_torch.numerics.fixed_point import FixedPointFormat
+    n8t3 = MulSpec("truncated", 8, 3)
+    spec32 = spec_at("haloc_axa", 32)
+    block = (GEMM_BK, GEMM_BK, GEMM_BK)
+    return (("approx_matmul", dict(spec=spec32), block),
+            ("mac_matmul", dict(spec=spec32, mul=n8t3), block),
+            ("conv2d_mac", dict(spec=spec_at("haloc_axa", 16), mul=n8t3,
+                                fmt=FixedPointFormat(16, 0)), None))
+
+
+def abft_verdicts(torch, a, b, q, **where):
+    """Healthy and faulted verdicts of ``AbftChecker`` on each engine of
+    :func:`abft_cases`: (label, healthy, faulted, faulted output)."""
+    from repro_torch.ax import make_engine
+    from repro_torch.imgproc.workloads import CONV3X3_KERNEL
+    from repro_torch.integrity import AbftChecker
+    out = []
+    for label, kw, block in abft_cases():
+        eng = make_engine(**kw, **where)
+        ck = AbftChecker(eng)
+        if block is not None:
+            healthy = ck.matmul(a, b, block=block)
+            bad = eng.matmul(a, b, block=block).clone()
+            bad[:, ABFT_COL] |= 1 << ABFT_COL_BIT
+            faulted = ck.verify_matmul(bad, a, b, block=block)
+        else:
+            healthy = ck.conv2d(q, CONV3X3_KERNEL, shift=ABFT_SHIFT)
+            bad = eng.conv2d(q, CONV3X3_KERNEL, shift=ABFT_SHIFT).clone()
+            bad[ABFT_IMAGE] |= 1 << ABFT_IMAGE_BIT
+            faulted = ck.verify_conv2d(bad, q, CONV3X3_KERNEL,
+                                       shift=ABFT_SHIFT)
+        out.append((label, healthy, faulted, bad))
+    return out
+
+
+def load_with_integrity(torch, np, dev):
+    """(f): ``make_engine(..., strategy="lut", integrity=True)`` on the
+    card repairs a corrupted device-table cell before the first add, and
+    raises ``IOError`` when the rebuild disagrees with the golden."""
+    from repro_torch.ax import make_engine
+    from repro_torch.ax.lut import _canonical, device_table
+    from repro_torch.integrity import golden_entries, verify_entry
+    from repro_torch.integrity.digests import record_golden
+    spec = spec_at("haloc_axa", 32)
+    live = device_table(spec, dev)
+    golden = live.clone()
+    flat = live.view(-1)
+    flat[12345] ^= 1 << 2
+    eng = make_engine(spec, strategy="lut", integrity=True)
+    repaired = torch.equal(live, golden)
+    key = (_canonical(spec), dev)
+    entry = next(e for e in golden_entries("ax.lut.device") if e.key == key)
+    record_golden(entry.cache, key, live, lambda: torch.zeros_like(live),
+                  pattern=entry.pattern, digest=entry.digest)
+    flat[12345] ^= 1 << 2
+    try:
+        make_engine(spec, strategy="lut", integrity=True)
+        refused = None
+    except IOError as exc:
+        refused = str(exc)
+    finally:
+        flat[12345] ^= 1 << 2
+        record_golden(entry.cache, key, live, entry.rebuild,
+                      pattern=entry.pattern, digest=entry.digest)
+    healthy = verify_entry(next(e for e in golden_entries("ax.lut.device")
+                                if e.key == key))
+    return dict(eng=eng, repaired=repaired, refused=refused,
+                healthy=healthy)
+
+
+def drive_integrity_path(torch, np, dev, a8, b8, gbatch):
+    """Phase 4f's path through the entry points a user calls: (a) the
+    simulated serving cells, (b) the Scheduler serving the compiled plan
+    on the card under its watchdogs, (c) the corrupt-detect-repair loop
+    on a device table, (d) the detection campaign's quick and full grids
+    on the card, (e) ABFT over the full-width GEMMs and conv3x3, healthy
+    and faulted, and (f) an engine load with ``integrity=True``."""
+    from repro_torch.resilience.harness import detection_campaign
+    out = {"sim": {name: sim_serve_cell(name, load_x, **kw).record(
+        load_x=load_x, backend="sim", kind="haloc_axa")
+        for name, load_x, kw in SIM_CELLS}}
+    out["serve"] = serve_on_card(torch, np, dev)
+    out["loop"] = close_the_loop(torch, np, dev)
+    out["detect"] = (detection_campaign(quick=True, backend="cuda")
+                     + detection_campaign(quick=False, backend="cuda"))
+    out["abft"] = abft_verdicts(torch, a8, b8, gbatch.to(torch.int32))
+    out["load"] = load_with_integrity(torch, np, dev)
+    return out
+
+
+def check_served(torch, np, serve):
+    """(b): every request completed, each output equals the plan called
+    directly on the card on its image, the first equals the CPU path, and
+    the watchdogs ran several times with no alarm."""
+    from repro_torch import serving as sv
+    from repro_torch.imgproc import PIPELINES, compile_pipeline
+    rep = serve["report"]
+    scrubber, *canaries = serve["watchdogs"]
+    reasons = sorted({(type(o).__name__, getattr(o, "reason", ""))
+                      for o in rep.outcomes if not o.ok})
+    check(len(rep.completed) == SERVE_REQUESTS == rep.offered,
+          f"served stream: {rep.summary()}; {rep.seconds:.3f} s makespan; "
+          f"not completed: {reasons}; {scrubber}, {canaries}, "
+          f"{serve['sched'].breaker}")
+    pipe = serve["ex"].plan(SERVE_PIPELINE)
+    for o in rep.completed:
+        img = torch.from_numpy(o.request.image[None]).to(pipe.device)
+        check(isinstance(o.output, np.ndarray) and np.array_equal(
+            o.output, pipe(img).cpu().numpy()[0]),
+            f"served request {o.rid}: the output differs from the plan "
+            f"called on the card")
+    first = min(rep.completed, key=lambda o: o.request.arrival)
+    cpu = compile_pipeline(PIPELINES[SERVE_PIPELINE], backend="torch",
+                           device="cpu")(first.request.image[None])
+    check(np.array_equal(first.output, cpu.numpy()[0]),
+          "served request: the first output differs from the CPU path")
+    check(scrubber.runs >= 2 and all(c.runs >= 2 for c in canaries),
+          f"watchdogs ran too rarely: {scrubber}, {canaries}")
+    check(scrubber.corruptions == 0 and all(c.failures == 0
+                                            for c in canaries)
+          and serve["sched"].breaker.trips == 0,
+          f"watchdog alarms on a healthy stream: {scrubber}, {canaries}, "
+          f"{serve['sched'].breaker}")
+    check(all(isinstance(o, sv.Completed) for o in rep.outcomes),
+          f"served stream outcomes: {rep.summary()}")
+
+
+def check_loop(torch, np, loop):
+    """(c): flagged at the first tick, tripped, found on the card and
+    repaired in place, then clean again and equal to the delta-table
+    predictions."""
+    from repro_torch import serving as sv
+    from repro_torch.integrity import expected_add_outputs, make_probe
+    first, scrub = loop["first"], loop["scrub"]
+    check(first is not None and first.add_mismatches > 0,
+          f"the canary missed {loop['fault'].short_name} burned into the "
+          f"device table: {first}")
+    check(loop["breaker"].state == sv.OPEN and loop["breaker"].trips == 1
+          and loop["policy"].level == 1,
+          f"the canary's alarm did not trip the breaker and step its "
+          f"policy: {loop['breaker']}")
+    check(loop["label"] in scrub.corrupted and loop["label"]
+          in scrub.repaired and not scrub.unrepaired,
+          f"the scrubber did not find and repair the device table: "
+          f"{scrub.corrupted} / {scrub.repaired}")
+    check(loop["in_place"] and loop["repaired"],
+          "the device table was not repaired in place")
+    check(loop["again"].ok, f"the canary fails after repair: "
+          f"{loop['again']}")
+    eng = loop["eng"]
+    a, b = make_probe(eng.spec.n_bits, n=1 << 16, seed=9)
+    got = eng.add(torch.from_numpy(a.astype(np.int32)).to(eng.device),
+                  torch.from_numpy(b.astype(np.int32)).to(eng.device))
+    check(np.array_equal(got.cpu().numpy().astype(np.uint64) & 0xFFFF,
+                         expected_add_outputs(eng.spec, a, b)),
+          "engine.add after the repair differs from the delta table")
+
+
+def check_detection(records):
+    """(d): the quick and full grids on the card equal
+    ``BENCH_faults.json``'s ten records, ``backend`` aside."""
+    want = committed_detection_records()
+    fields = ("detected", "cells", "coverage", "detection_latency_s",
+              "false_positive_rate")
+    check(len(records) == len(want), f"{len(records)} detection records")
+    for r in records:
+        w = want[(r["grid"], r["detector"], r["kind"], r["fault"])]
+        check(r["backend"] == "cuda"
+              and all(r[f] == w[f] for f in fields),
+              f"fault_detection {r['grid']}/{r['detector']}/{r['fault']}: "
+              f"the card gives {[r[f] for f in fields]}, BENCH_faults.json "
+              f"{[w[f] for f in fields]}")
+
+
+def exact_conv(np, img, kernel, shift):
+    """The exact integer conv of one image, edges replicated, rounded
+    right by ``shift`` (numpy, int64)."""
+    x = np.asarray(img).astype(np.int64)
+    h, w = x.shape
+    p = np.pad(x, 1, mode="edge")
+    acc = np.zeros((h, w), dtype=np.int64)
+    for r, row in enumerate(kernel):
+        for c, wt in enumerate(row):
+            acc += wt * p[r:r + h, c:c + w]
+    return (acc + (1 << (shift - 1))) >> shift if shift else acc
+
+
+def check_abft(torch, np, verdicts, a8, b8, batch):
+    """(e): the healthy checks pass; the faulted column or image, and
+    only it, is flagged and repaired to the exact result."""
+    from repro_torch.imgproc.workloads import CONV3X3_KERNEL
+    a64, b64 = a8.to(torch.int64), b8.to(torch.int64)
+    for label, healthy, faulted, bad in verdicts:
+        check(healthy.ok, f"ABFT flags the healthy {label}: {healthy}")
+        if label == "conv2d_mac":
+            check(faulted.flagged_rows == (ABFT_IMAGE,) and not faulted.ok,
+                  f"ABFT {label}: flagged {faulted.flagged_rows}")
+            want = exact_conv(np, batch[ABFT_IMAGE], CONV3X3_KERNEL,
+                              ABFT_SHIFT)
+            got = faulted.out[ABFT_IMAGE].cpu().numpy()
+            others = [i for i in range(len(batch)) if i != ABFT_IMAGE]
+            check(np.array_equal(got, want) and torch.equal(
+                faulted.out[others], bad[others]),
+                f"ABFT {label}: image {ABFT_IMAGE} not repaired exactly")
+        else:
+            check(faulted.flagged_cols == (ABFT_COL,) and not faulted.ok,
+                  f"ABFT {label}: flagged columns {faulted.flagged_cols} "
+                  f"rows {faulted.flagged_rows}")
+            exact = (a64 * b64[:, ABFT_COL]).sum(1)
+            check(torch.equal(faulted.out[:, ABFT_COL].to(torch.int64),
+                              exact),
+                  f"ABFT {label}: column {ABFT_COL} not repaired to the "
+                  f"exact product")
+
+
+def check_abft_cpu(torch, np):
+    """(e): at a shape the CPU runs in seconds, every verdict on the card
+    (out, flags, max_deviation, budget) equals the CPU path's."""
+    rng = np.random.default_rng(21)
+    (m, k), (_, n) = ABFT_CPU_GEMM
+    a = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    b = rng.integers(-128, 128, (k, n)).astype(np.int8)
+    q = rng.integers(0, 256, ABFT_CPU_IMAGES).astype(np.int32)
+    card = abft_verdicts(torch, a, b, q)
+    cpu = abft_verdicts(torch, a, b, q, backend="torch", device="cpu")
+    for (label, *gv), (_, *wv) in zip(card, cpu):
+        for g, w in zip(gv[:2], wv[:2]):
+            check(g.out.device.type == "cuda"
+                  and torch.equal(g.out.cpu(), w.out)
+                  and (g.ok, g.flagged_rows, g.flagged_cols,
+                       g.max_deviation, g.budget)
+                  == (w.ok, w.flagged_rows, w.flagged_cols,
+                      w.max_deviation, w.budget),
+                  f"ABFT {label} at {ABFT_CPU_GEMM} / {ABFT_CPU_IMAGES}: "
+                  f"the card's verdict {g} differs from the CPU path's {w}")
+    return len(card)
+
+
+def time_abft(torch, a8, b8, q):
+    """Wall ms (median of 10, synchronized) of each kernel call alone,
+    its verify on that output, and the checked call."""
+    from repro_torch.ax import make_engine
+    from repro_torch.imgproc.workloads import CONV3X3_KERNEL
+    from repro_torch.integrity import AbftChecker
+    rows = []
+    for label, kw, block in abft_cases():
+        eng = make_engine(**kw)
+        ck = AbftChecker(eng)
+        if block is not None:
+            args, kwargs = (a8, b8), dict(block=block)
+            call, verify, checked = eng.matmul, ck.verify_matmul, ck.matmul
+        else:
+            args, kwargs = (q, CONV3X3_KERNEL), dict(shift=ABFT_SHIFT)
+            call, verify, checked = eng.conv2d, ck.verify_conv2d, ck.conv2d
+        out = call(*args, **kwargs)
+        rows.append((label, *(time_wall(torch, lambda: fn(*a, **kwargs))
+                              * 1e3 for fn, a in
+                              ((call, args), (verify, (out,) + args),
+                               (checked, args)))))
+    return rows
+
+
+def time_watchdogs(torch, serve):
+    """Host ms (median of 5) of one run of the served stack's scrubber
+    (one slice), of a scrub of the lut kernels' device tables and of the
+    whole registry, and of one run of each canary; the registry's
+    entries and their bytes."""
+    from repro_torch.integrity import LutScrubber, golden_entries
+    scrubber, *canaries = serve["watchdogs"]
+    out = {}
+    for name, fn in [
+            (f"scrub a {SERVE_SCRUB_SLICE >> 20} MiB slice",
+             scrubber.scrub_once),
+            ("scrub ax.lut.device",
+             LutScrubber(cache="ax.lut.device").scrub_once),
+            ("scrub whole registry", LutScrubber().scrub_once)] + [
+            (f"canary {c.engine.spec.short_name} {c.engine.strategy}"
+             + (f" + {c.engine.mul_spec.short_name}"
+                if c.engine.mul_spec is not None else ""), c.run_once)
+            for c in canaries]:
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        out[name] = sorted(ts)[2] * 1e3
+    entries = golden_entries()
+    nbytes = sum(int(e.table.numel() * e.table.element_size())
+                 if hasattr(e.table, "element_size") else e.table.nbytes
+                 for e in entries)
+    on_card = sum(1 for e in entries if getattr(e.table, "is_cuda", False))
+    return out, len(entries), on_card, nbytes
+
+
+def integrity_phase(torch, np, dev, counts, card, a8, b8, gbatch, batch):
+    """Phase 4f: integrity and serving at full width on the card, held
+    against ``BENCH_serve.json``, ``BENCH_faults.json``, the direct plan
+    call and the CPU path; returns the launches of the path."""
+    from repro_torch import serving as sv
+    out, launches = run_counted(
+        torch, counts, INTEGRITY_PATH_KERNELS,
+        lambda: drive_integrity_path(torch, np, dev, a8, b8, gbatch),
+        "integrity and serving path")
+
+    want = committed_serve_records()
+    for name, rec in out["sim"].items():
+        check(rec == want[name], f"serve_traffic {name}: the port gives "
+              f"{rec}, BENCH_serve.json {want[name]}")
+    log(f"  (a) the {len(out['sim'])} simulated serving cells equal "
+        f"BENCH_serve.json's sim records field for field: "
+        + "; ".join(f"{n} p99 {r['p99_ms']:.3f} ms, goodput "
+                    f"{r['goodput_mpix_per_s']:.4f}"
+                    for n, r in out["sim"].items()))
+
+    serve = out["serve"]
+    check_served(torch, np, serve)
+    rep = serve["report"]
+    scrubber, *canaries = serve["watchdogs"]
+    runs = (scrubber.runs, [c.runs for c in canaries])  # before the timing
+    busy, idle = stream_idle(torch, lambda: sv.run_traffic(
+        serving_stack(torch, dev, serve["ex"], sv.CostEstimator(
+            pix_per_s=serve["pix_per_s"]), sv.WallClock())[0],
+        serve["arrivals"], "card_lowload"), rep.seconds)
+    host_ms, n_entries, n_card, nbytes = time_watchdogs(torch, serve)
+    log(f"  (b) Scheduler -> PlanExecutor({SERVE_PIPELINE}) on the card, "
+        f"haloc_axa n16m8k4 stage, wall clock; calibrated "
+        f"{serve['pix_per_s'] / 1e6:.1f} MPix/s; {SERVE_REQUESTS} requests "
+        f"of {FULL_SIZE}^2 at {SERVE_LOAD}x ({serve['mix'].rate_rps:.1f} "
+        f"req/s), {card}:")
+    log(f"    {rep.summary()}; {rep.seconds * 1e3:.1f} ms makespan; "
+        f"p50 {rep.p50_s * 1e3:.3f} ms p99 {rep.p99_s * 1e3:.3f} ms; "
+        f"goodput {rep.goodput_mpix_per_s:.2f} MPix/s; device "
+        + ("not measured (the profiler saw no device time)" if busy is None
+           else f"busy {busy / 1e3:.2f} ms, idle share {idle:.3f}"))
+    log(f"    every output equals the plan called on the card, the first "
+        f"the CPU path; watchdogs every {WATCHDOG_INTERVAL_S} s: scrub "
+        f"of the registry {SERVE_SCRUB_SLICE >> 20} MiB a run "
+        f"{runs[0]} runs, canaries {runs[1]} runs in the stream, no alarm")
+    log(f"    host ms of one run (median of 5): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in host_ms.items())
+        + f"; the registry holds {n_entries} tables ({n_card} on the card, "
+        f"{nbytes / 2 ** 20:.1f} MiB)")
+    whole_sched, (whole, *_) = serving_stack(
+        torch, dev, serve["ex"], sv.CostEstimator(
+            pix_per_s=serve["pix_per_s"]), sv.WallClock(), slice_bytes=None)
+    whole_rep = sv.run_traffic(whole_sched, serve["arrivals"],
+                               "card_lowload")
+    check(whole.runs >= 1 and whole.corruptions == 0,
+          f"the whole-registry scrubber on the served stream: {whole}")
+    log(f"    the default LutScrubber (the whole registry a run) on the "
+        f"same arrivals: {whole_rep.summary()}; "
+        f"{whole_rep.seconds * 1e3:.1f} ms makespan; {whole.runs} scrub "
+        f"runs")
+
+    loop = out["loop"]
+    check_loop(torch, np, loop)
+    log(f"  (c) {loop['fault'].short_name} burned into the n16m8k4 device "
+        f"table: canary {loop['first']}; breaker {loop['breaker']} "
+        f"(policy now {loop['policy'].pipe.engine.spec.short_name}); scrub "
+        f"{loop['scrub']} found and repaired {loop['label'][0]} in place; "
+        f"canary again {loop['again']}; engine.add equals the delta table")
+
+    check_detection(out["detect"])
+    log(f"  (d) detection_campaign(backend='cuda'), quick and full: the "
+        f"{len(out['detect'])} records equal BENCH_faults.json's "
+        f"fault_detection records: "
+        + "; ".join(f"{r['grid']} {r['detector']} {r['fault']} "
+                    f"{r['detected']}/{r['cells']} at "
+                    f"{r['detection_latency_s']:.3f} s"
+                    for r in out["detect"]))
+
+    check_abft(torch, np, out["abft"], a8, b8, batch)
+    n_cpu = check_abft_cpu(torch, np)
+    log(f"  (e) ABFT at full width: " + "; ".join(
+        f"{label} healthy max dev {h.max_deviation:.0f} of budget "
+        f"{h.budget:.0f}, faulted flags rows {f.flagged_rows} cols "
+        f"{f.flagged_cols}, repaired exactly"
+        for label, h, f, _ in out["abft"])
+        + f"; the {2 * n_cpu} verdicts at {ABFT_CPU_GEMM} / "
+        f"{ABFT_CPU_IMAGES} equal the CPU path's")
+    for label, call, verify, checked in time_abft(
+            torch, a8, b8, gbatch.to(torch.int32)):
+        log(f"    {label}: kernel call {call:.3f} ms, verify {verify:.3f} "
+            f"ms, checked call {checked:.3f} ms (wall, median of 10; "
+            f"{card})")
+
+    load = out["load"]
+    check(load["repaired"] and load["healthy"]
+          and load["refused"] is not None
+          and "unrepairable" in load["refused"],
+          f"make_engine(integrity=True) on the card: repaired "
+          f"{load['repaired']}, refused {load['refused']!r}")
+    log(f"  (f) make_engine('haloc_axa', strategy='lut', integrity=True) "
+        f"repaired a flipped device-table cell before its first add, and "
+        f"refused with IOError when the rebuild disagreed")
+    return launches
+
+
 # ------------------------------------------------------------- phase 5 --
 
 def fold_ops(weights):
@@ -2954,6 +3561,14 @@ def main():
     for name in FAULT_PATH_KERNELS:
         launches[name] += e_launches[name]
     log(f"  phase 4e took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 4f: integrity and serving at full width")
+    t0 = time.perf_counter()
+    i_launches = integrity_phase(torch, np, dev, counts, card, a8.to(dev),
+                                 b8.to(dev), gbatch, batch)
+    for name in INTEGRITY_PATH_KERNELS:
+        launches[name] += i_launches[name]
+    log(f"  phase 4f took {time.perf_counter() - t0:.1f} s")
 
     log("phase 5: times (CUDA events, median)")
     int32_ops_per_s = int32_rate(torch, dev)

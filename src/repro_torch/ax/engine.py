@@ -417,7 +417,8 @@ def make_engine(spec: Union[AdderSpec, MacSpec, str],
                 strategy: Optional[str] = None,
                 device: Union[str, torch.device, None] = None,
                 fault=None,
-                mul: Union[MulSpec, str, None] = None) -> AxEngine:
+                mul: Union[MulSpec, str, None] = None,
+                integrity: bool = False) -> AxEngine:
     """Build (or fetch the cached) execution engine.
 
     Args:
@@ -446,6 +447,13 @@ def make_engine(spec: Union[AdderSpec, MacSpec, str],
         ``None`` for an adder-only engine.  With a multiplier the engine
         exposes ``mul``/``mul_signed``/``conv2d`` and its ``matmul``
         becomes a full approximate MAC.
+      integrity: verify-on-load — before the engine is returned, every
+        shared LUT it will gather from, host table and copy on the
+        engine's device, is compiled (or touched) and re-hashed against
+        its golden digest, repairing in place on mismatch
+        (:func:`repro_torch.integrity.scrub.verify_engine_tables`); an
+        unrepairable table raises ``IOError`` instead of serving.
+        Default ``False``: the check is entirely skipped (zero cost).
     """
     strategy = resolve_strategy(strategy, fast)
     if isinstance(spec, MacSpec):
@@ -474,5 +482,8 @@ def make_engine(spec: Union[AdderSpec, MacSpec, str],
     dev = resolve_device(resolved, device)
     if strategy == "auto":
         strategy = resolved.preferred_strategy(spec)
+    if integrity:
+        from repro_torch.integrity.scrub import verify_engine_tables
+        verify_engine_tables(spec, mul_spec, device=dev)
     return _make_engine_cached(spec, fmt, resolved, strategy, dev, mul_spec,
                                fault)

@@ -37,6 +37,8 @@ import torch
 
 from repro_torch.ax.registry import get_adder
 from repro_torch.core.specs import AdderSpec
+from repro_torch.integrity.digests import record_golden as _record_golden
+from repro_torch.integrity.digests import record_upload as _record_upload
 from repro_torch.obs.caches import register_lru as _register_lru
 
 #: Widest LSM the LUT strategy compiles (2^{2m} uint16 entries).
@@ -93,7 +95,13 @@ def _build_packed(spec: AdderSpec) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _compile_canonical(spec: AdderSpec) -> np.ndarray:
-    return _build_packed(spec)
+    from repro_torch.integrity.store import cache_get, cache_put
+    table = cache_get("ax.lut.packed", spec)
+    if table is None:
+        table = _build_packed(spec)
+        cache_put("ax.lut.packed", spec, table)
+    return _record_golden("ax.lut.packed", (spec,), table,
+                          functools.partial(_build_packed, spec))
 
 
 _register_lru("ax.lut.packed", _compile_canonical)
@@ -104,7 +112,14 @@ def compile_lut(spec: AdderSpec) -> np.ndarray:
     ``2^{2m}`` entries indexed by ``(a_low << m) | b_low``; each entry
     packs ``low_bits | cin << m``, which, read as an integer, IS the
     approximate sum of the two low parts.  Cached per canonical spec: the
-    same (kind, m, k) always yields the same array object."""
+    same (kind, m, k) always yields the same array object.
+
+    Every compile registers the table's golden content digest with
+    :mod:`repro_torch.integrity.digests` (the scrubber's detection source)
+    and, when the persistent compile cache is active, loads/publishes the
+    table through :mod:`repro_torch.integrity.store` — a verified disk
+    hit replaces the build; a corrupt or stale entry silently falls back
+    to recompilation."""
     _validate_lut_spec(spec)
     return _compile_canonical(_canonical(spec))
 
@@ -117,10 +132,16 @@ def compile_lut_nocache(spec: AdderSpec) -> np.ndarray:
     return _build_packed(_canonical(spec))
 
 
+def _upload_packed(table: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(table.view(np.int16).copy()).to(device)
+
+
 @functools.lru_cache(maxsize=None)
 def _device_table(spec: AdderSpec, device: torch.device) -> torch.Tensor:
-    table = compile_lut(spec)
-    return torch.from_numpy(table.view(np.int16).copy()).to(device)
+    return _record_upload(
+        "ax.lut.device", (spec, device), "ax.lut.packed", (spec,),
+        compile_lut(spec), lambda t: _upload_packed(t, device),
+        functools.partial(_build_packed, spec))
 
 
 _register_lru("ax.lut.device", _device_table)
@@ -129,7 +150,8 @@ _register_lru("ax.lut.device", _device_table)
 def device_table(spec: AdderSpec, device) -> torch.Tensor:
     """:func:`compile_lut` as an int16 tensor on ``device`` holding the
     uint16 pattern (readers mask with ``0xFFFF``), built once per
-    (canonical spec, device)."""
+    (canonical spec, device) and registered as a golden entry whose
+    digest is the host table's (a scrub repairs it in place)."""
     _validate_lut_spec(spec)
     return _device_table(_canonical(spec), torch.device(device))
 
@@ -144,9 +166,24 @@ def _delta_from_packed(packed: np.ndarray, m: int) -> np.ndarray:
     return delta
 
 
+def _build_delta(spec: AdderSpec) -> np.ndarray:
+    """Off-cache delta rebuild (the scrubber's repair source — built from
+    a FRESH packed table so a corrupted cached one cannot leak into the
+    repair)."""
+    return _delta_from_packed(_build_packed(spec), spec.lsm_bits)
+
+
+def _build_abs_error(spec: AdderSpec) -> np.ndarray:
+    ed = np.abs(_build_delta(spec)).astype(np.uint16)
+    ed.flags.writeable = False
+    return ed
+
+
 @functools.lru_cache(maxsize=None)
 def _delta_canonical(spec: AdderSpec) -> np.ndarray:
-    return _delta_from_packed(_compile_canonical(spec), spec.lsm_bits)
+    delta = _delta_from_packed(_compile_canonical(spec), spec.lsm_bits)
+    return _record_golden("ax.lut.delta", (spec,), delta,
+                          functools.partial(_build_delta, spec))
 
 
 _register_lru("ax.lut.delta", _delta_canonical)
@@ -176,7 +213,8 @@ def error_delta_table_nocache(spec: AdderSpec) -> np.ndarray:
 def _abs_error_canonical(spec: AdderSpec) -> np.ndarray:
     ed = np.abs(_delta_canonical(spec)).astype(np.uint16)
     ed.flags.writeable = False
-    return ed
+    return _record_golden("ax.lut.abs_error", (spec,), ed,
+                          functools.partial(_build_abs_error, spec))
 
 
 _register_lru("ax.lut.abs_error", _abs_error_canonical)
@@ -190,10 +228,18 @@ def abs_error_table(spec: AdderSpec) -> np.ndarray:
     return _abs_error_canonical(_canonical(spec))
 
 
+def _upload_abs_error(table: np.ndarray,
+                      device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(table.astype(np.int32)).to(device)
+
+
 @functools.lru_cache(maxsize=None)
 def _device_abs_error(spec: AdderSpec, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(
-        _abs_error_canonical(spec).astype(np.int32)).to(device)
+    return _record_upload(
+        "ax.lut.device_abs_error", (spec, device), "ax.lut.abs_error",
+        (spec,), _abs_error_canonical(spec),
+        lambda t: _upload_abs_error(t, device),
+        functools.partial(_build_abs_error, spec))
 
 
 _register_lru("ax.lut.device_abs_error", _device_abs_error)

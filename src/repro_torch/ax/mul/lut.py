@@ -24,8 +24,12 @@ spec, device), and per weights for the tap tables, so no call builds or
 uploads a table.  :func:`mul_error_delta_table` (host, cached) and
 :func:`build_mul_delta` (on a device, transient) give the signed error
 ``approx(a, b) - a*b`` over the full domain for the exact analytics.
-(The reference's integrity digests and persistent store are not ported
-here.)
+
+Every cached table, host or device, registers a golden digest and an
+off-cache rebuild with :mod:`repro_torch.integrity.digests` (a device
+copy's digest is its host table's); the product and signed tables load
+from and publish to the persistent compile cache
+(:mod:`repro_torch.integrity.store`) when it is active.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ import torch
 
 from repro_torch.ax.mul.registry import get_multiplier
 from repro_torch.ax.mul.specs import MulSpec
+from repro_torch.integrity.digests import record_golden as _record_golden
+from repro_torch.integrity.digests import record_upload as _record_upload
 from repro_torch.obs.caches import register_lru as _register_lru
 
 #: Full-domain tables: 4^10 = 1M entries is the largest compiled.
@@ -78,8 +84,7 @@ def _operand_grids(n_bits: int) -> Tuple[np.ndarray, np.ndarray]:
     return np.repeat(vals, 1 << n_bits), np.tile(vals, 1 << n_bits)
 
 
-@functools.lru_cache(maxsize=None)
-def _mul_lut_cached(spec: MulSpec) -> np.ndarray:
+def _mul_lut_nocache(spec: MulSpec) -> np.ndarray:
     _check_compilable(spec)
     a, b = _operand_grids(spec.n_bits)
     prod = get_multiplier(spec.kind).impl(a, b, spec)
@@ -87,6 +92,17 @@ def _mul_lut_cached(spec: MulSpec) -> np.ndarray:
     table = prod.astype(dtype)
     table.flags.writeable = False
     return table
+
+
+@functools.lru_cache(maxsize=None)
+def _mul_lut_cached(spec: MulSpec) -> np.ndarray:
+    from repro_torch.integrity.store import cache_get, cache_put
+    table = cache_get("ax.mul.lut.product", spec)
+    if table is None:
+        table = _mul_lut_nocache(spec)
+        cache_put("ax.mul.lut.product", spec, table)
+    return _record_golden("ax.mul.lut.product", (spec,), table,
+                          functools.partial(_mul_lut_nocache, spec))
 
 
 _register_lru("ax.mul.lut.product", _mul_lut_cached)
@@ -119,7 +135,10 @@ def mul_error_delta_table_nocache(spec: MulSpec) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _delta_cached(spec: MulSpec) -> np.ndarray:
-    return mul_error_delta_table_nocache(spec)
+    delta = mul_error_delta_table_nocache(spec)
+    return _record_golden(
+        "ax.mul.lut.delta", (spec,), delta,
+        functools.partial(mul_error_delta_table_nocache, spec))
 
 
 _register_lru("ax.mul.lut.delta", _delta_cached)
@@ -151,8 +170,7 @@ def mul_lut_index(a, b, n_bits: int):
     return ((a & mask) << n_bits) | (b & mask)
 
 
-@functools.lru_cache(maxsize=None)
-def _signed_table_cached(spec: MulSpec) -> np.ndarray:
+def _signed_table_nocache(spec: MulSpec) -> np.ndarray:
     _check_compilable(spec)
     n = spec.n_bits
     patt = np.arange(1 << n, dtype=np.int64)
@@ -165,6 +183,17 @@ def _signed_table_cached(spec: MulSpec) -> np.ndarray:
     table = (sgn * prod).astype(np.int32)
     table.flags.writeable = False
     return table
+
+
+@functools.lru_cache(maxsize=None)
+def _signed_table_cached(spec: MulSpec) -> np.ndarray:
+    from repro_torch.integrity.store import cache_get, cache_put
+    table = cache_get("ax.mul.lut.signed", spec)
+    if table is None:
+        table = _signed_table_nocache(spec)
+        cache_put("ax.mul.lut.signed", spec, table)
+    return _record_golden("ax.mul.lut.signed", (spec,), table,
+                          functools.partial(_signed_table_nocache, spec))
 
 
 _register_lru("ax.mul.lut.signed", _signed_table_cached)
@@ -182,9 +211,8 @@ def signed_mul_table(spec: MulSpec) -> np.ndarray:
     return _signed_table_cached(_canonical(spec))
 
 
-@functools.lru_cache(maxsize=None)
-def _tap_tables_cached(spec: MulSpec,
-                       weights: Tuple[int, ...]) -> np.ndarray:
+def _tap_tables_nocache(spec: MulSpec,
+                        weights: Tuple[int, ...]) -> np.ndarray:
     n = spec.n_bits
     limit = 1 << n
     for w in weights:
@@ -201,6 +229,15 @@ def _tap_tables_cached(spec: MulSpec,
     table = np.stack(rows)
     table.flags.writeable = False
     return table
+
+
+@functools.lru_cache(maxsize=None)
+def _tap_tables_cached(spec: MulSpec,
+                       weights: Tuple[int, ...]) -> np.ndarray:
+    table = _tap_tables_nocache(spec, weights)
+    return _record_golden(
+        "ax.mul.lut.taps", (spec, weights), table,
+        functools.partial(_tap_tables_nocache, spec, weights))
 
 
 _register_lru("ax.mul.lut.taps", _tap_tables_cached)
@@ -228,7 +265,10 @@ def _to_device(table: np.ndarray, device: torch.device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _device_mul_table(spec: MulSpec, device: torch.device) -> torch.Tensor:
-    return _to_device(compile_mul_lut(spec), device)
+    return _record_upload(
+        "ax.mul.lut.device", (spec, device), "ax.mul.lut.product", (spec,),
+        compile_mul_lut(spec), lambda t: _to_device(t, device),
+        functools.partial(_mul_lut_nocache, spec))
 
 
 _register_lru("ax.mul.lut.device", _device_mul_table)
@@ -244,7 +284,10 @@ def device_mul_table(spec: MulSpec, device) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _device_signed_table(spec: MulSpec,
                          device: torch.device) -> torch.Tensor:
-    return _to_device(signed_mul_table(spec), device)
+    return _record_upload(
+        "ax.mul.lut.device_signed", (spec, device), "ax.mul.lut.signed",
+        (spec,), signed_mul_table(spec), lambda t: _to_device(t, device),
+        functools.partial(_signed_table_nocache, spec))
 
 
 _register_lru("ax.mul.lut.device_signed", _device_signed_table)
@@ -273,8 +316,11 @@ def _device_signed_table16(spec: MulSpec,
     if not signed_table_fits_int16(spec):
         raise ValueError(f"the signed product table of {spec.short_name} "
                          f"has entries outside int16")
-    table = signed_mul_table(spec).astype(np.int16)
-    return torch.from_numpy(table).to(device)
+    return _record_upload(
+        "ax.mul.lut.device_signed16", (spec, device), "ax.mul.lut.signed",
+        (spec,), signed_mul_table(spec),
+        lambda t: torch.from_numpy(t.astype(np.int16)).to(device),
+        functools.partial(_signed_table_nocache, spec))
 
 
 _register_lru("ax.mul.lut.device_signed16", _device_signed_table16)
@@ -290,7 +336,11 @@ def device_signed_table16(spec: MulSpec, device) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _device_tap_tables(spec: MulSpec, weights: Tuple[int, ...],
                        device: torch.device) -> torch.Tensor:
-    return _to_device(tap_tables(spec, weights), device)
+    return _record_upload(
+        "ax.mul.lut.device_taps", (spec, weights, device),
+        "ax.mul.lut.taps", (spec, weights), tap_tables(spec, weights),
+        lambda t: _to_device(t, device),
+        functools.partial(_tap_tables_nocache, spec, weights))
 
 
 _register_lru("ax.mul.lut.device_taps", _device_tap_tables)

@@ -39,10 +39,12 @@ from repro_torch.ax.backends import check_conv_kernel, conv_taps
 from repro_torch.ax.mul import lut as mul_lut_lib
 from repro_torch.ax.mul.specs import MulSpec
 from repro_torch.core.specs import AdderSpec
+from repro_torch.integrity.digests import record_upload
 from repro_torch.kernels import _build
 from repro_torch.kernels.approx_add import (adder_args, approx_add_plain,
                                             check_cuda, on_cpu, signed32,
                                             stream_ptr, to_int32, u32_lanes)
+from repro_torch.obs.caches import register_lru as _register_lru
 
 
 #: Output rows a thread computes, and a block's output tile (rows,
@@ -86,17 +88,31 @@ def conv_route(kh: int, kw: int, entries: int) -> Tuple[int, str]:
     return (kh if kh == kw and kh in TEMPLATED else 0), "shared"
 
 
-@functools.lru_cache(maxsize=None)
-def _signed_tables(mul_spec: MulSpec, weights: Tuple[int, ...], n_bits: int,
-                   device: torch.device) -> torch.Tensor:
-    tab = mul_lut_lib.tap_tables(mul_spec, weights).astype(np.int64)
+def _signed_rows(tab: np.ndarray, n_bits: int) -> np.ndarray:
+    """The host build of :func:`signed_tap_tables` from the tap tables
+    ``tab``."""
+    tab = tab.astype(np.int64)
     entries = tab.shape[1]
     v = np.arange(-entries, entries)
     prod = tab[:, np.minimum(np.abs(v), entries - 1)]
     prod = np.where(v < 0, -prod, prod) & ((1 << n_bits) - 1)
     prod[:, 0] = 0  # v = -2^w is outside the input range
-    rows = np.ascontiguousarray(prod.T).astype(np.uint32).view(np.int32)
-    return torch.from_numpy(rows).to(device)
+    return np.ascontiguousarray(prod.T).astype(np.uint32).view(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _signed_tables(mul_spec: MulSpec, weights: Tuple[int, ...], n_bits: int,
+                   device: torch.device) -> torch.Tensor:
+    return record_upload(
+        "kernels.conv2d_mac.signed_taps", (mul_spec, weights, n_bits, device),
+        "ax.mul.lut.taps", (mul_spec, weights),
+        mul_lut_lib.tap_tables(mul_spec, weights),
+        lambda rows: torch.from_numpy(rows).to(device),
+        functools.partial(mul_lut_lib._tap_tables_nocache, mul_spec, weights),
+        transform=functools.partial(_signed_rows, n_bits=n_bits))
+
+
+_register_lru("kernels.conv2d_mac.signed_taps", _signed_tables)
 
 
 def signed_tap_tables(mul_spec: MulSpec, weights, n_bits: int,
@@ -105,10 +121,13 @@ def signed_tap_tables(mul_spec: MulSpec, weights, n_bits: int,
     column t holding tap t's product of v as the plain version takes it,
     ``(sign(v) * tap_tables[t][|v|]) & ones(N)``, for every |v| < 2^w
     (row 0, v = -2^w, is 0).  So a tap is one gather at flat index
-    ``(v + 2^w) * T + t``.  Built once per (multiplier, weights, N,
-    device)."""
-    return _signed_tables(mul_spec, tuple(int(w) for w in weights),
-                          int(n_bits), torch.device(device))
+    ``(v + 2^w) * T + t``.  Built once per (canonical multiplier,
+    weights, N, device), and registered as a golden entry
+    (``kernels.conv2d_mac.signed_taps``) that a scrub repairs in
+    place."""
+    return _signed_tables(mul_lut_lib._canonical(mul_spec),
+                          tuple(int(w) for w in weights), int(n_bits),
+                          torch.device(device))
 
 
 def check_conv_input(q: torch.Tensor, mul_spec: MulSpec, shift: int) -> None:

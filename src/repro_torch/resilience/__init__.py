@@ -1,14 +1,14 @@
 """``repro_torch.resilience`` — fault injection, self-healing degradation
-and the campaign harness (the port of ``repro.resilience``, without the
-integrity detection campaign).
+and the campaign harness (the port of ``repro.resilience``).
 
 - :mod:`repro_torch.resilience.faults`: :class:`FaultSpec` and the
   injectors (compiled-LUT corruption via the non-cached build, output-bus
   masks, seeded counter-based transient flips).
 - :mod:`repro_torch.resilience.degrade`: :class:`DegradePolicy` — drift
   trips walk the exact Pareto frontier toward the exact adder.
-- :mod:`repro_torch.resilience.harness`: the fault-campaign sweep and the
-  recovery cell.
+- :mod:`repro_torch.resilience.harness`: the fault-campaign sweep, the
+  recovery cell and the integrity detection campaign (imported from the
+  module, as in the reference).
 
 Attribute access is lazy (PEP 562): ``repro_torch.ax.engine`` imports
 ``repro_torch.resilience.faults`` (a leaf module), while ``degrade`` and

@@ -945,3 +945,173 @@ def test_streaming_depth2_equals_sequential_on_the_card(cuda_device,
         assert r.failed == r.retried == r.degraded == ()
         for got, want in zip(r.outputs, seq):
             np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------- integrity and serving --
+
+def test_device_copies_hash_as_their_host_tables_on_card(cuda_device):
+    """Every device copy a kernel gathers from is a golden entry whose
+    digest, read back from the card, equals its host table's."""
+    from repro_torch.ax import lut as lut_lib
+    from repro_torch.ax.mul import lut as mul_lut
+    from repro_torch.ax.mul.specs import MulSpec
+    from repro_torch.integrity import (golden_digest, golden_entries,
+                                       table_digest, verify_entry)
+    from repro_torch.kernels.conv2d_mac import signed_tap_tables
+    dev = torch.device("cuda", torch.cuda.current_device())
+    spec = specs.AdderSpec("haloc_axa", 32, 10, 5)
+    ms = MulSpec("truncated", 8, 3)
+    w = (1, 2, 1, 2, -4, 2, 1, 2, 1)
+    lut_lib.device_table(spec, dev)
+    lut_lib.device_abs_error_table(spec, dev)
+    mul_lut.device_mul_table(ms, dev)
+    mul_lut.device_signed_table(ms, dev)
+    mul_lut.device_signed_table16(ms, dev)
+    mul_lut.device_tap_tables(ms, w, dev)
+    signed_tap_tables(ms, w, 16, dev)
+    canon, mc = lut_lib._canonical(spec), mul_lut._canonical(ms)
+    host = {"ax.lut.device": ("ax.lut.packed", (canon,)),
+            "ax.lut.device_abs_error": ("ax.lut.abs_error", (canon,)),
+            "ax.mul.lut.device": ("ax.mul.lut.product", (mc,)),
+            "ax.mul.lut.device_signed": ("ax.mul.lut.signed", (mc,)),
+            "ax.mul.lut.device_signed16": ("ax.mul.lut.signed", (mc,)),
+            "ax.mul.lut.device_taps": ("ax.mul.lut.taps", (mc, w))}
+    seen = set()
+    for e in golden_entries():
+        if not isinstance(e.table, torch.Tensor) or e.table.device != dev:
+            continue
+        assert verify_entry(e), e.cache
+        if e.cache in host and e.key[0] in (canon, mc):
+            assert e.digest == golden_digest(*host[e.cache]), e.cache
+            assert table_digest(e.table, e.pattern) == e.digest
+            seen.add(e.cache)
+    assert seen == set(host)
+
+
+def test_corrupted_device_table_repaired_in_place_on_card(cuda_device):
+    """A flip burned into the device table ``lut_add`` gathers from
+    changes the kernel's output; the scrubber finds it there, repairs it
+    in place (``copy_``), and the next launch gathers the repaired
+    data."""
+    from repro_torch.ax import lut as lut_lib
+    from repro_torch.integrity import LutScrubber
+    dev = torch.device("cuda", torch.cuda.current_device())
+    spec = specs.AdderSpec("haloc_axa", 16, 8, 4)
+    rng = np.random.default_rng(5)
+    a = torch.as_tensor(rng.integers(0, 1 << 16, 1 << 16).astype(np.int32))
+    b = torch.as_tensor(rng.integers(0, 1 << 16, 1 << 16).astype(np.int32))
+    want = lut_k.lut_add_plain(a, b, spec)
+    live = lut_lib.device_table(spec, dev)
+    ptr = live.data_ptr()
+    ad, bd = a.to(dev), b.to(dev)
+    assert torch.equal(lut_k.lut_add(ad, bd, spec).cpu(), want)
+    live.view(-1)[:256] ^= 1 << 3                 # a_low = 0, every b_low
+    bad = lut_k.lut_add(ad, bd, spec).cpu()
+    assert not torch.equal(bad, want)
+    report = LutScrubber(cache="ax.lut.device").scrub_once(0.0)
+    key = repr((lut_lib._canonical(spec), dev))
+    assert ("ax.lut.device", key) in report.corrupted
+    assert ("ax.lut.device", key) in report.repaired
+    assert live.data_ptr() == ptr                 # in place
+    launches = lut_k.lut_add.launches
+    assert torch.equal(lut_k.lut_add(ad, bd, spec).cpu(), want)
+    assert lut_k.lut_add.launches == launches + 1
+
+
+def test_device_abs_error_high_bit_flip_repaired_on_card(cuda_device):
+    """A flip in bit 20 of the int32 ``device_abs_error`` copy on the
+    card (no value of its uint16 pattern) fails the digest; the scrubber
+    reports it and repairs it in place."""
+    from repro_torch.ax import lut as lut_lib
+    from repro_torch.integrity import LutScrubber
+    dev = torch.device("cuda", torch.cuda.current_device())
+    spec = specs.AdderSpec("haloc_axa", 16, 8, 4)
+    live = lut_lib.device_abs_error_table(spec, dev)
+    healthy, ptr = live.clone(), live.data_ptr()
+    live.view(-1)[1234] ^= 1 << 20
+    report = LutScrubber(cache="ax.lut.device_abs_error").scrub_once(0.0)
+    label = ("ax.lut.device_abs_error", repr((lut_lib._canonical(spec), dev)))
+    assert label in report.corrupted and label in report.repaired
+    assert live.data_ptr() == ptr and torch.equal(live, healthy)
+
+
+def test_abft_checksums_on_card_equal_the_cpu(cuda_device):
+    """ABFT's int64 checksums, flags, budgets and exact repairs on the
+    card equal the CPU path's, for both GEMM paths and conv2d."""
+    from repro_torch.ax import make_engine
+    from repro_torch.integrity import AbftChecker
+    from repro_torch.numerics.fixed_point import FixedPointFormat
+    rng = np.random.default_rng(7)
+    a = rng.integers(-128, 128, (96, 160)).astype(np.int8)
+    b = rng.integers(-128, 128, (160, 72)).astype(np.int8)
+    q = rng.integers(-255, 256, (3, 40, 52)).astype(np.int32)
+    kernel = ((1, 3, 1), (3, -5, 3), (1, 3, 1))
+
+    def verdicts(device, backend):
+        kw = dict(backend=backend, device=device)
+        out = []
+        for mul in (None, "truncated"):
+            eng = make_engine("haloc_axa", mul=mul, **kw)
+            ck = AbftChecker(eng)
+            out.append(ck.matmul(a, b, block=(64, 64, 64)))
+            o = eng.matmul(a, b, block=(64, 64, 64)).clone()
+            o[:, 7] ^= 1 << 19
+            o[11, :] |= 1 << 21
+            out.append(ck.verify_matmul(o, a, b, block=(64, 64, 64)))
+        eng = make_engine(specs.AdderSpec("haloc_axa", 16, 8, 4),
+                          fmt=FixedPointFormat(16, 0), mul="truncated", **kw)
+        ck = AbftChecker(eng)
+        out.append(ck.conv2d(q, kernel, shift=2))
+        o = eng.conv2d(q, kernel, shift=2).clone()
+        o[1] |= 1 << 12
+        out.append(ck.verify_conv2d(o, q, kernel, shift=2))
+        return out
+
+    got = verdicts(cuda_device, "cuda")
+    want = verdicts("cpu", "torch")
+    for g, w in zip(got, want):
+        assert g.out.device.type == "cuda"
+        assert torch.equal(g.out.cpu(), w.out)
+        assert (g.ok, g.flagged_rows, g.flagged_cols, g.max_deviation,
+                g.budget) == (w.ok, w.flagged_rows, w.flagged_cols,
+                              w.max_deviation, w.budget)
+    assert [v.ok for v in got] == [True, False, True, False, True, False]
+
+
+def test_canary_and_plan_executor_on_card_equal_the_cpu(cuda_device):
+    """Canary reports of healthy and faulted engines on the card equal
+    the CPU path's, and a PlanExecutor on the card serves the torch CPU
+    executor's outputs."""
+    from repro_torch import serving as sv
+    from repro_torch.ax import make_engine
+    from repro_torch.integrity import CanarySuite
+    from repro_torch.resilience.faults import FaultSpec
+    for kw in (dict(strategy="lut"), dict(strategy="reference"),
+               dict(mul="truncated"),
+               dict(strategy="lut", fault=FaultSpec("stuck_at_1", (13,)))):
+        card = CanarySuite(make_engine("haloc_axa", **kw), n=512)
+        cpu = CanarySuite(make_engine("haloc_axa", backend="torch",
+                                      device="cpu", **kw), n=512)
+        g, w = card.run_once(0.0), cpu.run_once(0.0)
+        assert (g.checked, g.add_mismatches, g.mul_mismatches) == \
+            (w.checked, w.add_mismatches, w.mul_mismatches), kw
+        assert g.ok == ("fault" not in kw)
+    imgs = synthetic_batch(3, 48, 2)
+    card = sv.PlanExecutor.compile(("pipe_blur_sharpen_down",
+                                    "pipe_blur_sobel"))
+    cpu = sv.PlanExecutor.compile(("pipe_blur_sharpen_down",
+                                   "pipe_blur_sobel"),
+                                  backend="torch", device="cpu")
+    for name in ("pipe_blur_sharpen_down", "pipe_blur_sobel"):
+        got = card(imgs, name)
+        assert isinstance(got, np.ndarray)
+        np.testing.assert_array_equal(got, cpu(imgs, name))
+
+
+def test_detection_campaign_quick_on_card_equals_the_cpu(cuda_device):
+    from repro_torch.resilience.harness import detection_campaign
+    got = detection_campaign(quick=True, backend="cuda")
+    want = detection_campaign(quick=True, backend="torch")
+    assert [dict(r, backend="") for r in got] == \
+        [dict(r, backend="") for r in want]
+    assert all(r["backend"] == "cuda" for r in got)

@@ -2,9 +2,12 @@
 
 - ``repro_torch`` imports neither jax nor the ``repro`` package (checked
   in a subprocess: other test files load jax into the same worker, with
-  telemetry on, a fault injected, a degrade policy and a stream) and no
-  source file under ``src/repro_torch`` (``obs``, ``resilience`` and
-  ``runtime`` included) names them;
+  telemetry on, a fault injected, a degrade policy and a stream, and the
+  integrity, serving and I/O modules driven: lazy exports, the store's
+  salt, a scrub, a canary, ABFT, the detection campaign's helpers and a
+  served plan) and no source file under ``src/repro_torch`` (``obs``,
+  ``resilience``, ``runtime``, ``integrity`` and ``serving`` included)
+  names them;
 - a default engine asks for the card and raises without one, naming the
   explicit CPU spelling;
 - ``quantize`` and the container conversions equal ``repro``'s on the
@@ -79,6 +82,29 @@ def test_import_and_cpu_pipeline_load_no_jax():
         "assert len(r.outputs) == 2\n"
         "obs.sync_span(out)\n"
         "obs.disable()\n"
+        "import repro_torch.integrity as integ\n"
+        "import repro_torch.serving as sv\n"
+        "from repro_torch import ioutil\n"
+        "from repro_torch.integrity import store\n"
+        "assert 'torch=' in store._version_salt()\n"
+        "ioutil.sha256_bytes(b'x')\n"
+        "eng = make_engine('haloc_axa', backend='torch', device='cpu', "
+        "strategy='lut', integrity=True)\n"
+        "assert integ.CanarySuite(eng, n=16).run_once(0.0).ok\n"
+        "assert integ.LutScrubber(cache='ax.lut.device').scrub_once().ok\n"
+        "v = integ.AbftChecker(mac).matmul(np.ones((2, 3), np.int8), "
+        "np.ones((3, 2), np.int8))\n"
+        "assert v.ok, v\n"
+        "assert integ.mac_error_budget(eng.spec, None, 4, 1, 0) > 0\n"
+        "from repro_torch.resilience.harness import _bus_fault_observable\n"
+        "_bus_fault_observable(eng.spec, FaultSpec('stuck_at_1', (3,)), 0)\n"
+        "ex = sv.PlanExecutor.compile(('pipe_blur_sharpen_down',), "
+        "backend='torch', device='cpu')\n"
+        "sched = sv.Scheduler(ex, clock=sv.VirtualClock(), integrity=("
+        "integ.LutScrubber(interval_s=1.0),))\n"
+        "rep = sv.run_traffic(sched, sv.make_arrivals(sv.SMALL_MIX, n=2, "
+        "seed=0))\n"
+        "assert len(rep.completed) == 2, rep.summary()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('LOADED', bad)\n"
@@ -97,9 +123,10 @@ def test_sources_name_neither_jax_nor_repro():
         r"from\s+repro\s+import|import\s+repro\s*$)", re.M)
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    for sub in ("obs", "resilience", "runtime"):
+    for sub in ("obs", "resilience", "runtime", "integrity", "serving"):
         scanned = [f for f in files if f.parent == PKG / sub]
         assert len(scanned) >= 2, sub
+    assert PKG / "ioutil.py" in files
     for path in files:
         text = path.read_text()
         assert not pattern.search(text), path
