@@ -197,6 +197,37 @@ of every kernel but ``butterfly`` join the ``kernels`` line):
    flipped device-table cell before serving and raises ``IOError`` when
    the rebuild disagrees with the golden.
 
+The LM serving slice adds phase 4g, at full width, with the counts set to
+0 just before its path and read just after (its ``approx_add`` launches
+join the ``kernels`` line):
+
+4g. ``approx_add`` against its plain version at the residual adds' shapes;
+   (a) the path: Qwen3-4B at full width and depth (36 layers, d_model
+   2560, 32/8 heads, d_ff 9728, vocab 151936; bf16 matrices from a seeded
+   generator on the card), ``make_numerics("haloc_axa", "residual")``,
+   ``generate`` of 4 x (128 + 32) tokens, greedy: 72 ``approx_add``
+   launches a forward step and no other kernel, tokens and every step's
+   logits bit for bit those of the plain versions on the card; (b)
+   prefill + decode against ``forward(mode="full")`` within the
+   reference's rule (max |d| / max(1, max |logit|) < 0.04) with exact
+   residual adds, and under haloc_axa the teacher-forced prefill and
+   decode equal to ``generate``'s own logits (the parity against the full
+   forward printed: the adder turns a GEMM's one-ulp difference into
+   changes of up to 2^m units); (c) the model cut to its first two layers
+   against the port's CPU path, teacher-forced on the card's tokens:
+   exact logits within the rule, every haloc_axa residual add on the card
+   equal to the CPU path's on its operands; (d) gemma3-27b at full width
+   cut to 8 layers (one pattern repeat and the suffix), batch 2, an
+   1100-token prompt past its 1024 window and 16 decode steps: exact
+   parity within the rule, haloc_axa teacher-forced equal to
+   ``generate``; (e) prefill ms, decode ms a step and tokens/s, exact and
+   haloc_axa, and a ``torch.profiler`` breakdown of one decode step
+   (``approx_add``, the matmuls, the rest; the residual adds' glue; the
+   idle share) beside the card's name and power limit; (f)
+   ``python -m repro_torch.launch.serve --arch qwen3-4b --adder haloc_axa
+   --batch 4 --prompt-len 32 --new-tokens 16`` exits 0 and prints its
+   report line.
+
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 run from a directory without ``src/repro_torch``, it exits non-zero and
@@ -206,6 +237,7 @@ prints no result.
 import contextlib
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -2679,6 +2711,377 @@ def integrity_phase(torch, np, dev, counts, card, a8, b8, gbatch, batch):
     return launches
 
 
+# ------------------------------------------------------------ phase 4g --
+
+#: The LM slice's model: Qwen3-4B at full width and depth, bf16 weights
+#: from a seeded generator on the card, the residual adds through
+#: haloc_axa n16m8k4 (``make_numerics("haloc_axa", "residual")``).
+LM_ARCH = "qwen3-4b"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 128, 32
+#: The card-against-CPU case: the same model cut to its first two layers.
+LM_CPU_LAYERS, LM_CPU_NEW = 2, 8
+#: The window case: gemma3-27b at full width cut to one pattern repeat
+#: and the suffix (8 layers: 5 local, 1 global, 2 local), a prompt longer
+#: than its 1024-token window.
+LM_WINDOW_ARCH = "gemma3-27b"
+LM_WINDOW_BATCH, LM_WINDOW_PROMPT, LM_WINDOW_NEW = 2, 1100, 16
+#: The reference's parity rule (``tests/test_models_smoke.py``):
+#: max |d| / max(1, max |logit|).
+LM_TOL = 0.04
+#: The kernels phase 4g's path runs: the residual adds.
+LM_PATH_KERNELS = ("approx_add",)
+#: Decode steps timed after a prefill, then steps profiled (the first
+#: three of them timed unprofiled).
+LM_TIMED_STEPS, LM_PROFILED_STEPS = 16, 6
+#: cuBLAS kernels (bf16 GEMMs and their split-K reductions), by name.
+MATMUL_KERNEL_MARKS = ("gemm", "nvjet", "xmma", "cutlass", "splitK")
+
+
+def lm_rel(torch, got, want):
+    """max |got - want| / max(1, max |want|), in fp32."""
+    got, want = got.float(), want.float().to(got.device)
+    return float((got - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+def lm_numerics(kind, backend, device):
+    from repro_torch.numerics.approx_ops import make_numerics
+    return make_numerics(kind, "residual", backend=backend, device=device)
+
+
+def lm_prompt(torch, cfg, batch, length, dev, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (batch, length),
+                                    generator=gen, device=dev)}
+
+
+def lm_parity(torch, T, params, cfg, toks, logits, prompt_len):
+    """Per decode step, the generated logits against ``forward(mode=
+    "full")`` on the same tokens (the reference's parity rule)."""
+    full = T.forward(params, cfg, {"tokens": toks[:, :-1]}, mode="full")[0]
+    return [lm_rel(torch, logits[:, i], full[:, prompt_len - 1 + i])
+            for i in range(logits.shape[1])]
+
+
+def check_lm_kernel_shapes(torch, np, dev, errs):
+    """``approx_add`` at the residual adds' container shapes (prefill and
+    decode of Qwen3-4B at batch 4) against its plain version, every kind,
+    both forms."""
+    from repro_torch.core import specs
+    from repro_torch.kernels import approx_add as add_k
+    rng = np.random.default_rng(20)
+    for shape in ((LM_BATCH, LM_PROMPT, 2560), (LM_BATCH, 1, 2560)):
+        a = containers(torch, np, rng, shape, 16, dev)
+        b = containers(torch, np, rng, shape, 16, dev)
+        for kind in specs.ALL_KINDS:
+            for fast in (False, True):
+                s = spec_at(kind, 16)
+                compare_into(torch, errs, "approx_add",
+                             add_k.approx_add(a, b, s, fast=fast),
+                             add_k.approx_add_plain(a, b, s, fast),
+                             f"{s.short_name} fast={fast} {shape}")
+
+
+def tree_bytes(tree):
+    """Bytes of the tensors in a tree of dicts and lists (None: 0)."""
+    if tree is None:
+        return 0
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+class ResidualRecorder:
+    """Stands for ``cfg.approx``: runs its residual add and keeps each
+    call's operands and result."""
+
+    def __init__(self, approx):
+        self.approx, self.calls = approx, []
+
+    def residual_add(self, x, y):
+        out = self.approx.residual_add(x, y)
+        self.calls.append((x, y, out))
+        return out
+
+
+def lm_times(torch, steps, params, cfg, prompt, reps=3):
+    """Median wall ms of a prefill of ``prompt`` and of one of the
+    LM_TIMED_STEPS greedy decode steps after it, synchronized, over
+    ``reps`` runs after an untimed one; the last run's cache and logits."""
+    pre_ms, dec_ms = [], []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = steps.make_prefill_step(
+            cfg, LM_PROMPT + LM_TIMED_STEPS + LM_PROFILED_STEPS)(params,
+                                                                prompt)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decode = steps.make_decode_step(cfg)
+        for i in range(LM_TIMED_STEPS):
+            nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            logits, cache = decode(params, {"tokens": nxt}, LM_PROMPT + i,
+                                   cache)
+        torch.cuda.synchronize()
+        pre_ms.append((t1 - t0) * 1e3)
+        dec_ms.append((time.perf_counter() - t1) / LM_TIMED_STEPS * 1e3)
+    return (statistics.median(pre_ms[1:]), statistics.median(dec_ms[1:]),
+            cache, logits)
+
+
+def lm_decode_profile(torch, steps, params, cfg, cache, logits):
+    """One decode step's device time by kernel class, {class: (us,
+    launches)}, averaged over LM_PROFILED_STEPS profiled steps after the
+    timed ones (empty when the profiler saw no device time), and the
+    median wall ms of three unprofiled steps before them."""
+    decode = steps.make_decode_step(cfg)
+    nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    pos = LM_PROMPT + LM_TIMED_STEPS
+    walls = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode(params, {"tokens": nxt}, pos + i, cache)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    times = device_times(torch, lambda: [
+        decode(params, {"tokens": nxt}, pos + 3 + i, cache)
+        for i in range(LM_PROFILED_STEPS - 3)], 1)
+    per_step = {}
+    for key, (us, n) in times.items():
+        cls = ("approx_add" if "approx_add" in key else
+               "matmul" if any(m in key for m in MATMUL_KERNEL_MARKS) else
+               "other")
+        u, c = per_step.get(cls, (0.0, 0))
+        k = LM_PROFILED_STEPS - 3
+        per_step[cls] = (u + us / k, c + n / k)
+    return per_step, statistics.median(walls)
+
+
+def lm_phase(torch, np, dev, counts, card, errs):
+    """Phase 4g: the LM serving path on the card (the port's ``generate``
+    at Qwen3-4B full width and depth, the residual adds in the
+    ``approx_add`` kernel), held against the plain versions on the card,
+    ``forward(mode="full")``, the CPU path and the launcher; returns the
+    launches of the path."""
+    import dataclasses
+    import os
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.models.serving import generate, teacher_forced_logits
+    from repro_torch.kernels import approx_add as add_k
+
+    check_lm_kernel_shapes(torch, np, dev, errs)
+    log(f"  approx_add equals its plain version at the residual adds' "
+        f"shapes ({LM_BATCH}, {LM_PROMPT}, 2560) and ({LM_BATCH}, 1, 2560),"
+        f" every kind, both forms")
+
+    base = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = T.init_params(0, base, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = T.param_count(params)
+    log(f"  {LM_ARCH}: {base.num_layers} layers, d_model {base.d_model}, "
+        f"{base.num_heads}/{base.num_kv_heads} heads, d_ff {base.d_ff}, "
+        f"vocab {base.vocab_size}: {n_params} parameters drawn on the card "
+        f"in {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB (bf16 matrices)")
+    hal = base.with_approx(lm_numerics("haloc_axa", "cuda", dev))
+    plain = base.with_approx(lm_numerics("haloc_axa", "torch", dev))
+    prompt = lm_prompt(torch, base, LM_BATCH, LM_PROMPT, dev, 1)
+
+    # (a) the path, counted; then the plain versions on the card
+    (toks, logits), launches = run_counted(
+        torch, counts, LM_PATH_KERNELS,
+        lambda: generate(params, hal, prompt, LM_NEW, return_logits=True),
+        "LM serving path (generate)")
+    per_step = 2 * base.num_layers
+    check(launches["approx_add"] == per_step * LM_NEW,
+          f"approx_add launched {launches['approx_add']} times in "
+          f"{LM_NEW} forward steps, not {per_step} a step")
+    check(all(n == 0 for k, n in launches.items() if k != "approx_add"),
+          f"the LM path launched other kernels: {launches}")
+    ptoks, plogits = generate(params, plain, prompt, LM_NEW,
+                              return_logits=True)
+    check(torch.equal(toks, ptoks),
+          "generate: the approx_add kernel's tokens differ from the plain "
+          "version's on the card")
+    check(torch.equal(logits, plogits),
+          "generate: the approx_add kernel's logits differ from the plain "
+          "version's on the card")
+    log(f"  (a) generate(batch {LM_BATCH}, prompt {LM_PROMPT}, {LM_NEW} "
+        f"new, greedy), haloc_axa n16m8k4: {per_step} approx_add launches "
+        f"a forward step ({launches['approx_add']} in {LM_NEW} steps); "
+        f"tokens and every step's logits equal the plain version's on the "
+        f"card, bit for bit")
+
+    # (b) prefill/decode parity at full width and depth
+    check(torch.equal(teacher_forced_logits(params, hal, toks, LM_PROMPT),
+                      logits),
+          "haloc_axa: prefill and decode on the generated tokens differ "
+          "from generate's own logits")
+    etoks, elogits = generate(params, base, prompt, LM_NEW,
+                              return_logits=True)
+    exact_par = lm_parity(torch, T, params, base, etoks, elogits, LM_PROMPT)
+    check(max(exact_par) < LM_TOL,
+          f"{LM_ARCH} exact: prefill/decode logits against the full forward "
+          f"{max(exact_par):.4f} >= {LM_TOL}")
+    hal_par = lm_parity(torch, T, params, hal, toks, logits, LM_PROMPT)
+    log(f"  (b) prefill/decode against forward(mode='full'), {LM_ARCH}, "
+        f"{LM_NEW} steps: exact max {max(exact_par):.4f} (< {LM_TOL}); "
+        f"haloc_axa: teacher-forced prefill and decode equal generate's "
+        f"logits bit for bit, against the full forward "
+        f"{min(hal_par):.4f}-{max(hal_par):.4f} (printed, not gated: the "
+        f"two modes run cuBLAS's products at other shapes, which round some "
+        f"sums differently, and an approximate add turns a one-unit "
+        f"difference of an operand into up to 2^m units)")
+
+    # (e) times, before the CPU case frees the card
+    rows = {}
+    for label, cfg in (("exact", base), ("haloc_axa", hal)):
+        pre, dec, cache, last = lm_times(torch, steps, params, cfg,
+                                         prompt)
+        prof, step_ms = lm_decode_profile(torch, steps, params, cfg, cache,
+                                          last)
+        rows[label] = (pre, dec, prof, step_ms)
+        log(f"  (e) {label}: prefill of {LM_BATCH} x {LM_PROMPT} "
+            f"{pre:.3f} ms; decode {dec:.3f} ms a step = "
+            f"{LM_BATCH * 1e3 / dec:.1f} tokens/s at batch {LM_BATCH} "
+            f"(wall, median of 3; {card})")
+    step_bytes = tree_bytes(dict(params, embed=None)) + tree_bytes(
+        cache)
+    log(f"      a decode step reads every weight but the embedding table "
+        f"and the whole KV cache at least once, {step_bytes / 1e9:.3f} GB: "
+        f"{step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s")
+    for label, (pre, dec, prof, step_ms) in rows.items():
+        if not prof:
+            log(f"      {label} decode step profile: the profiler recorded "
+                f"no device time (not measured)")
+            continue
+        busy = sum(us for us, _ in prof.values())
+        parts = ", ".join(f"{cls} {us:.1f} us in {n:.0f} launches"
+                          for cls, (us, n) in sorted(prof.items()))
+        log(f"      {label} decode step by kernel class: {parts}; busy "
+            f"{busy / 1e3:.3f} ms of a {step_ms:.3f} ms step, idle share "
+            f"{1 - busy / (step_ms * 1e3):.3f}")
+    if rows["exact"][2] and rows["haloc_axa"][2]:
+        hp, ep = rows["haloc_axa"][2], rows["exact"][2]
+        glue = (sum(us for us, _ in hp.values()) - hp.get("approx_add",
+                                                         (0, 0))[0]
+                - sum(us for us, _ in ep.values()))
+        glue_n = (sum(n for _, n in hp.values()) - hp.get("approx_add",
+                                                        (0, 0))[1]
+                  - sum(n for _, n in ep.values()))
+        log(f"      the residual adds' quantize/dequantize glue (haloc_axa "
+            f"busy less approx_add less exact busy): {glue:.1f} us in "
+            f"{glue_n:.0f} launches a step")
+
+    # (c) the card against the CPU at depth LM_CPU_LAYERS
+    cut = dataclasses.replace(base, repeats=LM_CPU_LAYERS)
+    small = dict(params, pattern=[params["pattern"][0][:LM_CPU_LAYERS]])
+    rec = ResidualRecorder(lm_numerics("haloc_axa", "cuda", dev))
+    ctoks, clogits = generate(small, dataclasses.replace(cut, approx=rec),
+                              prompt, LM_CPU_NEW, return_logits=True)
+    ctoks_e, clogits_e = generate(small, cut, prompt, LM_CPU_NEW,
+                                  return_logits=True)
+    del params
+    torch.cuda.empty_cache()
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_cpu(v) for v in tree]
+        return tree.cpu()
+
+    t0 = time.perf_counter()
+    cpu_params = to_cpu(small)
+    cpu_hal = dataclasses.replace(cut, approx=lm_numerics("haloc_axa",
+                                                          "torch", "cpu"))
+    cpu = teacher_forced_logits(cpu_params, cpu_hal, ctoks.cpu(), LM_PROMPT)
+    cpu_e = teacher_forced_logits(cpu_params, cut, ctoks_e.cpu(), LM_PROMPT)
+    cpu_s = time.perf_counter() - t0
+    exact_cc = [lm_rel(torch, cpu_e[:, i], clogits_e[:, i].cpu())
+                for i in range(LM_CPU_NEW)]
+    check(max(exact_cc) < LM_TOL,
+          f"{LM_ARCH} cut to {LM_CPU_LAYERS} layers, exact: the card's "
+          f"logits against the CPU path's {max(exact_cc):.4f} >= {LM_TOL}")
+    for x, y, out in rec.calls:
+        check(torch.equal(out.cpu(), cpu_hal.approx.residual_add(x.cpu(),
+                                                                 y.cpu())),
+              "a residual add on the card differs from the CPU path's on "
+              "the same operands")
+    hal_cc = [lm_rel(torch, cpu[:, i], clogits[:, i].cpu())
+              for i in range(LM_CPU_NEW)]
+    log(f"  (c) {LM_ARCH} cut to its first {LM_CPU_LAYERS} layers (full "
+        f"width), {LM_CPU_NEW} new tokens, the CPU path teacher-forced on "
+        f"the card's tokens ({cpu_s:.1f} s): exact logits max "
+        f"{max(exact_cc):.4f} (< {LM_TOL}); haloc_axa: each of the card's "
+        f"{len(rec.calls)} residual adds equals the CPU path's on the same "
+        f"operands, bit for bit; logits {min(hal_cc):.4f}-{max(hal_cc):.4f}"
+        f" (printed, not gated: cuBLAS and the CPU's fp32 products round "
+        f"differently, and the adds amplify it)")
+    del small, cpu_params
+    torch.cuda.empty_cache()
+
+    # (d) the window path past the window
+    wcfg = dataclasses.replace(get_config(LM_WINDOW_ARCH), repeats=1)
+    wparams = T.init_params(0, wcfg, device=dev, dtype=torch.bfloat16)
+    wprompt = lm_prompt(torch, wcfg, LM_WINDOW_BATCH, LM_WINDOW_PROMPT, dev,
+                        2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    wtoks, wlogits = generate(wparams, wcfg, wprompt, LM_WINDOW_NEW,
+                              return_logits=True)
+    wpar = lm_parity(torch, T, wparams, wcfg, wtoks, wlogits,
+                     LM_WINDOW_PROMPT)
+    check(max(wpar) < LM_TOL,
+          f"{LM_WINDOW_ARCH} ({wcfg.num_layers} layers) exact: prefill/"
+          f"decode past the window against the full forward "
+          f"{max(wpar):.4f} >= {LM_TOL}")
+    whal = wcfg.with_approx(lm_numerics("haloc_axa", "cuda", dev))
+    htoks, hlogits = generate(wparams, whal, wprompt, LM_WINDOW_NEW,
+                              return_logits=True)
+    check(torch.equal(teacher_forced_logits(wparams, whal, htoks,
+                                            LM_WINDOW_PROMPT), hlogits),
+          f"{LM_WINDOW_ARCH} haloc_axa: prefill and decode on the generated "
+          f"tokens differ from generate's own logits")
+    whal_par = lm_parity(torch, T, wparams, whal, htoks, hlogits,
+                         LM_WINDOW_PROMPT)
+    log(f"  (d) {LM_WINDOW_ARCH} at full width cut to {wcfg.num_layers} "
+        f"layers ({T.param_count(wparams)} parameters; windows "
+        f"{[s.window for s in wcfg.all_blocks()]}), batch "
+        f"{LM_WINDOW_BATCH}, prompt {LM_WINDOW_PROMPT}, {LM_WINDOW_NEW} "
+        f"decode steps to position {LM_WINDOW_PROMPT + LM_WINDOW_NEW - 1}: "
+        f"exact against the full forward max {max(wpar):.4f} (< {LM_TOL}); "
+        f"haloc_axa teacher-forced equal to generate, against the full "
+        f"forward {min(whal_par):.4f}-{max(whal_par):.4f} (printed); peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    del wparams
+    torch.cuda.empty_cache()
+
+    # (f) the launcher
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           LM_ARCH, "--adder", "haloc_axa", "--batch", "4", "--prompt-len",
+           "32", "--new-tokens", "16"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    out = res.stdout.strip().splitlines()
+    check(res.returncode == 0 and out
+          and out[-1].startswith(f"{LM_ARCH}: (4, 48); "),
+          f"python -m repro_torch.launch.serve exited {res.returncode}: "
+          f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    log(f"  (f) python -m repro_torch.launch.serve --arch {LM_ARCH} "
+        f"--adder haloc_axa --batch 4 --prompt-len 32 --new-tokens 16: "
+        f"exit 0 in {time.perf_counter() - t0:.1f} s: {out[-1]}")
+    return launches
+
+
 # ------------------------------------------------------------- phase 5 --
 
 def fold_ops(weights):
@@ -3569,6 +3972,13 @@ def main():
     for name in INTEGRITY_PATH_KERNELS:
         launches[name] += i_launches[name]
     log(f"  phase 4f took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 4g: the LM serving path at full width (Qwen3-4B)")
+    t0 = time.perf_counter()
+    l_launches = lm_phase(torch, np, dev, counts, card, errs)
+    for name in LM_PATH_KERNELS:
+        launches[name] += l_launches[name]
+    log(f"  phase 4g took {time.perf_counter() - t0:.1f} s")
 
     log("phase 5: times (CUDA events, median)")
     int32_ops_per_s = int32_rate(torch, dev)

@@ -1,0 +1,144 @@
+"""Self-attention residual mixer with KV-cache support (the port of
+``repro.models.attention``; cross attention belongs to the vision slice).
+
+Cache layouts (lockstep batched serving):
+  global attn : {"k","v": (B, S_ctx, Hkv, Dh) bf16, "pos": (S_ctx,) int32}
+  local  attn : ring buffer of size W (slot = pos % W), same fields
+
+``pos`` stores the absolute position held by each slot, -1 = empty; masks
+are computed from these absolute positions (``layers._mask_bias``), which
+makes the ring buffer and the linear cache share one code path.
+
+The port writes a decode step's k/v/pos into the cache it is given, in
+place (the reference returns a new cache), and so does a prefill shorter
+than the cache; the returned cache is that same dict.  A decode position
+past the end of a global layer's cache is clamped to the last slot, and a
+negative one counts from the end, as ``jax.lax.dynamic_update_slice``
+does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import BlockSpec, ModelConfig
+
+
+def attn_init(init, cfg: ModelConfig, spec: BlockSpec):
+    """Parameters of one attention mixer, drawn by ``init`` (a
+    ``transformer.Init``)."""
+    p = {
+        "wq": init.dense(cfg.d_model, cfg.q_dim, bias=cfg.qkv_bias),
+        "wk": init.dense(cfg.d_model, cfg.kv_dim, bias=cfg.qkv_bias),
+        "wv": init.dense(cfg.d_model, cfg.kv_dim, bias=cfg.qkv_bias),
+        "wo": init.dense(cfg.q_dim, cfg.d_model),
+    }
+    if cfg.qk_norm:
+        p["qn"] = init.norm(cfg.head_dim)
+        p["kn"] = init.norm(cfg.head_dim)
+    return p
+
+
+def _qkv(p, cfg: ModelConfig, x, positions, spec: BlockSpec, rope=None):
+    """q, k, v of ``x``, RoPE applied; ``rope`` is the (cos, sin) tables of
+    ``positions`` when the caller has them already."""
+    b, s, _ = x.shape
+    q = L.dense(p["wq"], x).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = L.dense(p["wk"], x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = L.dense(p["wv"], x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = L.rms_norm(p["qn"], q, cfg.norm_eps)
+        k = L.rms_norm(p["kn"], k, cfg.norm_eps)
+    cos, sin = rope if rope is not None else L.rope_tables(
+        positions, cfg.head_dim, spec.rope_base)
+    q = L.apply_rope(q, cos, sin)
+    k = L.apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def attn_apply(p, cfg: ModelConfig, spec: BlockSpec, x, positions,
+               rope=None):
+    """Full-sequence self attention (scoring). positions: (S,)."""
+    q, k, v = _qkv(p, cfg, x, positions, spec, rope)
+    out = L.attention_any(
+        q, k, v, positions, positions, causal=cfg.causal,
+        window=spec.window, kv_chunk=cfg.attn_kv_chunk)
+    b, s = x.shape[:2]
+    return L.dense(p["wo"], out.reshape(b, s, cfg.q_dim))
+
+
+def attn_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,
+                    ctx_len: int, dtype=torch.bfloat16, device=None):
+    size = min(ctx_len, spec.window) if spec.window > 0 else ctx_len
+    shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((size,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def attn_prefill(p, cfg: ModelConfig, spec: BlockSpec, x, positions, cache,
+                 rope=None):
+    """Prefill: full-sequence attention + populate the cache.
+
+    The cache covers the LAST ``size`` positions (ring layout for windowed
+    layers: slot = pos % size, which for a prefill of length S >= size is
+    a roll of the tail)."""
+    q, k, v = _qkv(p, cfg, x, positions, spec, rope)
+    out = L.attention_any(
+        q, k, v, positions, positions, causal=cfg.causal,
+        window=spec.window, kv_chunk=cfg.attn_kv_chunk)
+    size = cache["k"].shape[1]
+    s = x.shape[1]
+    if s >= size:
+        tailpos = positions[s - size:]              # (size,)
+        inv = torch.argsort(tailpos % size)          # slot -> tail index
+        cache = {
+            "k": k[:, s - size:].index_select(1, inv).to(cache["k"].dtype),
+            "v": v[:, s - size:].index_select(1, inv).to(cache["v"].dtype),
+            "pos": tailpos.index_select(0, inv).to(torch.int32),
+        }
+    else:
+        slots = positions % size
+        cache["k"][:, slots] = k.to(cache["k"].dtype)
+        cache["v"][:, slots] = v.to(cache["v"].dtype)
+        cache["pos"][slots] = positions.to(torch.int32)
+    b = x.shape[0]
+    return L.dense(p["wo"], out.reshape(b, s, cfg.q_dim)), cache
+
+
+def decode_slot(pos: int, size: int, window: int) -> int:
+    """The cache slot a decode step at absolute position ``pos`` writes:
+    ``pos % size`` for a windowed layer's ring, else ``pos``, with the
+    reference's ``dynamic_update_slice`` rule (a negative start counts
+    from the end, then the start is clamped into the cache)."""
+    slot = pos % size if window > 0 else pos
+    if slot < 0:
+        slot += size
+    return min(max(slot, 0), size - 1)
+
+
+def attn_decode(p, cfg: ModelConfig, spec: BlockSpec, x, pos: int, cache,
+                positions=None, rope=None):
+    """One decode step. x: (B,1,D); pos: the absolute position (an int);
+    ``positions`` (``[pos]`` as an int32 tensor on x's device) and
+    ``rope`` (its tables), when the caller has them already."""
+    if positions is None:
+        positions = torch.arange(pos, pos + 1, dtype=torch.int32,
+                                 device=x.device)
+    if rope is None:
+        rope = L.rope_tables(range(pos, pos + 1), cfg.head_dim,
+                             spec.rope_base, x.device)
+    q, k, v = _qkv(p, cfg, x, positions, spec, rope)
+    size = cache["k"].shape[1]
+    slot = decode_slot(pos, size, spec.window)
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["pos"][slot] = pos
+    out = L.plain_attention(
+        q, cache["k"], cache["v"], positions, cache["pos"],
+        causal=cfg.causal, window=spec.window)
+    b = x.shape[0]
+    return L.dense(p["wo"], out.reshape(b, 1, cfg.q_dim)), cache

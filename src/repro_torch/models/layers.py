@@ -1,0 +1,327 @@
+"""Shared neural-net layers: norms, RoPE, attention paths, MLPs (the port
+of ``repro.models.layers``, forward only).
+
+Conventions (the reference's)
+-----------------------------
+- Parameters are plain nested dicts of tensors; compute is bf16 with
+  fp32 softmax/norm internals.  ``dense`` casts its weight to the
+  activation's dtype on every call, so weights held in bf16 give the
+  same result as fp32 ones.
+- Attention uses materialized GQA (KV heads repeated to Q heads at use
+  time, interleaved as ``jnp.repeat`` does).
+- Three attention paths:
+    * plain     — scores materialized; small Sq*Skv or decode.
+    * chunked   — online softmax over KV chunks (memory-bounded path for
+                  long prefill); KV is padded to the chunk with position
+                  -1 (masked).
+    * local     — sliding-window attention via the two-block trick:
+                  O(S * 2W), used by windowed layers at prefill.
+- Masks are computed from ABSOLUTE positions (qpos/kvpos tensors), which
+  makes ring-buffer decode caches and padding uniform everywhere.
+
+The flash backward of the reference (its custom VJP) belongs to the
+training slice; these functions are the forward pass.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+NEG_INF = -1e30
+
+
+# ------------------------------------------------------------------ dense
+
+def dense(p, x: Tensor) -> Tensor:
+    """``x @ w (+ b)`` in x's dtype.  On the CPU a bf16 product is taken
+    in fp32 and rounded once, as XLA:CPU takes the reference's (torch's
+    own bf16 CPU matmul rounds some sums differently, and which ones
+    depends on the number of rows); on the card it is cuBLAS's bf16
+    product with fp32 accumulation."""
+    w = p["w"].to(x.dtype)
+    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+        y = (x.float() @ w.float()).to(x.dtype)
+    else:
+        y = x @ w
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def rms_norm(p, x: Tensor, eps: float = 1e-6) -> Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    # the fp32 rsqrt correctly rounded (through fp64, one value a row):
+    # XLA's and torch's own fp32 rsqrt each miss it in the last bit
+    inv = torch.rsqrt((var + eps).to(torch.float64)).to(torch.float32)
+    return (xf * inv * p["scale"]).to(x.dtype)
+
+
+# ------------------------------------------------------------------- RoPE
+#
+# The tables are the C library's float ``cosf``/``sinf`` of the fp32
+# angles, computed on the host and copied to the device.  Those are the
+# functions XLA:CPU calls for the reference's ``jnp.cos``/``jnp.sin``, so
+# the tables equal the reference's bit for bit; torch's own ``cos`` on the
+# CPU or the card differs from them in the last bit of some entries,
+# which the approximate residual adds (a quantize to Q8.8 and an
+# adder whose output moves by up to 2^m units for a one-unit change of an
+# operand) can turn into a visible change of the logits.
+
+@functools.lru_cache(maxsize=None)
+def _libm():
+    import ctypes
+    import ctypes.util
+    lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    for name in ("cosf", "sinf"):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+    return lib
+
+
+def _inv_freq(dim: int, base: float) -> np.ndarray:
+    return (1.0 / (base ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
+            ).astype(np.float32)
+
+
+def _host_tables(pos: np.ndarray, dim: int, base: float):
+    ang = pos.astype(np.float32)[..., None] * _inv_freq(dim, base)
+    flat = ang.ravel().tolist()
+    lib = _libm()
+    cos = np.array([lib.cosf(a) for a in flat], np.float32)
+    sin = np.array([lib.sinf(a) for a in flat], np.float32)
+    return cos.reshape(ang.shape), sin.reshape(ang.shape)
+
+
+#: Positions a cached table block holds.
+ROPE_BLOCK = 1024
+
+
+@functools.lru_cache(maxsize=64)
+def _block_tables(block: int, dim: int, base: float, device: torch.device):
+    """The tables of positions ``[block * ROPE_BLOCK, (block + 1) *
+    ROPE_BLOCK)``, on ``device``: computed and copied there once, so a
+    decode step reads its row on the device without a host round trip."""
+    pos = np.arange(block * ROPE_BLOCK, (block + 1) * ROPE_BLOCK)
+    return tuple(torch.from_numpy(t).to(device)
+                 for t in _host_tables(pos, dim, base))
+
+
+def rope_tables(positions, dim: int, base: float, device=None):
+    """cos/sin tables for ``positions`` -> (..., dim/2), fp32.
+
+    ``positions`` is a tensor (any leading shape; the tables go to its
+    device, and a CUDA tensor is read back to the host first) or a
+    ``range`` (rows of the cached blocks on ``device``, the CPU if
+    ``None``)."""
+    if isinstance(positions, range):
+        dev = torch.device("cpu" if device is None else device)
+        first = positions.start // ROPE_BLOCK
+        last = (max(positions.stop, positions.start + 1) - 1) // ROPE_BLOCK
+        parts = [_block_tables(b, dim, float(base), dev)
+                 for b in range(first, last + 1)]
+        lo = positions.start - first * ROPE_BLOCK
+        hi = lo + len(positions)
+        return tuple(torch.cat(t)[lo:hi] if len(t) > 1 else t[0][lo:hi]
+                     for t in zip(*parts))
+    cos, sin = _host_tables(positions.detach().cpu().numpy(), dim,
+                            float(base))
+    return (torch.from_numpy(cos).to(positions.device),
+            torch.from_numpy(sin).to(positions.device))
+
+
+def apply_rope(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
+    """x: (B, S, H, D); cos/sin: (B?, S, D/2) or (S, D/2)."""
+    while cos.ndim < x.ndim - 1:
+        cos, sin = cos[None], sin[None]
+    cos = cos[..., None, :]  # broadcast over heads -> (..., S, 1, D/2)
+    sin = sin[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# -------------------------------------------------------------- attention
+
+def _repeat_kv(k: Tensor, num_q_heads: int) -> Tensor:
+    reps = num_q_heads // k.shape[2]
+    return torch.repeat_interleave(k, reps, dim=2) if reps > 1 else k
+
+
+def _mask_bias(qpos: Tensor, kvpos: Tensor, *, causal: bool,
+               window: int) -> Tensor:
+    """(..., Sq, Skv) additive fp32 bias from absolute positions.
+
+    kvpos < 0 marks invalid (unwritten or padded) cache slots.
+    """
+    q = qpos[..., :, None].to(torch.int32)
+    k = kvpos[..., None, :].to(torch.int32)
+    ok = k >= 0
+    if causal:
+        ok = ok & (k <= q)
+    if window > 0:
+        ok = ok & (k > q - window)
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
+def _scores(q: Tensor, k: Tensor) -> Tensor:
+    """(b, h, q, k) fp32 scores of the working-dtype product (rounded to
+    it first, as ``jnp.einsum`` does)."""
+    return torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32)
+
+
+def plain_attention(q, k, v, qpos, kvpos, *, causal=True, window=0):
+    """q: (B,Sq,H,D); k,v: (B,Skv,Hkv,D); qpos: (B,Sq) or (Sq,);
+    kvpos: (B,Skv) or (Skv,)."""
+    h = q.shape[2]
+    k, v = _repeat_kv(k, h), _repeat_kv(v, h)
+    scale = q.shape[-1] ** -0.5
+    s = _scores(q, k) * scale
+    bias = _mask_bias(qpos, kvpos, causal=causal, window=window)
+    bias = bias[None, None] if bias.ndim == 2 else bias[:, None]
+    p = torch.softmax(s + bias, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+
+
+def _flash_fwd(q, k, v, qpos, kvpos, causal, window, chunk):
+    """Online-softmax forward over KV chunks (a loop in place of the
+    reference's scan).  Returns (out (b,h,sq,dv) fp32, lse (b,h,sq))."""
+    b, sq, h, d = q.shape
+    dv = v.shape[-1]
+    skv = k.shape[1]
+    scale = d ** -0.5
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=q.device)
+    for c0 in range(0, skv, chunk):
+        kci, vci = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        s = _scores(q, kci) * scale
+        s = s + _mask_bias(qpos, kvpos[:, c0:c0 + chunk], causal=causal,
+                           window=window)[:, None]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(vci.dtype), vci).to(torch.float32)
+        m = m_new
+    l_safe = torch.clamp(l, min=1e-30)
+    return acc / l_safe[..., None], m + torch.log(l_safe)
+
+
+def chunked_attention(q, k, v, qpos, kvpos, *, causal=True, window=0,
+                      chunk=1024):
+    """Flash attention forward (online softmax over KV chunks)."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    if kvpos.ndim == 1:
+        kvpos = kvpos[None]
+    if skv % chunk:
+        pad = chunk - skv % chunk
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kvpos = F.pad(kvpos, (0, pad), value=-1)
+        skv += pad
+    k, v = _repeat_kv(k, h), _repeat_kv(v, h)
+    if qpos.ndim == 1:
+        qpos = qpos[None]
+    kvpos = kvpos.expand(b, skv)
+    qpos = qpos.expand(b, sq)
+    out, _ = _flash_fwd(q, k, v, qpos, kvpos, causal, window, chunk)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def local_attention(q, k, v, *, window: int):
+    """Causal sliding-window attention for full sequences (prefill).
+
+    Two-block trick: pad S to multiples of W=window; queries in block i
+    attend keys in blocks {i-1, i} with position masking, giving
+    O(S * 2W) instead of O(S^2).  Blocks run one after the other, which
+    bounds the live fp32 scores to one block's worth.
+    """
+    b, s, h, d = q.shape
+    w = window
+    k, v = _repeat_kv(k, h), _repeat_kv(v, h)
+    pad = (-s) % w
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    n = (s + pad) // w
+    qb = q.reshape(b, n, w, h, d)
+    kb = k.reshape(b, n, w, h, d)
+    vb = v.reshape(b, n, w, h, d)
+    # previous block (block -1 is zeros with invalid positions)
+    k_prev = torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], dim=1)
+    v_prev = torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1)
+    k2 = torch.cat([k_prev, kb], dim=2)  # (b, n, 2w, h, d)
+    v2 = torch.cat([v_prev, vb], dim=2)
+    scale = d ** -0.5
+    dev = q.device
+    ar_n = torch.arange(n, device=dev)
+    qpos = ar_n[:, None] * w + torch.arange(w, device=dev)[None, :]
+    kvpos = (ar_n[:, None] - 1) * w + torch.arange(2 * w, device=dev)[None]
+    kvpos = torch.where((kvpos >= 0) & (kvpos < s), kvpos,
+                        torch.full_like(kvpos, -1))
+    bias = _mask_bias(qpos, kvpos, causal=True, window=w)  # (n, w, 2w)
+    out = []
+    for i in range(n):
+        sco = _scores(qb[:, i], k2[:, i]) * scale + bias[i][None, None]
+        p = torch.softmax(sco, dim=-1)
+        out.append(torch.einsum("bhqk,bkhd->bqhd", p.to(v2.dtype),
+                                v2[:, i]))
+    return torch.stack(out, dim=1).reshape(b, s + pad, h, d)[:, :s]
+
+
+def attention_any(q, k, v, qpos, kvpos, *, causal=True, window=0,
+                  kv_chunk=1024, plain_limit=1024 * 1024):
+    """Route to the right attention path.
+
+    - windowed full-sequence longer than the window: blocked local
+      attention, O(S * 2W);
+    - decode (sq == 1) and small problems: plain (scores materialized);
+    - everything else: online-softmax chunked attention (memory-bounded).
+    """
+    sq, skv = q.shape[1], k.shape[1]
+    if window > 0 and causal and sq == skv and sq > window:
+        return local_attention(q, k, v, window=window)
+    if sq * skv <= plain_limit or sq == 1:
+        return plain_attention(q, k, v, qpos, kvpos, causal=causal,
+                               window=window)
+    return chunked_attention(q, k, v, qpos, kvpos, causal=causal,
+                             window=window, chunk=kv_chunk)
+
+
+# ------------------------------------------------------------------- MLPs
+#
+# ``jax.nn.silu`` and ``jax.nn.gelu`` are chains of elementwise ops that
+# XLA rounds to the working dtype after each op (its logistic is
+# 1 / (1 + exp(-x))).  The two functions below are those chains, op for
+# op, so that bf16 activations round where the reference's do; a fused
+# ``F.silu``/``F.gelu`` rounds once and differs in the last bit of many
+# bf16 outputs.
+
+def silu(x: Tensor) -> Tensor:
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu_tanh(x: Tensor) -> Tensor:
+    """``jax.nn.gelu`` (its default tanh approximation), the constants
+    rounded to x's dtype as the reference's are."""
+    c0, c1 = torch.tensor([0.044715, np.sqrt(2 / np.pi)],
+                          dtype=x.dtype).tolist()
+    inner = (x + (x * x * x) * c0) * c1
+    return x * ((torch.tanh(inner) + 1) * 0.5)
+
+
+def swiglu(p, x: Tensor) -> Tensor:
+    h = silu(dense(p["wg"], x)) * dense(p["wi"], x)
+    return dense(p["wo"], h)
+
+
+def gelu_mlp(p, x: Tensor) -> Tensor:
+    return dense(p["wo"], gelu_tanh(dense(p["wi"], x)))

@@ -1,0 +1,320 @@
+"""Model assembly: embeddings, residual blocks, the block loop (the port of
+``repro.models.transformer``; the dense family, forward only).
+
+Layout of a parameter tree (all plain dicts of tensors):
+
+  {"embed": {"table"}, "prefix": [block...], "pattern": [[block...]...],
+   "suffix": [block...], "final_norm": {...}, "lm_head": {...}}
+
+``pattern`` holds one entry per pattern POSITION, as the reference's
+does; where the reference's entry is one block tree whose leaves carry a
+leading ``repeats`` axis (consumed by ``lax.scan``), the port's is a list
+of ``repeats`` block trees, run one after the other.  A cache has the same
+layout.  Norm scales are fp32; the matrices, biases and the embedding may
+be held in bf16 for serving (``init_params(..., dtype=torch.bfloat16)``),
+which gives the same results: ``dense`` casts its weight to the bf16
+activations on every call and the embedding is gathered into bf16.
+
+The paper's technique enters through ``cfg.approx``: when enabled, both
+residual-stream adds of every block run through the configured
+approximate adder in fixed point (``cfg.approx.residual_add`` -> the
+port's engine, the ``approx_add`` kernel on the card).
+
+Self attention (global or windowed) with a SwiGLU or GELU MLP is ported.
+The other mixers and MLPs, the audio and vision inputs, sharding
+(``batch_axes``/``mesh``) and the loss belong to later slices and raise
+``NotImplementedError`` naming their ROADMAP entry.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Union
+
+import torch
+
+from repro_torch.ax.backends import get_backend
+from repro_torch.ax.engine import resolve_device as _resolve_device
+from repro_torch.models import attention as ATT
+from repro_torch.models import layers as L
+from repro_torch.models.config import (
+    ATTN, CROSS, GELU, MLA, MOE, NONE, RGLRU, SSD, SWIGLU,
+    BlockSpec, ModelConfig,
+)
+
+Params = Dict[str, Any]
+Device = Union[str, torch.device, None]
+
+#: Where each unported part of a model config is planned (ROADMAP.md,
+#: Queue A item 7).
+_UNPORTED = {
+    MLA: "7c (MoE and MLA)",
+    MOE: "7c (MoE and MLA)",
+    RGLRU: "7d (RG-LRU and SSD)",
+    SSD: "7d (RG-LRU and SSD)",
+    CROSS: "7e (cross attention and the audio frontend)",
+    "vision": "7e (cross attention and the audio frontend)",
+    "audio": "7e (cross attention and the audio frontend)",
+    "sharding": "7f (sharding on a DeviceMesh)",
+}
+
+
+def _unported(what: str, key: str):
+    raise NotImplementedError(
+        f"{what} is not ported to repro_torch yet: ROADMAP.md Queue A item "
+        f"{_UNPORTED[key]}")
+
+
+def check_ported(cfg: ModelConfig) -> ModelConfig:
+    """Raise ``NotImplementedError`` unless every block of ``cfg`` is self
+    attention with a SwiGLU or GELU MLP and the input is tokens."""
+    if cfg.audio is not None:
+        _unported(f"{cfg.name}'s audio input", "audio")
+    if cfg.vision is not None:
+        _unported(f"{cfg.name}'s vision input", "vision")
+    for spec in cfg.all_blocks():
+        if spec.mixer != ATTN:
+            _unported(f"the {spec.mixer!r} mixer", spec.mixer)
+        if spec.mlp not in (SWIGLU, GELU):
+            _unported(f"the {spec.mlp!r} MLP", MOE if spec.mlp == MOE
+                      else SSD)
+    return cfg
+
+
+def _no_sharding(batch_axes, mesh):
+    if batch_axes is not None or mesh is not None:
+        _unported("batch_axes/mesh", "sharding")
+
+
+def resolve_device(device: Device = None) -> torch.device:
+    """``None`` is the card; raises without one, naming the CPU spelling
+    (the engine's rule)."""
+    return _resolve_device(get_backend("torch"), device)
+
+
+def params_device(params: Params) -> torch.device:
+    return params["embed"]["table"].device
+
+
+# ------------------------------------------------------------------ init --
+
+class Init:
+    """The reference's initializers drawn from one ``torch.Generator`` on
+    the target device: matrices N(0, 1) * d_in^-0.5 in ``dtype``, zero
+    biases, unit norm scales (fp32).  On the meta device nothing is
+    drawn (shapes and dtypes only)."""
+
+    def __init__(self, seed: Union[int, torch.Generator], device: Device,
+                 dtype=torch.float32):
+        self.device = torch.device(device)
+        self.dtype = dtype
+        if self.device.type == "meta":
+            self.gen = None
+        elif isinstance(seed, torch.Generator):
+            self.gen = seed
+        else:
+            self.gen = torch.Generator(device=self.device)
+            self.gen.manual_seed(int(seed))
+
+    def normal(self, shape, scale: float) -> torch.Tensor:
+        if self.gen is None:
+            return torch.empty(shape, dtype=self.dtype, device=self.device)
+        w = torch.randn(shape, generator=self.gen, dtype=torch.float32,
+                        device=self.device)
+        return (w * scale).to(self.dtype)
+
+    def dense(self, d_in: int, d_out: int, *, bias: bool = False):
+        p = {"w": self.normal((d_in, d_out), d_in ** -0.5)}
+        if bias:
+            p["b"] = torch.zeros((d_out,), dtype=self.dtype,
+                                 device=self.device)
+        return p
+
+    def norm(self, dim: int):
+        return {"scale": torch.ones((dim,), dtype=torch.float32,
+                                    device=self.device)}
+
+
+def block_init(init: Init, cfg: ModelConfig, spec: BlockSpec) -> Params:
+    p: Params = {"ln1": init.norm(cfg.d_model),
+                 "mixer": ATT.attn_init(init, cfg, spec)}
+    if spec.mlp != NONE:
+        p["ln2"] = init.norm(cfg.d_model)
+        if spec.mlp == SWIGLU:
+            p["mlp"] = {"wi": init.dense(cfg.d_model, cfg.d_ff),
+                        "wg": init.dense(cfg.d_model, cfg.d_ff),
+                        "wo": init.dense(cfg.d_ff, cfg.d_model)}
+        else:
+            p["mlp"] = {"wi": init.dense(cfg.d_model, cfg.d_ff, bias=True),
+                        "wo": init.dense(cfg.d_ff, cfg.d_model, bias=True)}
+    return p
+
+
+def init_params(seed: Union[int, torch.Generator], cfg: ModelConfig, *,
+                device: Device = None, dtype=torch.float32) -> Params:
+    """The reference's parameter tree and distributions, drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (``None``: the
+    card).  The numbers are not ``jax.random``'s; carry the reference's
+    own parameters across with :func:`repro_torch.models.weights.from_reference`.
+    ``dtype`` is the matrices', biases' and embedding's (bf16 for
+    serving); norm scales stay fp32."""
+    check_ported(cfg.validate())
+    init = Init(seed, resolve_device(device), dtype)
+    d = cfg.d_model
+    p: Params = {"embed": {"table": init.normal((cfg.padded_vocab, d),
+                                                d ** -0.5)}}
+    p["prefix"] = [block_init(init, cfg, s) for s in cfg.prefix]
+    p["suffix"] = [block_init(init, cfg, s) for s in cfg.suffix]
+    p["pattern"] = [[block_init(init, cfg, s) for _ in range(cfg.repeats)]
+                    for s in cfg.pattern]
+    p["final_norm"] = init.norm(d)
+    p["lm_head"] = init.dense(d, cfg.padded_vocab)
+    return p
+
+
+def param_count(params: Params) -> int:
+    """Number of parameters in a tree (any nesting of dicts and lists)."""
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    items = params.values() if isinstance(params, dict) else params
+    return sum(param_count(v) for v in items)
+
+
+# --------------------------------------------------------------- caches --
+
+def block_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,
+                     ctx_len: int, dtype=torch.bfloat16,
+                     device: Device = None) -> Params:
+    if spec.mixer != ATTN:
+        _unported(f"the {spec.mixer!r} mixer's cache", spec.mixer)
+    return ATT.attn_cache_init(cfg, spec, batch, ctx_len, dtype, device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, ctx_len: int,
+               dtype=torch.bfloat16, device: Device = None) -> Params:
+    """An empty cache for ``batch`` sequences of up to ``ctx_len``
+    positions, on ``device`` (``None``: the card)."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+
+    def one(s):
+        return block_cache_init(cfg, s, batch, ctx_len, dtype, dev)
+
+    return {"prefix": [one(s) for s in cfg.prefix],
+            "suffix": [one(s) for s in cfg.suffix],
+            "pattern": [[one(s) for _ in range(cfg.repeats)]
+                        for s in cfg.pattern]}
+
+
+# ---------------------------------------------------------------- blocks --
+
+def blocks_in_order(cfg: ModelConfig, tree: Params) -> list:
+    """The blocks of a parameter or cache tree in execution order (that of
+    ``cfg.all_blocks()``): the prefix, the pattern repeat by repeat, the
+    suffix."""
+    return (list(tree["prefix"])
+            + [tree["pattern"][i][r] for r in range(cfg.repeats)
+               for i in range(len(cfg.pattern))]
+            + list(tree["suffix"]))
+
+
+def blocks_layout(cfg: ModelConfig, flat: list) -> Params:
+    """The inverse of :func:`blocks_in_order`."""
+    n0, n1 = len(cfg.prefix), len(cfg.pattern)
+    mid = flat[n0:n0 + n1 * cfg.repeats]
+    return {"prefix": flat[:n0],
+            "pattern": [mid[i::n1] for i in range(n1)],
+            "suffix": flat[n0 + n1 * cfg.repeats:]}
+
+
+def block_apply(p: Params, cfg: ModelConfig, spec: BlockSpec, x, ctx,
+                cache: Optional[Params], mode: str, batch_axes=None,
+                mesh=None):
+    """mode: 'full' | 'prefill' | 'decode'. Returns (x, new_cache, aux);
+    aux is None (the dense family's blocks add no auxiliary loss)."""
+    _no_sharding(batch_axes, mesh)
+    if spec.mixer != ATTN:
+        _unported(f"the {spec.mixer!r} mixer", spec.mixer)
+    h = L.rms_norm(p["ln1"], x, cfg.norm_eps)
+    new_cache = cache
+    rope = ctx.get("rope", {}).get(spec.rope_base)
+    if mode == "full":
+        mix = ATT.attn_apply(p["mixer"], cfg, spec, h, ctx["positions"],
+                             rope)
+    elif mode == "prefill":
+        mix, new_cache = ATT.attn_prefill(
+            p["mixer"], cfg, spec, h, ctx["positions"], cache, rope)
+    else:
+        mix, new_cache = ATT.attn_decode(
+            p["mixer"], cfg, spec, h, ctx["pos"], cache, ctx["positions"],
+            rope)
+
+    x = cfg.approx.residual_add(x, mix.to(x.dtype))
+    if spec.mlp != NONE:
+        h2 = L.rms_norm(p["ln2"], x, cfg.norm_eps)
+        if spec.mlp == SWIGLU:
+            out = L.swiglu(p["mlp"], h2)
+        elif spec.mlp == GELU:
+            out = L.gelu_mlp(p["mlp"], h2)
+        else:
+            _unported(f"the {spec.mlp!r} MLP", MOE)
+        x = cfg.approx.residual_add(x, out.to(x.dtype))
+    return x, new_cache, None
+
+
+# --------------------------------------------------------------- forward --
+
+def embed_input(params, cfg: ModelConfig, batch):
+    """batch: {"tokens": (B, S) ints} -> (bf16 activations, ctx).  Ids
+    outside the vocabulary are clamped into it (a negative id counts from
+    the end first), as the reference's gather does."""
+    check_ported(cfg)
+    table = params["embed"]["table"]
+    n = table.shape[0]
+    tokens = torch.as_tensor(batch["tokens"], device=table.device)
+    ids = torch.where(tokens < 0, tokens + n, tokens).clamp(0, n - 1)
+    return table[ids].to(torch.bfloat16), {}
+
+
+def forward(params, cfg: ModelConfig, batch, *, mode: str = "full",
+            cache: Optional[Params] = None, pos=None, batch_axes=None,
+            mesh=None):
+    """Returns (logits, new_cache, aux_sum).
+
+    mode "full" scores every position; "prefill" fills ``cache`` and
+    "decode" (one token at absolute position ``pos``) updates it, both
+    returning the last position's logits only.  ``aux_sum`` is 0: the
+    dense family has no auxiliary loss."""
+    _no_sharding(batch_axes, mesh)
+    if mode not in ("full", "prefill", "decode"):
+        raise ValueError(f"bad forward mode {mode!r}")
+    if mode != "full" and cache is None:
+        raise ValueError(f"mode {mode!r} needs a cache (init_cache)")
+    x, ctx = embed_input(params, cfg, batch)
+    b, s = x.shape[:2]
+    if mode == "decode":
+        ctx["pos"] = int(pos)
+        span = range(ctx["pos"], ctx["pos"] + 1)
+    else:
+        span = range(s)
+    ctx["positions"] = torch.arange(span.start, span.stop, dtype=torch.int32,
+                                    device=x.device)
+    # one pair of RoPE tables per base, shared by the blocks
+    ctx["rope"] = {base: L.rope_tables(span, cfg.head_dim, base, x.device)
+                   for base in {spec.rope_base for spec in cfg.all_blocks()}}
+
+    specs = cfg.all_blocks()
+    caches = blocks_in_order(cfg, cache) if cache is not None \
+        else [None] * len(specs)
+    new = []
+    for p, spec, c in zip(blocks_in_order(cfg, params), specs, caches,
+                          strict=True):
+        x, nc, _ = block_apply(p, cfg, spec, x, ctx, c, mode)
+        new.append(nc)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    if mode in ("prefill", "decode") and cfg.causal:
+        x = x[:, -1:]  # only the last position's logits are needed
+    new_cache = blocks_layout(cfg, new) if cache is not None else None
+    return L.dense(params["lm_head"], x), new_cache, aux
+

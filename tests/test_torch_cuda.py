@@ -1115,3 +1115,56 @@ def test_detection_campaign_quick_on_card_equals_the_cpu(cuda_device):
     assert [dict(r, backend="") for r in got] == \
         [dict(r, backend="") for r in want]
     assert all(r["backend"] == "cuda" for r in got)
+
+
+# ------------------------------------------------------------- LM serving
+
+@pytest.mark.parametrize("arch", ("qwen3-4b", "gemma3-27b"))
+def test_lm_generate_cuda_backend_equals_torch_backend(cuda_device, arch):
+    """A smoke-config ``generate`` with the residual adds in the
+    ``approx_add`` kernel gives the tokens and, bit for bit, the logits of
+    the same run with the kernel's plain version on the card; 2 launches
+    a block a forward step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.serving import generate
+    from repro_torch.numerics.approx_ops import make_numerics
+    base = get_smoke_config(arch)
+    params = T.init_params(0, base, dtype=torch.bfloat16)
+    assert params["embed"]["table"].device.type == "cuda"
+    prompt = {"tokens": torch.randint(
+        0, base.vocab_size, (3, 20),
+        generator=torch.Generator(cuda_device).manual_seed(0),
+        device=cuda_device)}
+    runs = {}
+    for backend in ("cuda", "torch"):
+        cfg = base.with_approx(make_numerics("haloc_axa", "residual",
+                                             backend=backend,
+                                             device=cuda_device))
+        add_k.approx_add.launches = 0
+        runs[backend] = generate(params, cfg, prompt, 6, return_logits=True)
+        torch.cuda.synchronize()
+        want = 2 * base.num_layers * 6 if backend == "cuda" else 0
+        assert add_k.approx_add.launches == want, backend
+    assert torch.equal(runs["cuda"][0], runs["torch"][0])
+    assert torch.equal(runs["cuda"][1], runs["torch"][1])
+    assert runs["cuda"][1].device.type == "cuda"
+
+
+def test_lm_default_numerics_engine_is_on_the_card(cuda_device):
+    """The default ``ApproxNumericsConfig`` engine runs the kernels on the
+    card (one ``approx_add`` launch a residual add), equal to the CPU
+    path."""
+    from repro_torch.numerics.approx_ops import make_numerics
+    eng = make_numerics("haloc_axa", "residual").engine
+    assert eng.backend.name == "cuda" and eng.device.type == "cuda"
+    x = torch.linspace(-3, 3, 64, device=cuda_device)
+    add_k.approx_add.launches = 0
+    make_numerics("haloc_axa", "residual").residual_add(x, x.flip(0))
+    assert add_k.approx_add.launches == 1
+    cpu = make_numerics("haloc_axa", "residual", backend="torch",
+                        device="cpu")
+    assert torch.equal(
+        make_numerics("haloc_axa", "residual").residual_add(
+            x, x.flip(0)).cpu(),
+        cpu.residual_add(x.cpu(), x.flip(0).cpu()))

@@ -11,7 +11,9 @@ device="cpu"``).
 - ``sum`` (the log-depth tree of ``add_signed``) equals the reference's
   ``jax`` ``sum`` on odd lengths (zero padding) and along other axes;
 - ``residual_add``'s forward equals the reference's, and its backward is
-  the exact add's (all ones).
+  the exact add's (all ones), on small fp32 vectors and on the LM's
+  (B, S, D) bf16 and fp32 residual streams past the Q8.8 range, for every
+  Table-1 kind and strategy.
 """
 
 import jax
@@ -161,6 +163,50 @@ def test_residual_add_forward_and_straight_through_gradient(strategy):
                       argnums=(0, 1))(jnp.asarray(xs), jnp.asarray(ys))
     np.testing.assert_array_equal(x.grad.numpy(), np.asarray(gx))
     np.testing.assert_array_equal(y.grad.numpy(), np.asarray(gy))
+
+
+@pytest.mark.parametrize("kind", ("accurate", "loa", "loawa", "oloca",
+                                  "herloa", "m_herloa", "haloc_axa"))
+def test_residual_add_on_lm_residual_streams(kind):
+    """``residual_add`` on (B, S, D) residual-stream tensors, bf16 and
+    fp32, with values past the Q8.8 range (+-128) so that quantize
+    saturates: bit-identical to the reference for every Table-1 kind at
+    the LM's n16 spec (m = 8, k = 4), in the reference, fused and lut
+    strategies, and the gradient is the exact add's."""
+    fmt = FixedPointFormat(16, 8)
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    xs = (rng.standard_normal((2, 8, 48)) * 90).astype(np.float32)
+    ys = (rng.standard_normal((2, 8, 48)) * 90).astype(np.float32)
+    xs[0, 0, :6] = [200.0, -200.0, 127.99, -128.0, 128.0, 1e6]
+    ys[0, 0, :6] = [100.0, -100.0, 0.01, -0.01, 0.5, 1.0]
+    assert np.abs(xs).max() > 128 and np.abs(xs + ys).max() > 128
+    spec = make_engine(kind, fmt=fmt, backend="torch", device=CPU).spec
+    for strategy in (("reference",) if kind == "accurate"
+                     else ("reference", "fused", "lut")):
+        port, ref = _engines(spec, strategy, fmt)
+        for jdt, tdt in ((jnp.float32, torch.float32),
+                         (jnp.bfloat16, torch.bfloat16)):
+            xj, yj = jnp.asarray(xs).astype(jdt), jnp.asarray(ys).astype(jdt)
+            x = torch.as_tensor(xs).to(tdt).requires_grad_(True)
+            y = torch.as_tensor(ys).to(tdt).requires_grad_(True)
+            out = port.residual_add(x, y)
+            want = ref.residual_add(xj, yj)
+            assert out.dtype == tdt
+            np.testing.assert_array_equal(
+                out.detach().float().numpy(),
+                np.asarray(want.astype(jnp.float32)),
+                err_msg=f"{spec.short_name} {strategy} {tdt}")
+            if kind != "accurate":
+                q = np.asarray(want.astype(jnp.float32))
+                assert np.abs(q).max() <= 128   # inside Q8.8
+            out.float().sum().backward()
+            gx, gy = jax.grad(
+                lambda a, b: ref.residual_add(a, b).astype(jnp.float32).sum(),
+                argnums=(0, 1))(xj, yj)
+            for got, g in ((x.grad, gx), (y.grad, gy)):
+                np.testing.assert_array_equal(
+                    got.float().numpy(), np.asarray(g.astype(jnp.float32)))
+                assert got.float().eq(1).all()
 
 
 def test_residual_add_exact_kind_and_format():

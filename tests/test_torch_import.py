@@ -5,9 +5,11 @@
   telemetry on, a fault injected, a degrade policy and a stream, and the
   integrity, serving and I/O modules driven: lazy exports, the store's
   salt, a scrub, a canary, ABFT, the detection campaign's helpers and a
-  served plan) and no source file under ``src/repro_torch`` (``obs``,
-  ``resilience``, ``runtime``, ``integrity`` and ``serving`` included)
-  names them;
+  served plan; and the LM path: the launcher, the transformer, the
+  numerics config, a windowed smoke model generating under haloc_axa)
+  and no source file under ``src/repro_torch`` (``obs``, ``resilience``,
+  ``runtime``, ``integrity``, ``serving``, ``models``, ``launch`` and
+  ``configs`` included) names them;
 - a default engine asks for the card and raises without one, naming the
   explicit CPU spelling;
 - ``quantize`` and the container conversions equal ``repro``'s on the
@@ -105,6 +107,18 @@ def test_import_and_cpu_pipeline_load_no_jax():
         "rep = sv.run_traffic(sched, sv.make_arrivals(sv.SMALL_MIX, n=2, "
         "seed=0))\n"
         "assert len(rep.completed) == 2, rep.summary()\n"
+        "import repro_torch.launch.serve\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.launch.steps import params_shapes\n"
+        "from repro_torch.models import transformer as T\n"
+        "from repro_torch.models.serving import generate\n"
+        "from repro_torch.numerics.approx_ops import make_numerics\n"
+        "lm = get_smoke_config('gemma3-27b').with_approx(make_numerics("
+        "'haloc_axa', 'residual', backend='torch', device='cpu'))\n"
+        "lp = T.init_params(0, lm, device='cpu')\n"
+        "toks = generate(lp, lm, {'tokens': np.zeros((1, 20), np.int32)}, 2)\n"
+        "assert tuple(toks.shape) == (1, 22), toks.shape\n"
+        "params_shapes(get_smoke_config('qwen3-4b'))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('LOADED', bad)\n"
@@ -123,7 +137,8 @@ def test_sources_name_neither_jax_nor_repro():
         r"from\s+repro\s+import|import\s+repro\s*$)", re.M)
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    for sub in ("obs", "resilience", "runtime", "integrity", "serving"):
+    for sub in ("obs", "resilience", "runtime", "integrity", "serving",
+                "models", "launch", "configs"):
         scanned = [f for f in files if f.parent == PKG / sub]
         assert len(scanned) >= 2, sub
     assert PKG / "ioutil.py" in files
