@@ -228,6 +228,30 @@ join the ``kernels`` line):
    --batch 4 --prompt-len 32 --new-tokens 16`` exits 0 and prints its
    report line.
 
+The MoE slice adds phase 4h, at full width, its counts set to 0 just
+before each of its two paths and read just after (their ``approx_add``
+launches join the ``kernels`` line):
+
+4h. (a) ``approx_add`` against its plain version at (4, 128, 1024) and
+   (4, 1, 1024); granite-moe-1b-a400m at its full published config (24
+   layers, d_model 1024, 16/8 heads, 32 experts top-8 with d_ff 512,
+   vocab 49155 padded to 51200; bf16 weights from a seeded generator on
+   the card), ``generate`` of 4 x (128 + 32) tokens under haloc_axa: 48
+   ``approx_add`` launches a forward step (1536) and no other kernel,
+   tokens and every step's logits bit for bit those of the plain versions
+   on the card; with exact adds at capacity factor 8 and one sequence
+   chunk, prefill + decode against ``forward(mode="full")`` within the
+   reference's MoE rule (< 0.08; the haloc_axa figure printed); prefill
+   ms, decode ms a step, the decode step's launches and idle share, and
+   its weight-bytes bound, exact and haloc_axa; (b) the same at
+   (4, 128, 5120) and (4, 1, 5120) and for DeepSeek-V2 at full width
+   (d_model 5120, 128 heads, MLA kv_lora 512 / q_lora 1536 / rope 64,
+   160 routed experts top-6 + 2 shared, 8 sequence chunks), depth cut
+   from 60 to 3 layers (the dense block and two MoE blocks), ``generate``
+   of 4 x (128 + 8) tokens: 6 launches a step (48), bit for bit against
+   the plain versions; ``mla_decode``'s absorbed mode against decompress
+   with exact adds, teacher-forced, within 0.04; the times.
+
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 run from a directory without ``src/repro_torch``, it exits non-zero and
@@ -2764,14 +2788,14 @@ def lm_parity(torch, T, params, cfg, toks, logits, prompt_len):
             for i in range(logits.shape[1])]
 
 
-def check_lm_kernel_shapes(torch, np, dev, errs):
+def check_lm_kernel_shapes(torch, np, dev, errs, width=2560):
     """``approx_add`` at the residual adds' container shapes (prefill and
-    decode of Qwen3-4B at batch 4) against its plain version, every kind,
-    both forms."""
+    decode at batch 4 of a model of ``width``: Qwen3-4B's by default)
+    against its plain version, every kind, both forms."""
     from repro_torch.core import specs
     from repro_torch.kernels import approx_add as add_k
     rng = np.random.default_rng(20)
-    for shape in ((LM_BATCH, LM_PROMPT, 2560), (LM_BATCH, 1, 2560)):
+    for shape in ((LM_BATCH, LM_PROMPT, width), (LM_BATCH, 1, width)):
         a = containers(torch, np, rng, shape, 16, dev)
         b = containers(torch, np, rng, shape, 16, dev)
         for kind in specs.ALL_KINDS:
@@ -2800,6 +2824,7 @@ class ResidualRecorder:
 
     def __init__(self, approx):
         self.approx, self.calls = approx, []
+        self.enabled = approx.enabled
 
     def residual_add(self, x, y):
         out = self.approx.residual_add(x, y)
@@ -3080,6 +3105,253 @@ def lm_phase(torch, np, dev, counts, card, errs):
         f"--adder haloc_axa --batch 4 --prompt-len 32 --new-tokens 16: "
         f"exit 0 in {time.perf_counter() - t0:.1f} s: {out[-1]}")
     return launches
+
+
+# ------------------------------------------------------------ phase 4h --
+
+#: The MoE slice's models: granite-moe-1b-a400m at its full published
+#: config, and DeepSeek-V2 at full width cut to its dense block and two
+#: MoE blocks (60 layers do not fit one card).
+MOE_ARCH, MOE_NEW = "granite-moe-1b-a400m", 32
+MLA_ARCH, MLA_REPEATS, MLA_NEW = "deepseek-v2-236b", 2, 8
+#: The reference's parity rule with MoE layers, at capacity factor 8 and
+#: one sequence chunk (``tests/test_models_smoke.py``).
+MOE_TOL = 0.08
+
+
+def moe_weight_bytes(T, params, cfg, batch):
+    """Bytes a decode step at ``batch`` must read of the weights: every
+    matrix but the embedding table (one row a token), of each MoE layer
+    only the experts the step's tokens can reach, E (1 - (1 - k/E)^B) of
+    them with uniform routing (reckoned from the config)."""
+    mc = cfg.moe
+    share = 1 - (1 - mc.experts_per_token / mc.num_experts) ** batch
+    total = 0
+    for blk in T.blocks_in_order(cfg, params):
+        for name, sub in blk.items():
+            if name == "mlp" and "router" in sub:
+                for key, leaf in sub.items():
+                    b = tree_bytes(leaf)
+                    total += b * share if key in ("wi", "wg", "wo") else b
+            else:
+                total += tree_bytes(sub)
+    return total + tree_bytes(params["lm_head"]) + tree_bytes(
+        params["final_norm"]), share * mc.num_experts
+
+
+def moe_times(torch, steps, T, params, cfg, prompt, card, label):
+    """Prefill and decode ms, the decode step's launches and idle share,
+    and the weight-bytes bound of a decode step, printed."""
+    pre, dec, cache, last = lm_times(torch, steps, params, cfg, prompt)
+    prof, step_ms = lm_decode_profile(torch, steps, params, cfg, cache, last)
+    log(f"      {label}: prefill of {LM_BATCH} x {LM_PROMPT} {pre:.3f} ms; "
+        f"decode {dec:.3f} ms a step = {LM_BATCH * 1e3 / dec:.1f} tokens/s "
+        f"(wall, median of 3; {card})")
+    if prof:
+        busy = sum(us for us, _ in prof.values())
+        n = sum(c for _, c in prof.values())
+        parts = ", ".join(f"{cls} {us:.1f} us in {c:.0f} launches"
+                          for cls, (us, c) in sorted(prof.items()))
+        log(f"      {label} decode step by kernel class: {parts}; "
+            f"{n:.0f} launches, busy {busy / 1e3:.3f} ms of a "
+            f"{step_ms:.3f} ms step, idle share "
+            f"{1 - busy / (step_ms * 1e3):.3f}")
+        nxt = last[:, -1].argmax(-1).to(torch.int32)[:, None]
+        times = device_times(torch, lambda: steps.make_decode_step(cfg)(
+            params, {"tokens": nxt}, LM_PROMPT + LM_TIMED_STEPS
+            + LM_PROFILED_STEPS - 1, cache), 1)
+        top = sorted(times.items(), key=lambda kv: -kv[1][0])[:6]
+        log(f"      {label} decode step's largest kernels: " + "; ".join(
+            f"{k[:60]} {us:.1f} us x {c}" for k, (us, c) in top))
+    else:
+        log(f"      {label} decode step profile: the profiler recorded no "
+            f"device time (not measured)")
+    wbytes, experts = moe_weight_bytes(T, params, cfg, LM_BATCH)
+    allb = tree_bytes(dict(params, embed=None))
+    log(f"      {label} decode step bound: the weights it must read "
+        f"({experts:.1f} of {cfg.moe.num_experts} experts a MoE layer at "
+        f"batch {LM_BATCH}) {wbytes / 1e9:.3f} GB, "
+        f"{wbytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s; every "
+        f"weight but the embedding {allb / 1e9:.3f} GB, "
+        f"{allb / HBM_BYTES_PER_S * 1e3:.3f} ms (the port's dispatch runs "
+        f"every expert's FFN on its capacity slots)")
+    return pre, dec
+
+
+def moe_generate_checked(torch, counts, T, params, cfg, prompt, new, dev,
+                         what):
+    """``generate`` under haloc_axa, counted: approx_add launched 2 x
+    layers a step and no other kernel; tokens and every step's logits equal
+    the plain version's on the card.  Returns (tokens, logits, launches)."""
+    from repro_torch.models.serving import generate
+    hal = cfg.with_approx(lm_numerics("haloc_axa", "cuda", dev))
+    plain = cfg.with_approx(lm_numerics("haloc_axa", "torch", dev))
+    (toks, logits), launches = run_counted(
+        torch, counts, LM_PATH_KERNELS,
+        lambda: generate(params, hal, prompt, new, return_logits=True),
+        f"{what} path (generate)")
+    per_step = 2 * cfg.num_layers
+    check(launches["approx_add"] == per_step * new,
+          f"{what}: approx_add launched {launches['approx_add']} times in "
+          f"{new} forward steps, not {per_step} a step")
+    check(all(n == 0 for k, n in launches.items() if k != "approx_add"),
+          f"{what}: the path launched other kernels: {launches}")
+    ptoks, plogits = generate(params, plain, prompt, new, return_logits=True)
+    check(torch.equal(toks, ptoks),
+          f"{what} generate: the approx_add kernel's tokens differ from the "
+          f"plain version's on the card")
+    check(torch.equal(logits, plogits),
+          f"{what} generate: the approx_add kernel's logits differ from the "
+          f"plain version's on the card")
+    return toks, logits, launches
+
+
+def mla_modes(torch, T, params, cfg, prompt, dev):
+    """``mla_decode``'s absorbed mode against decompress with exact adds,
+    as rel figures: each MLA block's decode output on the latent cache of
+    a prefill (the same input and cache for both), the logits of the model
+    cut to its dense block, and those of the whole cut model, teacher-
+    forced on the decompress run's tokens."""
+    import dataclasses
+    from repro_torch.launch import steps
+    from repro_torch.models import mla as MLA
+    from repro_torch.models.serving import generate, teacher_forced_logits
+
+    def absorbed(c):
+        return dataclasses.replace(c, mla=dataclasses.replace(
+            c.mla, decode_mode="absorbed"))
+
+    _, cache = steps.make_prefill_step(cfg, LM_PROMPT + 1)(params, prompt)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    x = torch.randn((LM_BATCH, 1, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    mix = []
+    for p, spec, c in zip(T.blocks_in_order(cfg, params), cfg.all_blocks(),
+                          T.blocks_in_order(cfg, cache), strict=True):
+        outs = [MLA.mla_decode(p["mixer"], mode_cfg, spec, x, LM_PROMPT,
+                               {k: v.clone() for k, v in c.items()})[0]
+                for mode_cfg in (cfg, absorbed(cfg))]
+        mix.append(lm_rel(torch, outs[1], outs[0]))
+    rel = []
+    for c, p in ((dataclasses.replace(cfg, repeats=0),
+                  dict(params, pattern=[[]])), (cfg, params)):
+        toks, logits = generate(p, c, prompt, MLA_NEW, return_logits=True)
+        alogits = teacher_forced_logits(p, absorbed(c), toks, LM_PROMPT)
+        rel.append([lm_rel(torch, alogits[:, i], logits[:, i])
+                    for i in range(MLA_NEW)])
+    return mix, rel[0], rel[1]
+
+
+def moe_phase(torch, np, dev, counts, card, errs):
+    """Phase 4h: MoE and MLA serving on the card (the port's ``generate``
+    at granite-moe-1b-a400m's full config and DeepSeek-V2 at full width
+    and reduced depth, the residual adds in the ``approx_add`` kernel),
+    held against the plain versions, the full forward and the other MLA
+    decode mode; returns the launches of the two paths."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.models.serving import generate
+
+    # (a) granite-moe-1b-a400m at its full published config
+    base = get_config(MOE_ARCH)
+    check_lm_kernel_shapes(torch, np, dev, errs, width=base.d_model)
+    log(f"  approx_add equals its plain version at the residual adds' "
+        f"shapes ({LM_BATCH}, {LM_PROMPT}, {base.d_model}) and "
+        f"({LM_BATCH}, 1, {base.d_model}), every kind, both forms")
+    t0 = time.perf_counter()
+    params = T.init_params(0, base, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    mc = base.moe
+    log(f"  {MOE_ARCH}: {base.num_layers} layers, d_model {base.d_model}, "
+        f"{base.num_heads}/{base.num_kv_heads} heads, {mc.num_experts} "
+        f"experts top-{mc.experts_per_token} (d_ff {mc.d_ff}, capacity "
+        f"factor {mc.capacity_factor}), vocab {base.vocab_size} padded to "
+        f"{base.padded_vocab}: {T.param_count(params)} parameters drawn on "
+        f"the card in {time.perf_counter() - t0:.2f} s, "
+        f"{tree_bytes(params) / 1e9:.2f} GB (bf16 matrices)")
+    prompt = lm_prompt(torch, base, LM_BATCH, LM_PROMPT, dev, 3)
+    toks, logits, g_launches = moe_generate_checked(
+        torch, counts, T, params, base, prompt, MOE_NEW, dev, MOE_ARCH)
+    log(f"  (a) generate(batch {LM_BATCH}, prompt {LM_PROMPT}, {MOE_NEW} "
+        f"new, greedy), haloc_axa n16m8k4: {2 * base.num_layers} approx_add "
+        f"launches a forward step ({g_launches['approx_add']} in {MOE_NEW} "
+        f"steps); tokens and every step's logits equal the plain version's "
+        f"on the card, bit for bit")
+    cap8 = dataclasses.replace(base, moe=dataclasses.replace(
+        mc, capacity_factor=8.0, seq_chunks=1))
+    etoks, elogits = generate(params, cap8, prompt, MOE_NEW,
+                              return_logits=True)
+    exact_par = lm_parity(torch, T, params, cap8, etoks, elogits,
+                          LM_PROMPT)
+    check(max(exact_par) < MOE_TOL,
+          f"{MOE_ARCH} exact, capacity factor 8: prefill/decode logits "
+          f"against the full forward {max(exact_par):.4f} >= {MOE_TOL}")
+    hal8 = cap8.with_approx(lm_numerics("haloc_axa", "cuda", dev))
+    htoks, hlogits = generate(params, hal8, prompt, MOE_NEW,
+                              return_logits=True)
+    hal_par = lm_parity(torch, T, params, hal8, htoks, hlogits, LM_PROMPT)
+    log(f"      prefill/decode against forward(mode='full'), capacity "
+        f"factor 8, one sequence chunk, {MOE_NEW} steps: exact max "
+        f"{max(exact_par):.4f} (< {MOE_TOL}); haloc_axa "
+        f"{min(hal_par):.4f}-{max(hal_par):.4f} (printed, not gated: "
+        f"ROADMAP Queue C 3)")
+    hal = base.with_approx(lm_numerics("haloc_axa", "cuda", dev))
+    for label, cfg in (("exact", base), ("haloc_axa", hal)):
+        moe_times(torch, steps, T, params, cfg, prompt, card,
+                  f"{MOE_ARCH} {label}")
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) DeepSeek-V2 at full width, depth cut to the dense block and
+    # MLA_REPEATS MoE blocks
+    full = get_config(MLA_ARCH)
+    cut = dataclasses.replace(full, repeats=MLA_REPEATS)
+    check_lm_kernel_shapes(torch, np, dev, errs, width=cut.d_model)
+    t0 = time.perf_counter()
+    params = T.init_params(0, cut, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    m, mc = cut.mla, cut.moe
+    log(f"  {MLA_ARCH}: reduced: depth {full.num_layers} -> "
+        f"{cut.num_layers} (the dense block and {MLA_REPEATS} MoE blocks); "
+        f"full width: d_model {cut.d_model}, {cut.num_heads} heads, MLA "
+        f"kv_lora {m.kv_lora_rank} q_lora {m.q_lora_rank} rope "
+        f"{m.rope_head_dim}, {mc.num_experts} routed experts top-"
+        f"{mc.experts_per_token} + {mc.num_shared_experts} shared, "
+        f"seq_chunks {mc.seq_chunks}: {T.param_count(params)} parameters "
+        f"drawn on the card in {time.perf_counter() - t0:.2f} s, "
+        f"{tree_bytes(params) / 1e9:.2f} GB")
+    prompt = lm_prompt(torch, cut, LM_BATCH, LM_PROMPT, dev, 4)
+    toks, logits, d_launches = moe_generate_checked(
+        torch, counts, T, params, cut, prompt, MLA_NEW, dev, MLA_ARCH)
+    log(f"  (b) generate(batch {LM_BATCH}, prompt {LM_PROMPT}, {MLA_NEW} "
+        f"new, greedy), haloc_axa: {2 * cut.num_layers} approx_add launches"
+        f" a forward step ({d_launches['approx_add']} in {MLA_NEW} steps); "
+        f"tokens and every step's logits equal the plain version's on the "
+        f"card, bit for bit")
+    ab_mix, ab_one, ab_all = mla_modes(torch, T, params, cut, prompt, dev)
+    check(max(ab_mix) < LM_TOL,
+          f"{MLA_ARCH}: mla_decode absorbed against decompress "
+          f"{max(ab_mix):.4f} >= {LM_TOL} (a block's output)")
+    check(max(ab_one) < LM_TOL,
+          f"{MLA_ARCH} cut to its dense block: logits, mla_decode absorbed "
+          f"against decompress {max(ab_one):.4f} >= {LM_TOL}")
+    log(f"      mla_decode absorbed against decompress, exact adds: each "
+        f"block's decode output on the prefill's latent cache max "
+        f"{max(ab_mix):.4f}, the logits of the model cut to its dense "
+        f"block (teacher-forced, {MLA_NEW} steps) max {max(ab_one):.4f} "
+        f"(both < {LM_TOL}); the 3-layer model's logits "
+        f"{min(ab_all):.4f}-{max(ab_all):.4f} (printed: a one-ulp change "
+        f"can move a token to another of 160 experts)")
+    hal = cut.with_approx(lm_numerics("haloc_axa", "cuda", dev))
+    for label, cfg in (("exact", cut), ("haloc_axa", hal)):
+        moe_times(torch, steps, T, params, cfg, prompt, card,
+                  f"{MLA_ARCH} ({cut.num_layers} layers) {label}")
+    del params
+    torch.cuda.empty_cache()
+    return {k: g_launches[k] + d_launches[k] for k in g_launches}
 
 
 # ------------------------------------------------------------- phase 5 --
@@ -3979,6 +4251,14 @@ def main():
     for name in LM_PATH_KERNELS:
         launches[name] += l_launches[name]
     log(f"  phase 4g took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 4h: MoE and MLA serving at full width (granite-moe-1b-a400m,"
+        " DeepSeek-V2)")
+    t0 = time.perf_counter()
+    h_launches = moe_phase(torch, np, dev, counts, card, errs)
+    for name in LM_PATH_KERNELS:
+        launches[name] += h_launches[name]
+    log(f"  phase 4h took {time.perf_counter() - t0:.1f} s")
 
     log("phase 5: times (CUDA events, median)")
     int32_ops_per_s = int32_rate(torch, dev)

@@ -37,18 +37,124 @@ NEG_INF = -1e30
 
 
 # ------------------------------------------------------------------ dense
+#
+# XLA:CPU takes a bf16 product as convert, an fp32 ``dot``, convert.  Each
+# product of two bf16 values is exact in fp32, so the fp32 result depends
+# only on the order in which the dot adds the K products.  That order
+# depends on the shape (M, K, N) of each 2-D slice of the dot and on how
+# its operands lie in memory: the library takes another micro-kernel for
+# few rows, for one row or column (a matrix-vector product), for an
+# operand whose contracting dim is not the one the kernel expects, and
+# another accumulator layout for each width of the last column tile.
+# ``tools/xla_dot_order.py`` sweeps it (jax 0.9.0, x86-64 with AVX-512).
+# With c chains meaning that chain j adds the products k = j, j + c, ...
+# below the last multiple of c from zero in turn, the chains summed as
+# ((c0 + c1) + (c2 + c3)) + ..., and the last K mod c products summed on
+# their own from zero and added last:
+#
+# - lhs [M, K] and rhs [K, N] (each contracting dim where a row-major
+#   product has it):
+#   - M > 50: by r = (N - 1) % 64 + 1, four chains for r <= 24 or
+#     32 < r <= 48, two for 24 < r <= 32, one for r > 48;
+#   - 1 < M <= 50: four chains for N <= 16; else one chain over each K
+#     block of floor(32768 / N) products, the blocks' sums added in turn;
+#   - M == 1: one chain;
+# - rhs held as [N, K] (``rhs_t``), M > 1: the chains of M > 50;
+# - lhs held as [K, M] (``lhs_t``): one chain;
+# - N == 1 with lhs [M, K], or M == 1 with rhs held as [N, K] (a
+#   matrix-vector product): eight chains.
+#
+# Outside the sweep's grid (K > XLA_ORDER_MAX_K, or 1 < M <= 50 with
+# K >= 128 and N > 508, where the library splits N between threads) the
+# product is torch's fp32 GEMM, rounded once (ROADMAP Queue C 1).  The
+# callers below hold their operands as the reference's compiled steps
+# hold them (``lhs_t``/``rhs_t``; the products' orientation is XLA's).
+
+#: The largest K the sweep covered.
+XLA_ORDER_MAX_K = 256
+
+
+def _chains_by_width(n: int) -> int:
+    r = (n - 1) % 64 + 1
+    return 1 if r > 48 else 2 if 24 < r <= 32 else 4
+
+
+def xla_cpu_dot_order(m: int, k: int, n: int, *, lhs_t: bool = False,
+                      rhs_t: bool = False):
+    """(chains, K block) of XLA:CPU's fp32 dot of one (m, k) @ (k, n)
+    slice held as the flags say, or None outside the swept grid."""
+    if k > XLA_ORDER_MAX_K:
+        return None
+    if (n == 1 and m > 1 and not lhs_t) or (m == 1 and n > 1 and rhs_t):
+        return 8, k
+    if m == 1 or lhs_t:
+        return 1, k
+    if rhs_t or m > 50:
+        return _chains_by_width(n), k
+    if n <= 16:
+        return 4, k
+    if k >= 128 and n > 508:
+        return None
+    return 1, max(1, 32768 // n)
+
+
+def _chains(a: Tensor, b: Tensor, lo: int, hi: int, c: int) -> Tensor:
+    """sum_k a[..., :, k] b[..., k, :] over [lo, hi) in ``c`` chains."""
+    body = hi - (hi - lo) % c
+    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-2] + (1,))
+    zero = torch.zeros(shape + (b.shape[-1],), dtype=torch.float32,
+                       device=a.device)
+
+    def chain(start, stop, step):
+        acc = zero
+        for j in range(start, stop, step):
+            acc = acc + a[..., :, j:j + 1] * b[..., j:j + 1, :]
+        return acc
+
+    accs = [chain(j0, body, c) for j0 in range(lo, lo + c)]
+    while len(accs) > 1:
+        accs = [accs[i] + accs[i + 1] for i in range(0, len(accs), 2)]
+    return accs[0] + chain(body, hi, 1) if body < hi else accs[0]
+
+
+def cpu_dot_f32(a: Tensor, b: Tensor, *, lhs_t: bool = False,
+                rhs_t: bool = False) -> Tensor:
+    """``a @ b`` in fp32 (batched over leading dims, which broadcast) in
+    XLA:CPU's order of summation for bf16-valued operands held as the
+    flags say (the table above); outside the swept grid torch's fp32
+    GEMM."""
+    a, b = a.float(), b.float()
+    m, k = a.shape[-2:]
+    order = xla_cpu_dot_order(m, k, b.shape[-1], lhs_t=lhs_t, rhs_t=rhs_t)
+    if order is None:
+        return a @ b
+    chains, block = order
+    out = None
+    for lo in range(0, k, block):
+        part = _chains(a, b, lo, min(k, lo + block), chains)
+        out = part if out is None else out + part
+    return out
+
+
+def matmul(a: Tensor, b: Tensor, *, lhs_t: bool = False,
+           rhs_t: bool = False) -> Tensor:
+    """``a @ b`` (batched) in a's dtype, as XLA computes the reference's
+    products: a bf16 product on the CPU through :func:`cpu_dot_f32`
+    (``lhs_t``/``rhs_t``: how the reference's compiled step holds the
+    operands), rounded once; on the card cuBLAS's bf16 product with fp32
+    accumulation."""
+    b = b.to(a.dtype)
+    if a.device.type == "cpu" and a.dtype == torch.bfloat16:
+        return cpu_dot_f32(a, b, lhs_t=lhs_t, rhs_t=rhs_t).to(a.dtype)
+    return a @ b
+
 
 def dense(p, x: Tensor) -> Tensor:
-    """``x @ w (+ b)`` in x's dtype.  On the CPU a bf16 product is taken
-    in fp32 and rounded once, as XLA:CPU takes the reference's (torch's
-    own bf16 CPU matmul rounds some sums differently, and which ones
-    depends on the number of rows); on the card it is cuBLAS's bf16
-    product with fp32 accumulation."""
+    """``x @ w (+ b)`` in x's dtype; the leading dims of x are the rows
+    of one product, as XLA reshapes them (:func:`matmul`)."""
     w = p["w"].to(x.dtype)
-    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
-        y = (x.float() @ w.float()).to(x.dtype)
-    else:
-        y = x @ w
+    y = matmul(x.reshape(-1, x.shape[-1]), w).reshape(
+        *x.shape[:-1], w.shape[-1])
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -172,8 +278,17 @@ def _mask_bias(qpos: Tensor, kvpos: Tensor, *, causal: bool,
 
 def _scores(q: Tensor, k: Tensor) -> Tensor:
     """(b, h, q, k) fp32 scores of the working-dtype product (rounded to
-    it first, as ``jnp.einsum`` does)."""
-    return torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32)
+    it first, as ``jnp.einsum("bqhd,bkhd->bhqk")`` does)."""
+    return matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1)).to(
+        torch.float32)
+
+
+def _mix(p: Tensor, v: Tensor) -> Tensor:
+    """``jnp.einsum("bhqk,bkhd->bhqd", p, v)`` (b, h, q, d) in v's dtype,
+    taken as XLA takes it: (v^T p^T)^T, with p held as [q, k]."""
+    vt = v.permute(0, 2, 3, 1)                      # (b, h, d, k)
+    return matmul(vt, p.to(v.dtype).transpose(2, 3), rhs_t=True) \
+        .transpose(2, 3)
 
 
 def plain_attention(q, k, v, qpos, kvpos, *, causal=True, window=0):
@@ -186,7 +301,7 @@ def plain_attention(q, k, v, qpos, kvpos, *, causal=True, window=0):
     bias = _mask_bias(qpos, kvpos, causal=causal, window=window)
     bias = bias[None, None] if bias.ndim == 2 else bias[:, None]
     p = torch.softmax(s + bias, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+    return _mix(p, v).transpose(1, 2)
 
 
 def _flash_fwd(q, k, v, qpos, kvpos, causal, window, chunk):
@@ -208,8 +323,7 @@ def _flash_fwd(q, k, v, qpos, kvpos, causal, window, chunk):
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bhqk,bkhd->bhqd", p.to(vci.dtype), vci).to(torch.float32)
+        acc = acc * corr[..., None] + _mix(p, vci).to(torch.float32)
         m = m_new
     l_safe = torch.clamp(l, min=1e-30)
     return acc / l_safe[..., None], m + torch.log(l_safe)
@@ -272,8 +386,7 @@ def local_attention(q, k, v, *, window: int):
     for i in range(n):
         sco = _scores(qb[:, i], k2[:, i]) * scale + bias[i][None, None]
         p = torch.softmax(sco, dim=-1)
-        out.append(torch.einsum("bhqk,bkhd->bqhd", p.to(v2.dtype),
-                                v2[:, i]))
+        out.append(_mix(p, v2[:, i]).transpose(1, 2))
     return torch.stack(out, dim=1).reshape(b, s + pad, h, d)[:, :s]
 
 

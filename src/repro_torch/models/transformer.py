@@ -1,5 +1,5 @@
 """Model assembly: embeddings, residual blocks, the block loop (the port of
-``repro.models.transformer``; the dense family, forward only).
+``repro.models.transformer``; the dense and MoE families, forward only).
 
 Layout of a parameter tree (all plain dicts of tensors):
 
@@ -20,10 +20,11 @@ residual-stream adds of every block run through the configured
 approximate adder in fixed point (``cfg.approx.residual_add`` -> the
 port's engine, the ``approx_add`` kernel on the card).
 
-Self attention (global or windowed) with a SwiGLU or GELU MLP is ported.
-The other mixers and MLPs, the audio and vision inputs, sharding
-(``batch_axes``/``mesh``) and the loss belong to later slices and raise
-``NotImplementedError`` naming their ROADMAP entry.
+Self attention (global or windowed) and DeepSeek's latent attention (MLA)
+with a SwiGLU, GELU or MoE MLP are ported.  The other mixers, the audio
+and vision inputs, sharding (``batch_axes``/``mesh``) and the loss belong
+to later slices and raise ``NotImplementedError`` naming their ROADMAP
+entry.
 """
 
 from __future__ import annotations
@@ -36,8 +37,10 @@ from repro_torch.ax.backends import get_backend
 from repro_torch.ax.engine import resolve_device as _resolve_device
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLAm
+from repro_torch.models import moe as MOEm
 from repro_torch.models.config import (
-    ATTN, CROSS, GELU, MLA, MOE, NONE, RGLRU, SSD, SWIGLU,
+    ATTN, CROSS, MLA, MOE, NONE, RGLRU, SSD, SWIGLU,
     BlockSpec, ModelConfig,
 )
 
@@ -45,16 +48,14 @@ Params = Dict[str, Any]
 Device = Union[str, torch.device, None]
 
 #: Where each unported part of a model config is planned (ROADMAP.md,
-#: Queue A item 7).
+#: Queue A).
 _UNPORTED = {
-    MLA: "7c (MoE and MLA)",
-    MOE: "7c (MoE and MLA)",
-    RGLRU: "7d (RG-LRU and SSD)",
-    SSD: "7d (RG-LRU and SSD)",
-    CROSS: "7e (cross attention and the audio frontend)",
-    "vision": "7e (cross attention and the audio frontend)",
-    "audio": "7e (cross attention and the audio frontend)",
-    "sharding": "7f (sharding on a DeviceMesh)",
+    RGLRU: "2 (RG-LRU and SSD)",
+    SSD: "2 (RG-LRU and SSD)",
+    CROSS: "3 (cross attention and the audio frontend)",
+    "vision": "3 (cross attention and the audio frontend)",
+    "audio": "3 (cross attention and the audio frontend)",
+    "sharding": "5 (sharding on a DeviceMesh)",
 }
 
 
@@ -66,17 +67,14 @@ def _unported(what: str, key: str):
 
 def check_ported(cfg: ModelConfig) -> ModelConfig:
     """Raise ``NotImplementedError`` unless every block of ``cfg`` is self
-    attention with a SwiGLU or GELU MLP and the input is tokens."""
+    attention or MLA (with any MLP) and the input is tokens."""
     if cfg.audio is not None:
         _unported(f"{cfg.name}'s audio input", "audio")
     if cfg.vision is not None:
         _unported(f"{cfg.name}'s vision input", "vision")
     for spec in cfg.all_blocks():
-        if spec.mixer != ATTN:
+        if spec.mixer not in (ATTN, MLA):
             _unported(f"the {spec.mixer!r} mixer", spec.mixer)
-        if spec.mlp not in (SWIGLU, GELU):
-            _unported(f"the {spec.mlp!r} MLP", MOE if spec.mlp == MOE
-                      else SSD)
     return cfg
 
 
@@ -133,16 +131,22 @@ class Init:
         return {"scale": torch.ones((dim,), dtype=torch.float32,
                                     device=self.device)}
 
+    def swiglu(self, d_model: int, d_ff: int):
+        return {"wi": self.dense(d_model, d_ff),
+                "wg": self.dense(d_model, d_ff),
+                "wo": self.dense(d_ff, d_model)}
+
 
 def block_init(init: Init, cfg: ModelConfig, spec: BlockSpec) -> Params:
+    mixer = (MLAm.mla_init if spec.mixer == MLA else ATT.attn_init)
     p: Params = {"ln1": init.norm(cfg.d_model),
-                 "mixer": ATT.attn_init(init, cfg, spec)}
+                 "mixer": mixer(init, cfg, spec)}
     if spec.mlp != NONE:
         p["ln2"] = init.norm(cfg.d_model)
         if spec.mlp == SWIGLU:
-            p["mlp"] = {"wi": init.dense(cfg.d_model, cfg.d_ff),
-                        "wg": init.dense(cfg.d_model, cfg.d_ff),
-                        "wo": init.dense(cfg.d_ff, cfg.d_model)}
+            p["mlp"] = init.swiglu(cfg.d_model, cfg.d_ff)
+        elif spec.mlp == MOE:
+            p["mlp"] = MOEm.moe_init(init, cfg)
         else:
             p["mlp"] = {"wi": init.dense(cfg.d_model, cfg.d_ff, bias=True),
                         "wo": init.dense(cfg.d_ff, cfg.d_model, bias=True)}
@@ -184,6 +188,8 @@ def param_count(params: Params) -> int:
 def block_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,
                      ctx_len: int, dtype=torch.bfloat16,
                      device: Device = None) -> Params:
+    if spec.mixer == MLA:
+        return MLAm.mla_cache_init(cfg, batch, ctx_len, dtype, device)
     if spec.mixer != ATTN:
         _unported(f"the {spec.mixer!r} mixer's cache", spec.mixer)
     return ATT.attn_cache_init(cfg, spec, batch, ctx_len, dtype, device)
@@ -226,39 +232,59 @@ def blocks_layout(cfg: ModelConfig, flat: list) -> Params:
             "suffix": flat[n0 + n1 * cfg.repeats:]}
 
 
+def _rope_dim(cfg: ModelConfig, spec: BlockSpec) -> int:
+    """The dims a block's RoPE rotates: MLA's rope head dim, else the
+    head dim."""
+    return cfg.mla.rope_head_dim if spec.mixer == MLA else cfg.head_dim
+
+
 def block_apply(p: Params, cfg: ModelConfig, spec: BlockSpec, x, ctx,
                 cache: Optional[Params], mode: str, batch_axes=None,
                 mesh=None):
     """mode: 'full' | 'prefill' | 'decode'. Returns (x, new_cache, aux);
-    aux is None (the dense family's blocks add no auxiliary loss)."""
+    aux is the MoE MLP's load-balancing loss, None for the other MLPs."""
     _no_sharding(batch_axes, mesh)
-    if spec.mixer != ATTN:
+    if spec.mixer == MLA:
+        apply, prefill, decode = (MLAm.mla_apply, MLAm.mla_prefill,
+                                  MLAm.mla_decode)
+    elif spec.mixer == ATTN:
+        apply, prefill, decode = (ATT.attn_apply, ATT.attn_prefill,
+                                  ATT.attn_decode)
+    else:
         _unported(f"the {spec.mixer!r} mixer", spec.mixer)
     h = L.rms_norm(p["ln1"], x, cfg.norm_eps)
     new_cache = cache
-    rope = ctx.get("rope", {}).get(spec.rope_base)
+    rope = ctx.get("rope", {}).get((spec.rope_base, _rope_dim(cfg, spec)))
     if mode == "full":
-        mix = ATT.attn_apply(p["mixer"], cfg, spec, h, ctx["positions"],
-                             rope)
+        mix = apply(p["mixer"], cfg, spec, h, ctx["positions"], rope)
     elif mode == "prefill":
-        mix, new_cache = ATT.attn_prefill(
-            p["mixer"], cfg, spec, h, ctx["positions"], cache, rope)
+        mix, new_cache = prefill(p["mixer"], cfg, spec, h, ctx["positions"],
+                                 cache, rope)
     else:
-        mix, new_cache = ATT.attn_decode(
-            p["mixer"], cfg, spec, h, ctx["pos"], cache, ctx["positions"],
-            rope)
+        mix, new_cache = decode(p["mixer"], cfg, spec, h, ctx["pos"], cache,
+                                ctx["positions"], rope)
 
-    x = cfg.approx.residual_add(x, mix.to(x.dtype))
+    if cfg.approx.enabled:
+        x = norm_in = cfg.approx.residual_add(x, mix.to(x.dtype))
+    else:
+        # XLA adds in fp32 and hands the unrounded sum to the norm that
+        # reads it; the stream (the second add's operand) is rounded
+        norm_in = x.float() + mix.to(x.dtype).float()
+        x = norm_in.to(x.dtype)
+    aux = None
     if spec.mlp != NONE:
-        h2 = L.rms_norm(p["ln2"], x, cfg.norm_eps)
-        if spec.mlp == SWIGLU:
+        h2 = L.rms_norm(p["ln2"], norm_in, cfg.norm_eps).to(x.dtype)
+        if spec.mlp == MOE:
+            if cfg.moe.use_shard_map and mode != "decode":
+                out, aux = MOEm.moe_apply_shard_map(p["mlp"], cfg, h2)
+            else:
+                out, aux = MOEm.moe_apply(p["mlp"], cfg, h2)
+        elif spec.mlp == SWIGLU:
             out = L.swiglu(p["mlp"], h2)
-        elif spec.mlp == GELU:
-            out = L.gelu_mlp(p["mlp"], h2)
         else:
-            _unported(f"the {spec.mlp!r} MLP", MOE)
-        x = cfg.approx.residual_add(x, out.to(x.dtype))
-    return x, new_cache, None
+            out = L.gelu_mlp(p["mlp"], h2)
+        x = cfg.approx.residual_add(x, out).to(x.dtype)
+    return x, new_cache, aux
 
 
 # --------------------------------------------------------------- forward --
@@ -282,8 +308,9 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "full",
 
     mode "full" scores every position; "prefill" fills ``cache`` and
     "decode" (one token at absolute position ``pos``) updates it, both
-    returning the last position's logits only.  ``aux_sum`` is 0: the
-    dense family has no auxiliary loss."""
+    returning the last position's logits only.  ``aux_sum`` is the fp32
+    sum of the MoE layers' load-balancing losses in block order (0 without
+    MoE layers)."""
     _no_sharding(batch_axes, mesh)
     if mode not in ("full", "prefill", "decode"):
         raise ValueError(f"bad forward mode {mode!r}")
@@ -298,20 +325,23 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "full",
         span = range(s)
     ctx["positions"] = torch.arange(span.start, span.stop, dtype=torch.int32,
                                     device=x.device)
-    # one pair of RoPE tables per base, shared by the blocks
-    ctx["rope"] = {base: L.rope_tables(span, cfg.head_dim, base, x.device)
-                   for base in {spec.rope_base for spec in cfg.all_blocks()}}
-
+    # one pair of RoPE tables per (base, rotated dims), shared by the blocks
     specs = cfg.all_blocks()
+    ctx["rope"] = {key: L.rope_tables(span, key[1], key[0], x.device)
+                   for key in {(spec.rope_base, _rope_dim(cfg, spec))
+                               for spec in specs}}
+
     caches = blocks_in_order(cfg, cache) if cache is not None \
         else [None] * len(specs)
     new = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, spec, c in zip(blocks_in_order(cfg, params), specs, caches,
                           strict=True):
-        x, nc, _ = block_apply(p, cfg, spec, x, ctx, c, mode)
+        x, nc, a = block_apply(p, cfg, spec, x, ctx, c, mode)
         new.append(nc)
+        if a is not None:
+            aux = aux + a
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     if mode in ("prefill", "decode") and cfg.causal:
         x = x[:, -1:]  # only the last position's logits are needed
