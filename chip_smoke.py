@@ -252,6 +252,35 @@ launches join the ``kernels`` line):
    the plain versions; ``mla_decode``'s absorbed mode against decompress
    with exact adds, teacher-forced, within 0.04; the times.
 
+The RG-LRU and SSD slice adds phase 4i, at full width, its counts set to 0
+just before each of its two paths and read just after (their
+``approx_add`` launches join the ``kernels`` line):
+
+4i. for recurrentgemma-9b at full width and depth (38 blocks, 26 RG-LRU
+   and 12 windowed MQA, d_model 4096, window 2048, vocab 256000;
+   9,627,095,040 parameters) and mamba2-1.3b at its full config (48 SSD
+   layers, d_inner 4096, 64 heads x 64, d_state 128, chunk 256;
+   1,446,714,368), bf16 weights from a seeded generator on the card with
+   ``lam``, ``a_log`` and ``dt_bias`` fp32: ``approx_add`` against its
+   plain version at (4, 128 | 600, d_model) and (4, 1, d_model); (a)
+   ``generate`` of 4 x (128 + 32) and 4 x (600 + 32) tokens (600: two
+   chunks and an 88-token tail, ``ssd_apply``'s remainder path) under
+   haloc_axa: 76 and 48 ``approx_add`` launches a forward step and no
+   other kernel, tokens and every step's logits bit for bit those of the
+   plain versions on the card; (b) with exact adds prefill + decode
+   against ``forward(mode="full")`` within 0.04, under haloc_axa the
+   teacher-forced logits equal to ``generate``'s (the parity printed);
+   (c) each model cut to its first blocks (one rec/rec/attn repeat; two
+   SSD layers) against the port's CPU path, teacher-forced on the card's
+   tokens: exact logits within the rule, every haloc_axa residual add
+   equal to the CPU path's on its operands; (d) prefill ms, decode ms a
+   step and tokens/s, exact and haloc_axa, a decode step's launches,
+   idle share and device time by kernel class and inside the mixers,
+   the bytes bound, and the CPU path's ``exp`` emulation timed on the
+   card; (e) recurrentgemma-9b at batch 2 with a 2100-token prompt past
+   its window and 16 decode steps: exact parity within the rule,
+   haloc_axa teacher-forced equal to ``generate``.
+
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 run from a directory without ``src/repro_torch``, it exits non-zero and
@@ -2788,14 +2817,16 @@ def lm_parity(torch, T, params, cfg, toks, logits, prompt_len):
             for i in range(logits.shape[1])]
 
 
-def check_lm_kernel_shapes(torch, np, dev, errs, width=2560):
-    """``approx_add`` at the residual adds' container shapes (prefill and
-    decode at batch 4 of a model of ``width``: Qwen3-4B's by default)
-    against its plain version, every kind, both forms."""
+def check_lm_kernel_shapes(torch, np, dev, errs, width=2560,
+                           prompt=LM_PROMPT):
+    """``approx_add`` at the residual adds' container shapes (prefill of
+    ``prompt`` tokens and decode at batch 4 of a model of ``width``:
+    Qwen3-4B's by default) against its plain version, every kind, both
+    forms."""
     from repro_torch.core import specs
     from repro_torch.kernels import approx_add as add_k
     rng = np.random.default_rng(20)
-    for shape in ((LM_BATCH, LM_PROMPT, width), (LM_BATCH, 1, width)):
+    for shape in ((LM_BATCH, prompt, width), (LM_BATCH, 1, width)):
         a = containers(torch, np, rng, shape, 16, dev)
         b = containers(torch, np, rng, shape, 16, dev)
         for kind in specs.ALL_KINDS:
@@ -2836,20 +2867,19 @@ def lm_times(torch, steps, params, cfg, prompt, reps=3):
     """Median wall ms of a prefill of ``prompt`` and of one of the
     LM_TIMED_STEPS greedy decode steps after it, synchronized, over
     ``reps`` runs after an untimed one; the last run's cache and logits."""
+    plen = prompt["tokens"].shape[1]
     pre_ms, dec_ms = [], []
     for _ in range(reps + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = steps.make_prefill_step(
-            cfg, LM_PROMPT + LM_TIMED_STEPS + LM_PROFILED_STEPS)(params,
-                                                                prompt)
+            cfg, plen + LM_TIMED_STEPS + LM_PROFILED_STEPS)(params, prompt)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         decode = steps.make_decode_step(cfg)
         for i in range(LM_TIMED_STEPS):
             nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-            logits, cache = decode(params, {"tokens": nxt}, LM_PROMPT + i,
-                                   cache)
+            logits, cache = decode(params, {"tokens": nxt}, plen + i, cache)
         torch.cuda.synchronize()
         pre_ms.append((t1 - t0) * 1e3)
         dec_ms.append((time.perf_counter() - t1) / LM_TIMED_STEPS * 1e3)
@@ -2857,14 +2887,16 @@ def lm_times(torch, steps, params, cfg, prompt, reps=3):
             cache, logits)
 
 
-def lm_decode_profile(torch, steps, params, cfg, cache, logits):
+def lm_decode_profile(torch, steps, params, cfg, cache, logits,
+                      plen=LM_PROMPT):
     """One decode step's device time by kernel class, {class: (us,
     launches)}, averaged over LM_PROFILED_STEPS profiled steps after the
-    timed ones (empty when the profiler saw no device time), and the
-    median wall ms of three unprofiled steps before them."""
+    timed ones of a prompt of ``plen`` tokens (empty when the profiler saw
+    no device time), and the median wall ms of three unprofiled steps
+    before them."""
     decode = steps.make_decode_step(cfg)
     nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-    pos = LM_PROMPT + LM_TIMED_STEPS
+    pos = plen + LM_TIMED_STEPS
     walls = []
     for i in range(3):
         torch.cuda.synchronize()
@@ -2875,15 +2907,8 @@ def lm_decode_profile(torch, steps, params, cfg, cache, logits):
     times = device_times(torch, lambda: [
         decode(params, {"tokens": nxt}, pos + 3 + i, cache)
         for i in range(LM_PROFILED_STEPS - 3)], 1)
-    per_step = {}
-    for key, (us, n) in times.items():
-        cls = ("approx_add" if "approx_add" in key else
-               "matmul" if any(m in key for m in MATMUL_KERNEL_MARKS) else
-               "other")
-        u, c = per_step.get(cls, (0.0, 0))
-        k = LM_PROFILED_STEPS - 3
-        per_step[cls] = (u + us / k, c + n / k)
-    return per_step, statistics.median(walls)
+    return (kernel_classes(times, LM_PROFILED_STEPS - 3),
+            statistics.median(walls))
 
 
 def lm_phase(torch, np, dev, counts, card, errs):
@@ -3178,11 +3203,18 @@ def moe_times(torch, steps, T, params, cfg, prompt, card, label):
     return pre, dec
 
 
+def residual_adds(cfg):
+    """Residual adds of one forward step: two a block, one where the block
+    has no MLP (mamba2's SSD blocks)."""
+    return sum(1 if spec.mlp == "none" else 2 for spec in cfg.all_blocks())
+
+
 def moe_generate_checked(torch, counts, T, params, cfg, prompt, new, dev,
                          what):
-    """``generate`` under haloc_axa, counted: approx_add launched 2 x
-    layers a step and no other kernel; tokens and every step's logits equal
-    the plain version's on the card.  Returns (tokens, logits, launches)."""
+    """``generate`` under haloc_axa, counted: approx_add launched once for
+    each residual add of a step and no other kernel; tokens and every
+    step's logits equal the plain version's on the card.  Returns (tokens,
+    logits, launches)."""
     from repro_torch.models.serving import generate
     hal = cfg.with_approx(lm_numerics("haloc_axa", "cuda", dev))
     plain = cfg.with_approx(lm_numerics("haloc_axa", "torch", dev))
@@ -3190,7 +3222,7 @@ def moe_generate_checked(torch, counts, T, params, cfg, prompt, new, dev,
         torch, counts, LM_PATH_KERNELS,
         lambda: generate(params, hal, prompt, new, return_logits=True),
         f"{what} path (generate)")
-    per_step = 2 * cfg.num_layers
+    per_step = residual_adds(cfg)
     check(launches["approx_add"] == per_step * new,
           f"{what}: approx_add launched {launches['approx_add']} times in "
           f"{new} forward steps, not {per_step} a step")
@@ -3352,6 +3384,346 @@ def moe_phase(torch, np, dev, counts, card, errs):
     del params
     torch.cuda.empty_cache()
     return {k: g_launches[k] + d_launches[k] for k in g_launches}
+
+
+# ------------------------------------------------------------ phase 4i --
+
+#: The recurrent slice's models: recurrentgemma-9b at full width and depth
+#: (38 blocks: 26 RG-LRU, 12 windowed MQA) and mamba2-1.3b at its full
+#: config (48 SSD layers), bf16 weights from a seeded generator on the card
+#: (``lam``, ``a_log`` and ``dt_bias`` fp32), the residual adds through
+#: haloc_axa n16m8k4.  Each prompt is LM_BATCH sequences: 128 tokens for
+#: recurrentgemma; 600 for mamba2 (two 256-token chunks and an 88-token
+#: tail: ``ssd_apply``'s remainder path at the published chunk).
+REC_MODELS = (("recurrentgemma-9b", 128, 9_627_095_040),
+              ("mamba2-1.3b", 600, 1_446_714_368))
+REC_NEW = 32
+#: recurrentgemma's window case: a prompt past the 2048 window.
+REC_WINDOW_BATCH, REC_WINDOW_PROMPT, REC_WINDOW_NEW = 2, 2100, 16
+#: The CPU case: the model cut to its first blocks (recurrentgemma one
+#: pattern repeat, rec/rec/attn; mamba2 two layers), prompts of these
+#: lengths (mamba2's: a 256-token chunk and a 44-token tail), 8 new
+#: tokens.
+REC_CPU_PROMPT = {"recurrentgemma-9b": 128, "mamba2-1.3b": 300}
+REC_CPU_NEW = 8
+
+
+def recurrent_cut(cfg, params, blocks=None):
+    """(cfg, params) of the model cut to its first ``blocks`` blocks
+    (default: one pattern repeat for the hybrid, rec/rec/attn; two layers
+    for the SSM one), sharing the card's tensors."""
+    import dataclasses
+    n = len(cfg.pattern)
+    if blocks is None:
+        blocks = n if cfg.family == "hybrid" else 2
+    reps = blocks // n
+    cut = dataclasses.replace(cfg, repeats=reps, suffix=cfg.suffix[
+        :blocks - reps * n] if blocks >= cfg.num_layers - len(
+        cfg.suffix) else ())
+    return cut, dict(params, pattern=[b[:reps] for b in params["pattern"]],
+                     suffix=params["suffix"][:len(cut.suffix)])
+
+
+#: The depths phase 4i's exact prefill/decode parity is read at: the cut
+#: model (gated), then deeper (printed).
+REC_DEPTHS = {"recurrentgemma-9b": (3, 12, 38), "mamba2-1.3b": (2, 12, 24,
+                                                                48)}
+
+
+def recurrent_parity(torch, T, base, params, prompt, new):
+    """{blocks: the exact prefill/decode parity (max over the steps)} of
+    the model cut to each of REC_DEPTHS' depths."""
+    from repro_torch.models.serving import generate
+    plen = prompt["tokens"].shape[1]
+    out = {}
+    for blocks in REC_DEPTHS[base.name]:
+        cfg, p = recurrent_cut(base, params, blocks)
+        toks, logits = generate(p, cfg, prompt, new, return_logits=True)
+        out[cfg.num_layers] = max(lm_parity(torch, T, p, cfg, toks, logits,
+                                            plen))
+    return out
+
+
+def recurrent_step_bytes(T, params, cache):
+    """Bytes a decode step must move: every weight but the embedding table
+    (one row a token) read once, and the cache read once and its
+    recurrent states (fp32 ``h``/``state``, the conv states) written once
+    (a window cache writes one slot a step: not counted)."""
+    written = 0
+    for c in cache["prefix"] + cache["suffix"] + [
+            b for blocks in cache["pattern"] for b in blocks]:
+        written += sum(tree_bytes(v) for k, v in c.items()
+                       if k in ("h", "state", "conv", "conv_x", "conv_bc"))
+    return (tree_bytes(dict(params, embed=None)) + tree_bytes(cache)
+            + written)
+
+
+def kernel_classes(times, calls=1):
+    """{class: (us, launches)} a call from :func:`device_times`' kernels:
+    ``approx_add``, the matmuls (cuBLAS's, by name) and the rest."""
+    out = {}
+    for key, (us, n) in times.items():
+        cls = ("approx_add" if "approx_add" in key else
+               "matmul" if any(m in key for m in MATMUL_KERNEL_MARKS) else
+               "other")
+        u, c = out.get(cls, (0.0, 0.0))
+        out[cls] = (u + us / calls, c + n / calls)
+    return out
+
+
+def recurrent_mixer_split(torch, T, params, cfg, cache, dev):
+    """Device time of one decode step's RG-LRU / SSD mixer calls alone
+    (a random bf16 input at the step's shape, the step's caches), by
+    kernel class; {} when the profiler saw no device time."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    x = torch.randn((LM_BATCH, 1, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    calls = [(T._MIXERS[spec.mixer][3], blk["mixer"], spec, c)
+             for spec, blk, c in zip(cfg.all_blocks(),
+                                     T.blocks_in_order(cfg, params),
+                                     T.blocks_in_order(cfg, cache))
+             if spec.mixer in T._RECURRENT]
+
+    def run():      # the decode steps return new caches: nothing written
+        for decode, p, spec, c in calls:
+            decode(p, cfg, spec, x, c)
+
+    return kernel_classes(device_times(torch, run, 1))
+
+
+def time_xla_math(torch, dev, width):
+    """The card's cost of the XLA:CPU emulation the CPU path takes
+    (``layers.xla_exp32``) against torch's ``exp`` (what the card takes),
+    at a decode step's (4, 1, width) and a prefill's (4, 128, width):
+    median ms of five calls after one, and the launches of a call."""
+    from repro_torch.models import layers as L
+    rows = []
+    for shape in ((LM_BATCH, 1, width), (LM_BATCH, LM_PROMPT, width)):
+        x = torch.randn(shape, device=dev)
+        times = {}
+        for name, fn in (("xla_exp32", L.xla_exp32), ("torch.exp",
+                                                       torch.exp)):
+            fn(x)
+            ms = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(x)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            times[name] = statistics.median(ms)
+        n = kernel_events(torch, lambda: L.xla_exp32(x))
+        rows.append((shape, times["xla_exp32"], times["torch.exp"], n))
+    return rows
+
+
+def recurrent_model(torch, np, dev, counts, card, errs, arch, plen,
+                    n_expected):
+    """Phase 4i for one model: (a) the counted haloc_axa path, (b) parity,
+    (e) times; then the window case and (c) the CPU path.  Returns the
+    path's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.models.serving import generate, teacher_forced_logits
+
+    base = get_config(arch)
+    check_lm_kernel_shapes(torch, np, dev, errs, width=base.d_model,
+                           prompt=plen)
+    log(f"  approx_add equals its plain version at the residual adds' "
+        f"shapes ({LM_BATCH}, {plen}, {base.d_model}) and "
+        f"({LM_BATCH}, 1, {base.d_model}), every kind, both forms")
+    t0 = time.perf_counter()
+    params = T.init_params(0, base, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = T.param_count(params)
+    check(n_params == n_expected,
+          f"{arch}: {n_params} parameters, not {n_expected}")
+    fp32 = sorted({k for blk in T.blocks_in_order(base, params)
+                   for k, v in blk["mixer"].items()
+                   if isinstance(v, torch.Tensor)
+                   and v.dtype == torch.float32})
+    log(f"  {arch}: {base.num_layers} blocks "
+        f"({[s.mixer for s in base.all_blocks()].count('attn')} windowed "
+        f"attention), d_model {base.d_model}, vocab {base.vocab_size}: "
+        f"{n_params} parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s, {tree_bytes(params) / 1e9:.2f} "
+        f"GB (bf16; fp32 mixer leaves {fp32})")
+    prompt = lm_prompt(torch, base, LM_BATCH, plen, dev, 7)
+
+    # (a) the path, counted, against the plain versions on the card
+    toks, logits, launches = moe_generate_checked(
+        torch, counts, T, params, base, prompt, REC_NEW, dev, arch)
+    per_step = residual_adds(base)
+    log(f"  (a) generate(batch {LM_BATCH}, prompt {plen}, {REC_NEW} new, "
+        f"greedy), haloc_axa n16m8k4: {per_step} approx_add launches a "
+        f"forward step ({launches['approx_add']} in {REC_NEW} steps) and no "
+        f"other kernel; tokens and every step's logits equal the plain "
+        f"version's on the card, bit for bit")
+
+    # (b) prefill/decode against the full forward
+    hal = base.with_approx(lm_numerics("haloc_axa", "cuda", dev))
+    check(torch.equal(teacher_forced_logits(params, hal, toks, plen),
+                      logits),
+          f"{arch} haloc_axa: prefill and decode on the generated tokens "
+          f"differ from generate's own logits")
+    par = recurrent_parity(torch, T, base, params, prompt, REC_NEW)
+    first = min(par)
+    check(par[first] < LM_TOL,
+          f"{arch} cut to {first} blocks, exact: prefill/decode logits "
+          f"against the full forward {par[first]:.4f} >= {LM_TOL}")
+    hal_par = lm_parity(torch, T, params, hal, toks, logits, plen)
+    log(f"  (b) prefill/decode against forward(mode='full'), {REC_NEW} "
+        f"steps, exact adds, by depth (blocks: max): "
+        f"{', '.join(f'{k}: {v:.4f}' for k, v in par.items())} (gated < "
+        f"{LM_TOL} at {first} blocks; deeper printed: the recurrent decode "
+        f"and the full forward's chunked or scanned form round otherwise "
+        f"and the gap grows with depth, ROADMAP Queue C 12); haloc_axa "
+        f"teacher-forced equal to generate's logits bit for bit, against "
+        f"the full forward {min(hal_par):.4f}-{max(hal_par):.4f} (printed, "
+        f"not gated: Queue C 3)")
+
+    # (d) times and the bound
+    for label, cfg in (("exact", base), ("haloc_axa", hal)):
+        pre, dec, cache, last = lm_times(torch, steps, params, cfg, prompt)
+        log(f"  (d) {arch} {label}: prefill of {LM_BATCH} x {plen} "
+            f"{pre:.3f} ms; decode {dec:.3f} ms a step = "
+            f"{LM_BATCH * 1e3 / dec:.1f} tokens/s at batch {LM_BATCH} "
+            f"(wall, median of 3; {card})")
+        prof, step_ms = lm_decode_profile(torch, steps, params, cfg, cache,
+                                          last, plen)
+        if not prof:
+            log(f"      {label} decode step profile: the profiler recorded "
+                f"no device time (not measured)")
+        else:
+            busy = sum(us for us, _ in prof.values())
+            n = sum(c for _, c in prof.values())
+            parts = ", ".join(f"{cls} {us:.1f} us in {c:.0f} launches"
+                              for cls, (us, c) in sorted(prof.items()))
+            log(f"      {label} decode step by kernel class: {parts}; "
+                f"{n:.0f} launches, busy {busy / 1e3:.3f} ms of a "
+                f"{step_ms:.3f} ms step, idle share "
+                f"{1 - busy / (step_ms * 1e3):.3f}")
+        mix = recurrent_mixer_split(torch, T, params, cfg, cache, dev)
+        if mix:
+            log(f"      {label}: the step's "
+                f"{'RG-LRU' if base.rglru else 'SSD'} mixer calls alone: "
+                + ", ".join(f"{cls} {us:.1f} us in {c:.0f} launches"
+                            for cls, (us, c) in sorted(mix.items()))
+                + " (the scan / state glue is 'other')")
+        if label == "exact":
+            step_bytes = recurrent_step_bytes(T, params, cache)
+            log(f"      a decode step must read every weight but the "
+                f"embedding and the cache and write the recurrent states: "
+                f"{step_bytes / 1e9:.3f} GB, "
+                f"{step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s")
+        del cache
+    if base.rglru is not None:
+        for shape, xla_ms, torch_ms, n in time_xla_math(torch, dev,
+                                                         base.rglru.width):
+            log(f"      layers.xla_exp32 (the CPU path's exp) on the card at "
+                f"{shape}: {xla_ms:.3f} ms in {n} launches, torch.exp "
+                f"{torch_ms:.3f} ms: the card takes torch's")
+    torch.cuda.empty_cache()
+
+    # the window case (recurrentgemma): a prompt past the 2048 window
+    if base.rglru is not None:
+        wprompt = lm_prompt(torch, base, REC_WINDOW_BATCH, REC_WINDOW_PROMPT,
+                            dev, 8)
+        torch.cuda.reset_peak_memory_stats(dev)
+        wpar = recurrent_parity(torch, T, base, params, wprompt,
+                                REC_WINDOW_NEW)
+        wfirst = min(wpar)
+        check(wpar[wfirst] < LM_TOL,
+              f"{arch} cut to {wfirst} blocks, exact: prefill/decode past "
+              f"the window against the full forward {wpar[wfirst]:.4f} >= "
+              f"{LM_TOL}")
+        htoks, hlogits = generate(params, hal, wprompt, REC_WINDOW_NEW,
+                                  return_logits=True)
+        check(torch.equal(teacher_forced_logits(params, hal, htoks,
+                                                REC_WINDOW_PROMPT), hlogits),
+              f"{arch} haloc_axa past the window: prefill and decode on the "
+              f"generated tokens differ from generate's own logits")
+        whal = lm_parity(torch, T, params, hal, htoks, hlogits,
+                         REC_WINDOW_PROMPT)
+        depths = ", ".join(f"{k}: {v:.4f}" for k, v in wpar.items())
+        log(f"  (e) window case: batch {REC_WINDOW_BATCH}, prompt "
+            f"{REC_WINDOW_PROMPT} past the {base.all_blocks()[2].window} "
+            f"window, {REC_WINDOW_NEW} decode steps: exact against the full "
+            f"forward by depth {depths} "
+            f"(gated < {LM_TOL} at {wfirst} blocks); haloc_axa at full depth "
+            f"teacher-forced equal to generate, against the full forward "
+            f"{min(whal):.4f}-{max(whal):.4f} (printed); peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+        del htoks, hlogits
+        torch.cuda.empty_cache()
+
+    # (c) the card against the CPU path at reduced depth
+    cut, small = recurrent_cut(base, params)
+    cplen = REC_CPU_PROMPT[arch]
+    cprompt = {"tokens": prompt["tokens"][:, :cplen]}
+    rec = ResidualRecorder(lm_numerics("haloc_axa", "cuda", dev))
+    import dataclasses
+    ctoks, clogits = generate(small, dataclasses.replace(cut, approx=rec),
+                              cprompt, REC_CPU_NEW, return_logits=True)
+    ctoks_e, clogits_e = generate(small, cut, cprompt, REC_CPU_NEW,
+                                  return_logits=True)
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_cpu(v) for v in tree]
+        return tree.cpu()
+
+    t0 = time.perf_counter()
+    cpu_params = to_cpu(small)
+    del params, small
+    torch.cuda.empty_cache()
+    cpu_hal = dataclasses.replace(cut, approx=lm_numerics("haloc_axa",
+                                                          "torch", "cpu"))
+    cpu = teacher_forced_logits(cpu_params, cpu_hal, ctoks.cpu(), cplen)
+    cpu_e = teacher_forced_logits(cpu_params, cut, ctoks_e.cpu(), cplen)
+    cpu_s = time.perf_counter() - t0
+    exact_cc = [lm_rel(torch, cpu_e[:, i], clogits_e[:, i].cpu())
+                for i in range(REC_CPU_NEW)]
+    check(max(exact_cc) < LM_TOL,
+          f"{arch} cut to {cut.num_layers} blocks, exact: the card's logits "
+          f"against the CPU path's {max(exact_cc):.4f} >= {LM_TOL}")
+    for x, y, out in rec.calls:
+        check(torch.equal(out.cpu(), cpu_hal.approx.residual_add(x.cpu(),
+                                                                 y.cpu())),
+              f"{arch}: a residual add on the card differs from the CPU "
+              f"path's on the same operands")
+    hal_cc = [lm_rel(torch, cpu[:, i], clogits[:, i].cpu())
+              for i in range(REC_CPU_NEW)]
+    log(f"  (c) {arch} cut to its first {cut.num_layers} blocks (full "
+        f"width), prompt {cplen}, {REC_CPU_NEW} new tokens, the CPU path "
+        f"teacher-forced on the card's tokens ({cpu_s:.1f} s): exact logits "
+        f"max {max(exact_cc):.4f} (< {LM_TOL}); haloc_axa: each of the "
+        f"card's {len(rec.calls)} residual adds equals the CPU path's on the "
+        f"same operands, bit for bit; logits {min(hal_cc):.4f}-"
+        f"{max(hal_cc):.4f} (printed, not gated: ROADMAP Queue C 3)")
+    del cpu_params
+    return launches
+
+
+def recurrent_phase(torch, np, dev, counts, card, errs):
+    """Phase 4i: RG-LRU and SSD serving on the card (the port's
+    ``generate`` at recurrentgemma-9b's full width and depth and
+    mamba2-1.3b's full config, the residual adds in the ``approx_add``
+    kernel), held against the plain versions, the full forward and the
+    CPU path; returns the launches of the two paths."""
+    total = {}
+    for arch, plen, n_expected in REC_MODELS:
+        t0 = time.perf_counter()
+        launches = recurrent_model(torch, np, dev, counts, card, errs, arch,
+                                   plen, n_expected)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        log(f"  {arch} took {time.perf_counter() - t0:.1f} s")
+    return total
 
 
 # ------------------------------------------------------------- phase 5 --
@@ -4259,6 +4631,14 @@ def main():
     for name in LM_PATH_KERNELS:
         launches[name] += h_launches[name]
     log(f"  phase 4h took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 4i: RG-LRU and SSD serving at full width (recurrentgemma-9b,"
+        " mamba2-1.3b)")
+    t0 = time.perf_counter()
+    r_launches = recurrent_phase(torch, np, dev, counts, card, errs)
+    for name in LM_PATH_KERNELS:
+        launches[name] += r_launches[name]
+    log(f"  phase 4i took {time.perf_counter() - t0:.1f} s")
 
     log("phase 5: times (CUDA events, median)")
     int32_ops_per_s = int32_rate(torch, dev)

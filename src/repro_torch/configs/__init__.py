@@ -4,8 +4,9 @@ port's copy of ``repro.configs``).
 Each module defines ``CONFIG`` (full size) and ``smoke_config()`` (a
 reduced same-family config for CPU tests), plus the per-arch input-shape
 table used by the launcher.  Every family's configs are here; the port's
-transformer runs the dense family (``family="dense"``) and raises for
-the others' mixers and inputs.
+transformer runs the dense, MoE, hybrid (RG-LRU + local attention) and
+SSM families and raises for the vision and audio ones' cross attention
+and inputs (ROADMAP Queue A item 3).
 """
 
 from __future__ import annotations

@@ -5,9 +5,15 @@
         --arch qwen3-4b --adder haloc_axa --batch 4 --new-tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen3-4b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --adder haloc_axa     # or mamba2-1.3b
+
+Every arch of the registry but the vision and audio ones serves (those
+raise ``NotImplementedError`` naming their ROADMAP item; hubert-xlarge is
+encoder-only and exits).
 
 Parameters are drawn from a seeded generator on the device, held in bf16
-(the norm scales in fp32); the prompt is random tokens from the same
+(the norm scales and the recurrent mixers' fp32 leaves in fp32); the prompt is random tokens from the same
 seed.  On the card the residual adds run in the ``approx_add`` kernel
 (``--adder``), on the CPU in its plain version.
 """

@@ -160,9 +160,36 @@ def dense(p, x: Tensor) -> Tensor:
     return y
 
 
+#: XLA:CPU sums a row longer than this in windows of this many, each
+#: window one sequential fp32 sum, then the windows' sums in turn (again
+#: in windows past this many).
+XLA_REDUCE_WINDOW = 32
+
+
+def _sequential_sum(x: Tensor) -> Tensor:
+    acc = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
+def row_sum(x: Tensor) -> Tensor:
+    """The fp32 sum over the last axis: on the CPU in XLA:CPU's order
+    (windows of XLA_REDUCE_WINDOW, zero-padded at the end; read for rows
+    of multiples of the window and up to it), on the card torch's own."""
+    if x.device.type != "cpu":
+        return x.sum(dim=-1)
+    w = XLA_REDUCE_WINDOW
+    while x.shape[-1] > w:
+        nb = -(-x.shape[-1] // w)
+        x = F.pad(x, (0, nb * w - x.shape[-1]))
+        x = _sequential_sum(x.reshape(*x.shape[:-1], nb, w))
+    return _sequential_sum(x)
+
+
 def rms_norm(p, x: Tensor, eps: float = 1e-6) -> Tensor:
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = (row_sum(xf * xf) / xf.shape[-1])[..., None]
     # the fp32 rsqrt correctly rounded (through fp64, one value a row):
     # XLA's and torch's own fp32 rsqrt each miss it in the last bit
     inv = torch.rsqrt((var + eps).to(torch.float64)).to(torch.float32)
@@ -438,3 +465,165 @@ def swiglu(p, x: Tensor) -> Tensor:
 
 def gelu_mlp(p, x: Tensor) -> Tensor:
     return dense(p["wo"], gelu_tanh(dense(p["wi"], x)))
+
+
+# ------------------------------------------------- fp32 elementwise math
+#
+# The recurrent mixers keep their gates, decays and states in fp32 and
+# round them to bf16 later, so a one-ulp difference of an fp32 ``exp``
+# flips a bf16 value now and then, and the approximate residual adds
+# amplify it.  On the CPU the functions below compute what XLA:CPU's
+# compiled code computes for the reference (read from its LLVM IR and
+# machine code, jax 0.9.0, x86-64): its own polynomial ``exp`` and
+# ``log1p`` (not the C library's, not correctly rounded), every
+# multiply-add that LLVM contracts into a fused multiply-add done as one
+# (:func:`fma32`), and results below the smallest normal flushed to zero
+# (XLA:CPU runs with FTZ/DAZ set).  On the card ``exp32``, ``log1p32``,
+# ``sqrt32`` and ``fma32`` take one torch kernel each: the emulation
+# (:func:`xla_exp32`, :func:`xla_log1p32`, which run on any device) takes
+# a few hundred launches a call, and the card's GEMMs do not round as
+# XLA:CPU's anyway (ROADMAP Queue C 3).
+
+def _hex(*values):
+    return tuple(float.fromhex(v) for v in values)
+
+
+EXP_CLAMP = _hex("-0x1.5f3334p+6", "0x1.633334p+6")     # -87.8, 88.8
+LOG2E = float.fromhex("0x1.715476p+0")
+LN2_HI, LN2_LO = _hex("0x1.63p-1", "-0x1.bd0106p-13")
+EXP_POLY = _hex("0x1.a0d2cep-13", "0x1.6e879cp-10", "0x1.111210p-7",
+                "0x1.555382p-5", "0x1.555554p-3")
+SQRT_HALF = float.fromhex("0x1.6a09e6p-1")
+LOG_POLY = (_hex("0x1.204376p-4", "-0x1.d7a370p-4", "0x1.de4a34p-4"),
+            _hex("-0x1.fcba9ep-4", "0x1.23d37ep-3", "-0x1.555ca0p-3"),
+            _hex("0x1.999d58p-3", "-0x1.fffff8p-3", "0x1.555554p-2"))
+LOG1P_NUM = _hex("0x1.7bc096p-15", "0x1.fe818ap-2", "0x1.a509f4p+2",
+                 "0x1.de9738p+4", "0x1.e798ecp+5", "0x1.c8e75ap+5",
+                 "0x1.40a202p+4")
+LOG1P_DEN = _hex("0x1.e2035ap+3", "0x1.4c30b6p+6", "0x1.bb865ap+7",
+                 "0x1.351946p+8", "0x1.b0db14p+7", "0x1.e0f304p+5")
+LOG1P_SMALL = float.fromhex("0x1.a8279ap-2")           # sqrt(2) - 1
+MIN_NORMAL = float.fromhex("0x1p-126")
+
+
+def fma32(a, b, c) -> Tensor:
+    """fp32 ``a * b + c`` rounded once, as an FMA instruction rounds it.
+
+    The product of two fp32 values is exact in fp64, and the fp64 sum is
+    rounded once to fp32; that double rounding can miss only where the
+    fp64 sum lies exactly halfway between two fp32 values, and there the
+    fp64 add's own error (an exact two-sum) says which way the exact sum
+    lies.  Three tensors on the card take one ``torch.addcmul`` kernel
+    instead (the exact route is about 15 kernels, 0.4 ms on an SSD
+    layer's (4, 64, 128, 64) state)."""
+    if all(isinstance(t, Tensor) and t.device.type != "cpu"
+           for t in (a, b, c)):
+        return torch.addcmul(c.float(), a.float(), b.float())
+    a, b, c = (torch.as_tensor(t, dtype=torch.float32) for t in (a, b, c))
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    r = s.float()
+    d = s - r.double()
+    inf = torch.full_like(r, float("inf"))
+    other = torch.nextafter(r, torch.where(d > 0, inf, -inf))
+    off_mid = ((d != 0) & (other.double() - s == -d) & (err != 0)
+               & ((err > 0) == (d > 0)))
+    return torch.where(off_mid, other, r)
+
+
+def ftz(x: Tensor) -> Tensor:
+    """Results below the smallest normal fp32 flushed to (signed) zero."""
+    return torch.where(x.abs() < MIN_NORMAL, x * 0.0, x)
+
+
+def xla_exp32(x: Tensor) -> Tensor:
+    """XLA:CPU's fp32 ``exp``: 2^n times a degree-7 polynomial of the
+    reduced argument, every multiply-add one FMA."""
+    x = x.float().clamp(*EXP_CLAMP)
+    n = torch.floor(fma32(x, LOG2E, 0.5)).clamp(-127.0, 127.0)
+    r = fma32(-n, LN2_HI, x)
+    r = fma32(-n, LN2_LO, r)
+    p = fma32(r, EXP_POLY[0], EXP_POLY[1])
+    for c in EXP_POLY[2:] + (0.5,):
+        p = fma32(p, r, c)
+    y = fma32(p, r * r, r) + 1.0
+    scale = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return ftz(y * scale)
+
+
+def _log1p_small(x: Tensor) -> Tensor:
+    """log1p for |x| < sqrt(2) - 1: x - x^2/2 + x^3 P(x)/Q(x)."""
+    x2 = x * x
+    zero = x * 0.0
+    num, den = zero + LOG1P_NUM[0], zero + 1.0
+    for c in LOG1P_NUM[1:]:
+        num = fma32(num, x, c)
+    for c in LOG1P_DEN:
+        den = fma32(den, x, c)
+    return x + fma32(x2, -0.5, (x * x2) * (num / den))
+
+
+def _log1p_large(x: Tensor) -> Tensor:
+    """log(1 + x) through the exponent and a mantissa polynomial."""
+    v = x + 1.0
+    bits = torch.clamp_min(v, MIN_NORMAL).view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    low = m < SQRT_HALF
+    t = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    e = e - low.float()
+    t2 = t * t
+    t3 = t2 * t
+    a, b, c = (fma32(fma32(t, p[0], p[1]), t, p[2]) for p in LOG_POLY)
+    b = fma32(a, t3, b)
+    c = fma32(b, t3, c)
+    g = fma32(t2, -0.5, t) + fma32(c, t3, e * LN2_LO)
+    out = fma32(e, LN2_HI, g)
+    nan = torch.full_like(v, float("nan"))
+    out = torch.where((v <= 0) | torch.isnan(v), nan, out)
+    out = torch.where(v == 0, -torch.ones_like(v) * float("inf"), out)
+    return torch.where(v == float("inf"), v, out)
+
+
+def xla_log1p32(x: Tensor) -> Tensor:
+    """XLA:CPU's fp32 ``log1p``."""
+    x = x.float()
+    return torch.where(x.abs() < LOG1P_SMALL, _log1p_small(x),
+                       _log1p_large(x))
+
+
+def exp32(x: Tensor) -> Tensor:
+    """fp32 ``exp``: XLA:CPU's on the CPU, torch's on the card."""
+    return xla_exp32(x) if x.device.type == "cpu" else torch.exp(x.float())
+
+
+def log1p32(x: Tensor) -> Tensor:
+    """fp32 ``log1p``: XLA:CPU's on the CPU, torch's on the card."""
+    if x.device.type == "cpu":
+        return xla_log1p32(x)
+    return torch.log1p(x.float())
+
+
+def sqrt32(x: Tensor) -> Tensor:
+    """The correctly rounded fp32 square root: on the CPU through fp64
+    (torch's own fp32 ``sqrt`` there misses it in the last bit of some
+    values), on the card torch's (IEEE-rounded)."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x.float())
+
+
+def sigmoid32(x: Tensor) -> Tensor:
+    """``jax.nn.sigmoid`` in fp32: 1 / (1 + exp(-x))."""
+    return ftz(1.0 / (exp32(-x) + 1.0))
+
+
+def softplus32(x: Tensor) -> Tensor:
+    """``jax.nn.softplus`` in fp32: max(x, 0) + log1p(exp(-|x|)), NaN
+    kept."""
+    x = x.float()
+    out = torch.clamp_min(x, 0.0) + log1p32(exp32(-x.abs()))
+    return torch.where(torch.isnan(x), x, out)

@@ -1,5 +1,6 @@
 """Model assembly: embeddings, residual blocks, the block loop (the port of
-``repro.models.transformer``; the dense and MoE families, forward only).
+``repro.models.transformer``; the dense, MoE, hybrid and SSM families,
+forward only).
 
 Layout of a parameter tree (all plain dicts of tensors):
 
@@ -20,11 +21,11 @@ residual-stream adds of every block run through the configured
 approximate adder in fixed point (``cfg.approx.residual_add`` -> the
 port's engine, the ``approx_add`` kernel on the card).
 
-Self attention (global or windowed) and DeepSeek's latent attention (MLA)
-with a SwiGLU, GELU or MoE MLP are ported.  The other mixers, the audio
-and vision inputs, sharding (``batch_axes``/``mesh``) and the loss belong
-to later slices and raise ``NotImplementedError`` naming their ROADMAP
-entry.
+Self attention (global or windowed), DeepSeek's latent attention (MLA),
+RecurrentGemma's RG-LRU and Mamba-2's SSD, with a SwiGLU, GELU or MoE MLP
+or none, are ported.  Cross attention, the audio and vision inputs,
+sharding (``batch_axes``/``mesh``) and the loss belong to later slices
+and raise ``NotImplementedError`` naming their ROADMAP entry.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLAm
 from repro_torch.models import moe as MOEm
+from repro_torch.models import rglru as RGm
+from repro_torch.models import ssd as SSDm
 from repro_torch.models.config import (
     ATTN, CROSS, MLA, MOE, NONE, RGLRU, SSD, SWIGLU,
     BlockSpec, ModelConfig,
@@ -50,13 +53,23 @@ Device = Union[str, torch.device, None]
 #: Where each unported part of a model config is planned (ROADMAP.md,
 #: Queue A).
 _UNPORTED = {
-    RGLRU: "2 (RG-LRU and SSD)",
-    SSD: "2 (RG-LRU and SSD)",
     CROSS: "3 (cross attention and the audio frontend)",
     "vision": "3 (cross attention and the audio frontend)",
     "audio": "3 (cross attention and the audio frontend)",
     "sharding": "5 (sharding on a DeviceMesh)",
 }
+
+
+#: The ported mixers: (init, full, prefill, decode).  The attention
+#: mixers take positions and RoPE tables; the recurrent ones take none.
+_MIXERS = {
+    ATTN: (ATT.attn_init, ATT.attn_apply, ATT.attn_prefill, ATT.attn_decode),
+    MLA: (MLAm.mla_init, MLAm.mla_apply, MLAm.mla_prefill, MLAm.mla_decode),
+    RGLRU: (RGm.rglru_init, RGm.rglru_apply, RGm.rglru_prefill,
+            RGm.rglru_decode),
+    SSD: (SSDm.ssd_init, SSDm.ssd_apply, SSDm.ssd_prefill, SSDm.ssd_decode),
+}
+_RECURRENT = (RGLRU, SSD)
 
 
 def _unported(what: str, key: str):
@@ -67,13 +80,14 @@ def _unported(what: str, key: str):
 
 def check_ported(cfg: ModelConfig) -> ModelConfig:
     """Raise ``NotImplementedError`` unless every block of ``cfg`` is self
-    attention or MLA (with any MLP) and the input is tokens."""
+    attention, MLA, RG-LRU or SSD (with any MLP) and the input is
+    tokens."""
     if cfg.audio is not None:
         _unported(f"{cfg.name}'s audio input", "audio")
     if cfg.vision is not None:
         _unported(f"{cfg.name}'s vision input", "vision")
     for spec in cfg.all_blocks():
-        if spec.mixer not in (ATTN, MLA):
+        if spec.mixer not in _MIXERS:
             _unported(f"the {spec.mixer!r} mixer", spec.mixer)
     return cfg
 
@@ -120,11 +134,23 @@ class Init:
                         device=self.device)
         return (w * scale).to(self.dtype)
 
+    def uniform(self, shape, lo: float, hi: float) -> torch.Tensor:
+        """U(lo, hi) in fp32, whatever ``dtype`` is (leaves the reference
+        keeps in fp32)."""
+        if self.gen is None:
+            return torch.empty(shape, dtype=torch.float32,
+                               device=self.device)
+        u = torch.rand(shape, generator=self.gen, dtype=torch.float32,
+                       device=self.device)
+        return u * (hi - lo) + lo
+
+    def zeros(self, shape) -> torch.Tensor:
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
     def dense(self, d_in: int, d_out: int, *, bias: bool = False):
         p = {"w": self.normal((d_in, d_out), d_in ** -0.5)}
         if bias:
-            p["b"] = torch.zeros((d_out,), dtype=self.dtype,
-                                 device=self.device)
+            p["b"] = self.zeros((d_out,))
         return p
 
     def norm(self, dim: int):
@@ -138,9 +164,8 @@ class Init:
 
 
 def block_init(init: Init, cfg: ModelConfig, spec: BlockSpec) -> Params:
-    mixer = (MLAm.mla_init if spec.mixer == MLA else ATT.attn_init)
     p: Params = {"ln1": init.norm(cfg.d_model),
-                 "mixer": mixer(init, cfg, spec)}
+                 "mixer": _MIXERS[spec.mixer][0](init, cfg, spec)}
     if spec.mlp != NONE:
         p["ln2"] = init.norm(cfg.d_model)
         if spec.mlp == SWIGLU:
@@ -160,7 +185,8 @@ def init_params(seed: Union[int, torch.Generator], cfg: ModelConfig, *,
     card).  The numbers are not ``jax.random``'s; carry the reference's
     own parameters across with :func:`repro_torch.models.weights.from_reference`.
     ``dtype`` is the matrices', biases' and embedding's (bf16 for
-    serving); norm scales stay fp32."""
+    serving); norm scales and the leaves the reference uses in fp32 (the
+    RG-LRU's ``lam``, the SSD's ``a_log`` and ``dt_bias``) stay fp32."""
     check_ported(cfg.validate())
     init = Init(seed, resolve_device(device), dtype)
     d = cfg.d_model
@@ -190,6 +216,10 @@ def block_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,
                      device: Device = None) -> Params:
     if spec.mixer == MLA:
         return MLAm.mla_cache_init(cfg, batch, ctx_len, dtype, device)
+    if spec.mixer == RGLRU:
+        return RGm.rglru_cache_init(cfg, batch, dtype, device)
+    if spec.mixer == SSD:
+        return SSDm.ssd_cache_init(cfg, batch, dtype, device)
     if spec.mixer != ATTN:
         _unported(f"the {spec.mixer!r} mixer's cache", spec.mixer)
     return ATT.attn_cache_init(cfg, spec, batch, ctx_len, dtype, device)
@@ -244,25 +274,29 @@ def block_apply(p: Params, cfg: ModelConfig, spec: BlockSpec, x, ctx,
     """mode: 'full' | 'prefill' | 'decode'. Returns (x, new_cache, aux);
     aux is the MoE MLP's load-balancing loss, None for the other MLPs."""
     _no_sharding(batch_axes, mesh)
-    if spec.mixer == MLA:
-        apply, prefill, decode = (MLAm.mla_apply, MLAm.mla_prefill,
-                                  MLAm.mla_decode)
-    elif spec.mixer == ATTN:
-        apply, prefill, decode = (ATT.attn_apply, ATT.attn_prefill,
-                                  ATT.attn_decode)
-    else:
+    if spec.mixer not in _MIXERS:
         _unported(f"the {spec.mixer!r} mixer", spec.mixer)
+    _, apply, prefill, decode = _MIXERS[spec.mixer]
     h = L.rms_norm(p["ln1"], x, cfg.norm_eps)
     new_cache = cache
-    rope = ctx.get("rope", {}).get((spec.rope_base, _rope_dim(cfg, spec)))
-    if mode == "full":
-        mix = apply(p["mixer"], cfg, spec, h, ctx["positions"], rope)
-    elif mode == "prefill":
-        mix, new_cache = prefill(p["mixer"], cfg, spec, h, ctx["positions"],
-                                 cache, rope)
+    if spec.mixer in _RECURRENT:
+        if mode == "full":
+            mix, _ = apply(p["mixer"], cfg, spec, h)
+        elif mode == "prefill":
+            mix, new_cache = prefill(p["mixer"], cfg, spec, h, cache)
+        else:
+            mix, new_cache = decode(p["mixer"], cfg, spec, h, cache)
     else:
-        mix, new_cache = decode(p["mixer"], cfg, spec, h, ctx["pos"], cache,
-                                ctx["positions"], rope)
+        rope = ctx.get("rope", {}).get((spec.rope_base,
+                                        _rope_dim(cfg, spec)))
+        if mode == "full":
+            mix = apply(p["mixer"], cfg, spec, h, ctx["positions"], rope)
+        elif mode == "prefill":
+            mix, new_cache = prefill(p["mixer"], cfg, spec, h,
+                                     ctx["positions"], cache, rope)
+        else:
+            mix, new_cache = decode(p["mixer"], cfg, spec, h, ctx["pos"],
+                                    cache, ctx["positions"], rope)
 
     if cfg.approx.enabled:
         x = norm_in = cfg.approx.residual_add(x, mix.to(x.dtype))
@@ -325,11 +359,13 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "full",
         span = range(s)
     ctx["positions"] = torch.arange(span.start, span.stop, dtype=torch.int32,
                                     device=x.device)
-    # one pair of RoPE tables per (base, rotated dims), shared by the blocks
+    # one pair of RoPE tables per (base, rotated dims), shared by the
+    # blocks that rotate (the recurrent mixers do not)
     specs = cfg.all_blocks()
     ctx["rope"] = {key: L.rope_tables(span, key[1], key[0], x.device)
                    for key in {(spec.rope_base, _rope_dim(cfg, spec))
-                               for spec in specs}}
+                               for spec in specs
+                               if spec.mixer not in _RECURRENT}}
 
     caches = blocks_in_order(cfg, cache) if cache is not None \
         else [None] * len(specs)

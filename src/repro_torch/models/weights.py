@@ -47,14 +47,21 @@ def _unstack(tree, repeats: int):
             for r in range(repeats)]
 
 
+#: Leaves the reference uses in fp32 (norm scales; the RG-LRU's ``lam``;
+#: the SSD's ``a_log`` and ``dt_bias``): kept fp32 in a tree of any dtype.
+#: The other leaves are cast to the activations' dtype at use, so a bf16
+#: copy computes the same.
+FP32_LEAVES = ("scale", "lam", "a_log", "dt_bias")
+
+
 def from_reference(tree: Any, cfg: ModelConfig, *, device,
                    dtype=torch.float32):
     """The reference's parameter tree (numpy leaves) as the port's, on
     ``device``: ``pattern`` unstacked into one block per repeat, the
-    matrices, biases and embedding in ``dtype``, norm scales fp32."""
+    matrices, biases and embedding in ``dtype``, the FP32_LEAVES fp32."""
 
     def leaf(a, path):
-        keep_fp32 = path and path[-1] == "scale"
+        keep_fp32 = path and path[-1] in FP32_LEAVES
         return to_tensor(a, device, torch.float32 if keep_fp32 else dtype)
 
     out = {k: v for k, v in tree.items() if k != "pattern"}
@@ -64,7 +71,8 @@ def from_reference(tree: Any, cfg: ModelConfig, *, device,
 
 def cache_from_reference(tree: Any, cfg: ModelConfig, *, device):
     """The reference's cache (numpy leaves) as the port's, on ``device``,
-    dtypes kept (bf16 k/v, int32 pos)."""
+    dtypes kept (bf16 k/v and conv states, int32 pos, fp32 recurrent
+    states ``h``/``state``)."""
     out = {"prefix": tree["prefix"], "suffix": tree["suffix"],
            "pattern": [_unstack(c, cfg.repeats) for c in tree["pattern"]]}
     return _map(out, lambda a, _p: to_tensor(a, device))

@@ -7,7 +7,7 @@
   salt, a scrub, a canary, ABFT, the detection campaign's helpers and a
   served plan; and the LM path: the launcher, the transformer, the
   numerics config, a windowed smoke model generating under haloc_axa,
-  and an MLA + MoE smoke model generating)
+  an MLA + MoE smoke model, an RG-LRU and an SSD one generating)
   and no source file under ``src/repro_torch`` (``obs``, ``resilience``,
   ``runtime``, ``integrity``, ``serving``, ``models``, ``launch`` and
   ``configs`` included) names them;
@@ -124,6 +124,11 @@ def test_import_and_cpu_pipeline_load_no_jax():
         "dp = T.init_params(0, ds, device='cpu')\n"
         "toks = generate(dp, ds, {'tokens': np.zeros((2, 8), np.int32)}, 2)\n"
         "assert tuple(toks.shape) == (2, 10), toks.shape\n"
+        "for arch in ('recurrentgemma-9b', 'mamba2-1.3b'):\n"
+        "    rc = get_smoke_config(arch)\n"
+        "    rcp = T.init_params(0, rc, device='cpu')\n"
+        "    toks = generate(rcp, rc, {'tokens': np.zeros((2, 9), np.int32)}, 2)\n"
+        "    assert tuple(toks.shape) == (2, 11), toks.shape\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('LOADED', bad)\n"
@@ -147,7 +152,8 @@ def test_sources_name_neither_jax_nor_repro():
         scanned = [f for f in files if f.parent == PKG / sub]
         assert len(scanned) >= 2, sub
     assert PKG / "ioutil.py" in files
-    for name in ("moe.py", "mla.py", "layers.py", "transformer.py"):
+    for name in ("moe.py", "mla.py", "rglru.py", "ssd.py", "layers.py",
+                 "transformer.py"):
         assert PKG / "models" / name in files
     for path in files:
         text = path.read_text()
@@ -156,16 +162,15 @@ def test_sources_name_neither_jax_nor_repro():
 
 
 def test_check_ported_names_each_family_s_roadmap_item():
-    """The MoE and MLA families are ported; each other part of a model
-    config raises naming its current ROADMAP Queue A item."""
+    """The MoE, MLA, RG-LRU and SSD families are ported; each other part
+    of a model config raises naming its current ROADMAP Queue A item."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models import transformer as T
-    for name in ("granite-moe-1b-a400m", "deepseek-v2-236b", "qwen3-4b"):
+    for name in ("granite-moe-1b-a400m", "deepseek-v2-236b", "qwen3-4b",
+                 "recurrentgemma-9b", "mamba2-1.3b"):
         for cfg in (get_config(name), get_smoke_config(name)):
             assert T.check_ported(cfg) is cfg
     for name, item, what in (
-            ("recurrentgemma-9b", "2 (RG-LRU and SSD)", "'rglru' mixer"),
-            ("mamba2-1.3b", "2 (RG-LRU and SSD)", "'ssd' mixer"),
             ("llama-3.2-vision-11b",
              "3 (cross attention and the audio frontend)", "vision input"),
             ("hubert-xlarge", "3 (cross attention and the audio frontend)",

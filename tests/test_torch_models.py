@@ -468,21 +468,23 @@ def test_gelu_block_matches_reference():
                                   if get_config(n).family != "dense"])
 def test_unported_families_raise(name):
     """Each family beyond the dense one raises for what is not ported yet,
-    naming its ROADMAP Queue A item: the MoE family (ported) for a mesh
-    (item 5), the others for their mixer or input (items 2 and 3)."""
+    naming its ROADMAP Queue A item: the MoE, hybrid (RG-LRU) and SSM
+    families (ported) for a mesh (item 5), the others for their mixer or
+    input (item 3)."""
+    ported = ("moe", "hybrid", "ssm")
     for cfg in (get_config(name), get_smoke_config(name)):
-        if cfg.family == "moe":
+        if cfg.family in ported:
             assert T.check_ported(cfg) is cfg
             T.init_params(0, cfg, device="meta")
             T.init_cache(cfg, 1, 8, device="meta")
             continue
         with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP.md Queue A item [23] "):
+                           match=r"ROADMAP.md Queue A item 3 "):
             T.init_params(0, cfg, device="meta")
         with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP.md Queue A item [23] "):
+                           match=r"ROADMAP.md Queue A item 3 "):
             T.init_cache(cfg, 1, 8, device="meta")
-    base = get_smoke_config(name if get_config(name).family == "moe"
+    base = get_smoke_config(name if get_config(name).family in ported
                             else "qwen3-4b")
     params = T.init_params(0, base, device=CPU)
     with pytest.raises(NotImplementedError, match="Queue A item 5 "):
