@@ -281,6 +281,39 @@ just before each of its two paths and read just after (their
    its window and 16 decode steps: exact parity within the rule,
    haloc_axa teacher-forced equal to ``generate``.
 
+The cross attention and audio slice adds phase 4j, at full width, its
+counts set to 0 just before each of its two paths and read just after
+(their ``approx_add`` launches join the ``kernels`` line):
+
+4j. bf16 weights from a seeded generator on the card (norm scales and the
+   tanh gates fp32), every gate and bias set to seeded nonzero values
+   (printed); ``approx_add`` against its plain version at (4, 128 | 1,
+   4096) and (4, 1500 | 1, 1280); (a) llama-3.2-vision-11b at full width
+   and depth (40 layers: 32 self, rope base 500000, 8 gated cross
+   attention; d_model 4096, 32/8 heads x 128, d_ff 14336, vocab 128256;
+   9,791,936,528 parameters), ``generate`` of 4 x (128 + 32) tokens with
+   a (4, 1601, 4096) vision input under haloc_axa: 80 ``approx_add``
+   launches a forward step and no other kernel, tokens and every step's
+   logits bit for bit those of the plain versions on the card; (b) with
+   exact adds prefill + decode against ``forward(mode="full")`` by depth
+   (5, 20, 40 layers; gated < 0.04 at full depth, the others printed),
+   under haloc_axa the teacher-forced logits equal to ``generate``'s (the
+   parity printed); (c) the first pattern
+   repeat (4 self + 1 cross) against the port's CPU path, teacher-forced
+   on the card's tokens: exact logits within the rule, every haloc_axa
+   residual add equal to the CPU path's on its operands; (d) hubert-xlarge
+   at full width and depth (48 encoder layers, d_model 1280, 16 heads x
+   80, d_ff 5120, 504 classes; 945,451,520 parameters) on 4 x 1500 frames
+   of 512 features (two KV chunks, a 476-frame tail) under haloc_axa: 96
+   launches a forward, logits bit for bit the plain versions', its first
+   two layers against the CPU path as in (c); (e) llama's prefill ms
+   (adapter and cross K/V included), decode ms a step, tokens/s, a step's
+   launches and idle share, exact and haloc_axa, and its bytes bound;
+   hubert's forward ms, frames/s, launches and idle share, and its FLOP
+   bound; (f) ``python -m repro_torch.launch.serve --arch
+   llama-3.2-vision-11b --adder haloc_axa --batch 4 --prompt-len 32
+   --new-tokens 16`` exits 0.
+
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 run from a directory without ``src/repro_torch``, it exits non-zero and
@@ -2809,10 +2842,12 @@ def lm_prompt(torch, cfg, batch, length, dev, seed):
                                     generator=gen, device=dev)}
 
 
-def lm_parity(torch, T, params, cfg, toks, logits, prompt_len):
+def lm_parity(torch, T, params, cfg, toks, logits, prompt_len, extra=None):
     """Per decode step, the generated logits against ``forward(mode=
-    "full")`` on the same tokens (the reference's parity rule)."""
-    full = T.forward(params, cfg, {"tokens": toks[:, :-1]}, mode="full")[0]
+    "full")`` on the same tokens (the reference's parity rule); ``extra``:
+    the prompt's other inputs (a vision model's ``vision``)."""
+    full = T.forward(params, cfg, dict(extra or {}, tokens=toks[:, :-1]),
+                     mode="full")[0]
     return [lm_rel(torch, logits[:, i], full[:, prompt_len - 1 + i])
             for i in range(logits.shape[1])]
 
@@ -2861,6 +2896,25 @@ class ResidualRecorder:
         out = self.approx.residual_add(x, y)
         self.calls.append((x, y, out))
         return out
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def check_adds_on_cpu(torch, rec, cpu_approx, what):
+    """Every residual add the card ran (``rec``'s calls) equals the CPU
+    path's add on the same operands, bit for bit (the card's operands
+    suffice: no CPU forward is needed for it)."""
+    for x, y, out in rec.calls:
+        check(torch.equal(out.cpu(), cpu_approx.residual_add(x.cpu(),
+                                                             y.cpu())),
+              f"{what}: a residual add on the card differs from the CPU "
+              f"path's on the same operands")
 
 
 def lm_times(torch, steps, params, cfg, prompt, reps=3):
@@ -3041,13 +3095,6 @@ def lm_phase(torch, np, dev, counts, card, errs):
     del params
     torch.cuda.empty_cache()
 
-    def to_cpu(tree):
-        if isinstance(tree, dict):
-            return {k: to_cpu(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_cpu(v) for v in tree]
-        return tree.cpu()
-
     t0 = time.perf_counter()
     cpu_params = to_cpu(small)
     cpu_hal = dataclasses.replace(cut, approx=lm_numerics("haloc_axa",
@@ -3060,11 +3107,7 @@ def lm_phase(torch, np, dev, counts, card, errs):
     check(max(exact_cc) < LM_TOL,
           f"{LM_ARCH} cut to {LM_CPU_LAYERS} layers, exact: the card's "
           f"logits against the CPU path's {max(exact_cc):.4f} >= {LM_TOL}")
-    for x, y, out in rec.calls:
-        check(torch.equal(out.cpu(), cpu_hal.approx.residual_add(x.cpu(),
-                                                                 y.cpu())),
-              "a residual add on the card differs from the CPU path's on "
-              "the same operands")
+    check_adds_on_cpu(torch, rec, cpu_hal.approx, LM_ARCH)
     hal_cc = [lm_rel(torch, cpu[:, i], clogits[:, i].cpu())
               for i in range(LM_CPU_NEW)]
     log(f"  (c) {LM_ARCH} cut to its first {LM_CPU_LAYERS} layers (full "
@@ -3670,13 +3713,6 @@ def recurrent_model(torch, np, dev, counts, card, errs, arch, plen,
     ctoks_e, clogits_e = generate(small, cut, cprompt, REC_CPU_NEW,
                                   return_logits=True)
 
-    def to_cpu(tree):
-        if isinstance(tree, dict):
-            return {k: to_cpu(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_cpu(v) for v in tree]
-        return tree.cpu()
-
     t0 = time.perf_counter()
     cpu_params = to_cpu(small)
     del params, small
@@ -3691,11 +3727,7 @@ def recurrent_model(torch, np, dev, counts, card, errs, arch, plen,
     check(max(exact_cc) < LM_TOL,
           f"{arch} cut to {cut.num_layers} blocks, exact: the card's logits "
           f"against the CPU path's {max(exact_cc):.4f} >= {LM_TOL}")
-    for x, y, out in rec.calls:
-        check(torch.equal(out.cpu(), cpu_hal.approx.residual_add(x.cpu(),
-                                                                 y.cpu())),
-              f"{arch}: a residual add on the card differs from the CPU "
-              f"path's on the same operands")
+    check_adds_on_cpu(torch, rec, cpu_hal.approx, arch)
     hal_cc = [lm_rel(torch, cpu[:, i], clogits[:, i].cpu())
               for i in range(REC_CPU_NEW)]
     log(f"  (c) {arch} cut to its first {cut.num_layers} blocks (full "
@@ -3723,6 +3755,381 @@ def recurrent_phase(torch, np, dev, counts, card, errs):
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
         log(f"  {arch} took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+# ------------------------------------------------------------ phase 4j --
+
+#: The cross attention and audio slice's models, bf16 weights from a seeded
+#: generator on the card (norm scales and the tanh gates fp32), the gates
+#: and biases set to seeded nonzero values, the residual adds through
+#: haloc_axa n16m8k4.  llama-3.2-vision-11b at full width and depth (40
+#: layers: 32 self, rope base 500000, and 8 gated cross attention; vision
+#: input (4, 1601, 4096)), 4 x (128 + 32) tokens; hubert-xlarge at full
+#: width and depth (48 encoder layers), 4 x 1500 frames of 512 features
+#: (30 s of audio at 50 Hz: two KV chunks of 1024, the second a 476-frame
+#: tail).
+VIS_ARCH, VIS_PARAMS, VIS_NEW = "llama-3.2-vision-11b", 9_791_936_528, 32
+AUD_ARCH, AUD_PARAMS, AUD_FRAMES = "hubert-xlarge", 945_451_520, 1500
+#: Depths (layers) the exact prefill/decode parity is read at: one pattern
+#: repeat and 20 layers (printed), then full depth (gated).
+VIS_DEPTHS = (5, 20, 40)
+#: hubert's CPU case: its first two layers, one sequence of all the frames.
+AUD_CPU_LAYERS, AUD_CPU_BATCH = 2, 1
+#: Forwards timed (after one untimed) for hubert's times.
+AUD_TIMED = 5
+#: H100 SXM dense bf16 tensor-core peak (data sheet), hubert's FLOP bound.
+BF16_FLOPS_PER_S = 989e12
+
+
+def seed_gates_and_biases(torch, T, params, cfg, dev, seed):
+    """Set every tanh gate (``gate``, ``gate_mlp``: N(0, 1)) and every bias
+    (``b``: N(0, 0.1)) of a tree on the card to values from a seeded
+    generator (the init leaves them zero, which makes a cross block the
+    identity).  Returns (the gates in block order, the biases' count)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    gates, n_bias = [], 0
+
+    def walk(tree):
+        nonlocal n_bias
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                walk(val)
+            elif key in ("gate", "gate_mlp"):
+                val.copy_(torch.randn((), generator=gen, device=dev))
+                gates.append(float(val))
+            elif key == "b":
+                val.copy_(torch.randn(val.shape, generator=gen, device=dev)
+                          * 0.1)
+                n_bias += val.numel()
+
+    for top in ("frontend",):
+        if top in params:
+            walk({top: params[top]})
+    for blk in T.blocks_in_order(cfg, params):
+        walk(blk)
+    return gates, n_bias
+
+
+def vision_prompt(torch, cfg, batch, length, dev, seed):
+    """Tokens and the vision embeddings (N(0, 1) in bf16) from one seeded
+    generator on the card."""
+    prompt = lm_prompt(torch, cfg, batch, length, dev, seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    prompt["vision"] = torch.randn(
+        (batch, cfg.vision.seq_len, cfg.vision.embed_dim), generator=gen,
+        device=dev).to(torch.bfloat16)
+    return prompt
+
+
+def step_profile_line(prof, step_ms):
+    busy = sum(us for us, _ in prof.values())
+    n = sum(c for _, c in prof.values())
+    parts = ", ".join(f"{cls} {us:.1f} us in {c:.0f} launches"
+                      for cls, (us, c) in sorted(prof.items()))
+    return (f"{parts}; {n:.0f} launches, busy {busy / 1e3:.3f} ms of a "
+            f"{step_ms:.3f} ms step, idle share "
+            f"{1 - busy / (step_ms * 1e3):.3f}")
+
+
+def vision_model(torch, np, dev, counts, card, errs):
+    """Phase 4j (a)-(c), (e) and (f) for llama-3.2-vision-11b; returns the
+    counted path's launches."""
+    import dataclasses
+    import os
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.models.serving import generate, teacher_forced_logits
+
+    base = get_config(VIS_ARCH)
+    check_lm_kernel_shapes(torch, np, dev, errs, width=base.d_model)
+    log(f"  approx_add equals its plain version at the residual adds' "
+        f"shapes ({LM_BATCH}, {LM_PROMPT}, {base.d_model}) and "
+        f"({LM_BATCH}, 1, {base.d_model}), every kind, both forms")
+    t0 = time.perf_counter()
+    params = T.init_params(0, base, device=dev, dtype=torch.bfloat16)
+    gates, n_bias = seed_gates_and_biases(torch, T, params, base, dev, 11)
+    torch.cuda.synchronize()
+    n_params = T.param_count(params)
+    check(n_params == VIS_PARAMS,
+          f"{VIS_ARCH}: {n_params} parameters, not {VIS_PARAMS}")
+    kinds = [s.mixer for s in base.all_blocks()]
+    log(f"  {VIS_ARCH}: {base.num_layers} layers ({kinds.count('attn')} "
+        f"self, rope base {base.pattern[0].rope_base:g}; "
+        f"{kinds.count('cross')} cross), d_model {base.d_model}, "
+        f"{base.num_heads}/{base.num_kv_heads} heads, d_ff {base.d_ff}, vocab "
+        f"{base.vocab_size}, vision {base.vision.seq_len} x "
+        f"{base.vision.embed_dim}: {n_params} parameters drawn on the card "
+        f"in {time.perf_counter() - t0:.2f} s, {tree_bytes(params) / 1e9:.2f}"
+        f" GB (bf16; gates fp32); gates (gate, gate_mlp by cross block) "
+        f"{[round(g, 4) for g in gates]}; {n_bias} biases")
+    prompt = vision_prompt(torch, base, LM_BATCH, LM_PROMPT, dev, 13)
+    vis = {"vision": prompt["vision"]}
+
+    # (a) the path, counted, against the plain versions on the card
+    toks, logits, launches = moe_generate_checked(
+        torch, counts, T, params, base, prompt, VIS_NEW, dev, VIS_ARCH)
+    per_step = residual_adds(base)
+    log(f"  (a) generate(batch {LM_BATCH}, prompt {LM_PROMPT}, vision "
+        f"{tuple(prompt['vision'].shape)}, {VIS_NEW} new, greedy), "
+        f"haloc_axa n16m8k4: {per_step} approx_add launches a forward step "
+        f"({launches['approx_add']} in {VIS_NEW} steps) and no other "
+        f"kernel; tokens and every step's logits equal the plain version's "
+        f"on the card, bit for bit")
+
+    # (b) prefill/decode against the full forward
+    hal = base.with_approx(lm_numerics("haloc_axa", "cuda", dev))
+    check(torch.equal(teacher_forced_logits(params, hal, toks, LM_PROMPT,
+                                            vision=prompt["vision"]),
+                      logits),
+          f"{VIS_ARCH} haloc_axa: prefill and decode on the generated tokens "
+          f"differ from generate's own logits")
+    par = {}
+    for layers in VIS_DEPTHS:
+        cfg, p = recurrent_cut(base, params, layers)
+        etoks, elogits = generate(p, cfg, prompt, VIS_NEW,
+                                  return_logits=True)
+        par[layers] = max(lm_parity(torch, T, p, cfg, etoks, elogits,
+                                    LM_PROMPT, vis))
+    full = base.num_layers
+    check(par[full] < LM_TOL,
+          f"{VIS_ARCH} at {full} layers, exact: prefill/decode logits "
+          f"against the full forward {par[full]:.4f} >= {LM_TOL}")
+    hal_par = lm_parity(torch, T, params, hal, toks, logits, LM_PROMPT, vis)
+    log(f"  (b) prefill/decode against forward(mode='full'), {VIS_NEW} "
+        f"steps, exact adds, by depth (layers: max): "
+        f"{', '.join(f'{k}: {v:.4f}' for k, v in par.items())} (gated < "
+        f"{LM_TOL} at {full} layers); haloc_axa teacher-forced equal to "
+        f"generate's logits bit for bit, against the full forward "
+        f"{min(hal_par):.4f}-{max(hal_par):.4f} (printed, not gated: ROADMAP "
+        f"Queue C 3)")
+
+    # (e) times and the bound
+    for label, cfg in (("exact", base), ("haloc_axa", hal)):
+        pre, dec, cache, last = lm_times(torch, steps, params, cfg, prompt)
+        log(f"  (e) {VIS_ARCH} {label}: prefill of {LM_BATCH} x {LM_PROMPT} "
+            f"with the vision adapter and the {kinds.count('cross')} cross "
+            f"K/V projections {pre:.3f} ms; decode {dec:.3f} ms a step = "
+            f"{LM_BATCH * 1e3 / dec:.1f} tokens/s at batch {LM_BATCH} (wall, "
+            f"median of 3; {card})")
+        prof, step_ms = lm_decode_profile(torch, steps, params, cfg, cache,
+                                          last)
+        log(f"      {label} decode step by kernel class: "
+            + (step_profile_line(prof, step_ms) if prof else
+               "the profiler recorded no device time (not measured)"))
+        if label == "exact":
+            blocks = zip(T.blocks_in_order(base, params), base.all_blocks())
+            cross_kv = sum(tree_bytes(blk["mixer"][w])
+                           for blk, spec in blocks if spec.mixer == "cross"
+                           for w in ("wk", "wv"))
+            step_bytes = tree_bytes(dict(params, embed=None,
+                                         vis_adapter=None)) - cross_kv \
+                + tree_bytes(cache)
+            log(f"      a decode step must read every weight but the "
+                f"embedding, the vision adapter and the cross blocks' K/V "
+                f"projections, and the self and cross caches: "
+                f"{step_bytes / 1e9:.3f} GB, "
+                f"{step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s")
+        del cache
+    torch.cuda.empty_cache()
+
+    # (c) the first pattern repeat against the CPU path
+    cut, small = recurrent_cut(base, params, len(base.pattern))
+    rec = ResidualRecorder(lm_numerics("haloc_axa", "cuda", dev))
+    generate(small, dataclasses.replace(cut, approx=rec), prompt,
+             LM_CPU_NEW)
+    ctoks_e, clogits_e = generate(small, cut, prompt, LM_CPU_NEW,
+                                  return_logits=True)
+    t0 = time.perf_counter()
+    cpu_params = to_cpu(small)
+    cvis = prompt["vision"].cpu()
+    del params, small
+    torch.cuda.empty_cache()
+    cpu_e = teacher_forced_logits(cpu_params, cut, ctoks_e.cpu(), LM_PROMPT,
+                                  vision=cvis)
+    cpu_s = time.perf_counter() - t0
+    exact_cc = [lm_rel(torch, cpu_e[:, i], clogits_e[:, i].cpu())
+                for i in range(LM_CPU_NEW)]
+    check(max(exact_cc) < LM_TOL,
+          f"{VIS_ARCH} cut to {cut.num_layers} layers, exact: the card's "
+          f"logits against the CPU path's {max(exact_cc):.4f} >= {LM_TOL}")
+    check_adds_on_cpu(torch, rec, lm_numerics("haloc_axa", "torch", "cpu"),
+                      VIS_ARCH)
+    log(f"  (c) {VIS_ARCH} cut to its first pattern repeat ({cut.num_layers}"
+        f" layers: {[s.mixer for s in cut.all_blocks()]}, full width), "
+        f"{LM_CPU_NEW} new tokens, the CPU path teacher-forced on the card's "
+        f"tokens ({cpu_s:.1f} s): exact logits max {max(exact_cc):.4f} (< "
+        f"{LM_TOL}); haloc_axa: each of the card's {len(rec.calls)} residual "
+        f"adds (the gated cross products among them) equals the CPU path's "
+        f"add on the same operands, bit for bit")
+    del cpu_params
+
+    # (f) the launcher
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           VIS_ARCH, "--adder", "haloc_axa", "--batch", "4", "--prompt-len",
+           "32", "--new-tokens", "16"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    out = res.stdout.strip().splitlines()
+    check(res.returncode == 0 and out
+          and out[-1].startswith(f"{VIS_ARCH}: (4, 48); "),
+          f"python -m repro_torch.launch.serve --arch {VIS_ARCH} exited "
+          f"{res.returncode}: {res.stdout[-2000:]} {res.stderr[-2000:]}")
+    log(f"  (f) python -m repro_torch.launch.serve --arch {VIS_ARCH} "
+        f"--adder haloc_axa --batch 4 --prompt-len 32 --new-tokens 16: exit "
+        f"0 in {time.perf_counter() - t0:.1f} s: {out[-1]}")
+    return launches
+
+
+def hubert_flops(cfg, batch, frames):
+    """The multiply-adds (x 2) of hubert's forward on ``batch`` x
+    ``frames``: the frontend, each layer's four projections, its scores
+    and PV products over every frame and its MLP, the head."""
+    d = cfg.d_model
+    per_layer = 2 * (4 * d * d + 2 * d * cfg.d_ff) + 2 * 2 * frames * d
+    per_frame = (2 * cfg.audio.feat_dim * d + cfg.num_layers * per_layer
+                 + 2 * d * cfg.padded_vocab)
+    return per_frame * batch * frames
+
+
+def audio_model(torch, np, dev, counts, card, errs):
+    """Phase 4j (d) and hubert's times in (e); returns the counted path's
+    launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    base = get_config(AUD_ARCH)
+    check_lm_kernel_shapes(torch, np, dev, errs, width=base.d_model,
+                           prompt=AUD_FRAMES)
+    log(f"  approx_add equals its plain version at the residual adds' "
+        f"shapes ({LM_BATCH}, {AUD_FRAMES}, {base.d_model}) and "
+        f"({LM_BATCH}, 1, {base.d_model}), every kind, both forms")
+    t0 = time.perf_counter()
+    params = T.init_params(0, base, device=dev, dtype=torch.bfloat16)
+    _, n_bias = seed_gates_and_biases(torch, T, params, base, dev, 17)
+    torch.cuda.synchronize()
+    n_params = T.param_count(params)
+    check(n_params == AUD_PARAMS,
+          f"{AUD_ARCH}: {n_params} parameters, not {AUD_PARAMS}")
+    log(f"  {AUD_ARCH}: {base.num_layers} encoder layers (non-causal), "
+        f"d_model {base.d_model}, {base.num_heads} heads x {base.head_dim}, "
+        f"d_ff {base.d_ff} (GELU, biases), {base.vocab_size} classes, "
+        f"frontend {base.audio.feat_dim} -> {base.d_model}: {n_params} "
+        f"parameters drawn on the card in {time.perf_counter() - t0:.2f} s, "
+        f"{tree_bytes(params) / 1e9:.2f} GB (bf16); {n_bias} biases set to "
+        f"N(0, 0.1) from seed 17")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    frames = {"frames": torch.randn((LM_BATCH, AUD_FRAMES,
+                                     base.audio.feat_dim), generator=gen,
+                                    device=dev).to(torch.bfloat16)}
+    hal = base.with_approx(lm_numerics("haloc_axa", "cuda", dev))
+    plain = base.with_approx(lm_numerics("haloc_axa", "torch", dev))
+
+    # (d) the forward, counted, against the plain versions on the card
+    logits, launches = run_counted(
+        torch, counts, LM_PATH_KERNELS,
+        lambda: T.forward(params, hal, frames)[0],
+        f"{AUD_ARCH} path (forward)")
+    per_fwd = residual_adds(base)
+    check(launches["approx_add"] == per_fwd,
+          f"{AUD_ARCH}: approx_add launched {launches['approx_add']} times in "
+          f"one forward, not {per_fwd}")
+    check(all(n == 0 for k, n in launches.items() if k != "approx_add"),
+          f"{AUD_ARCH}: the path launched other kernels: {launches}")
+    check(torch.equal(logits, T.forward(params, plain, frames)[0]),
+          f"{AUD_ARCH} forward: the approx_add kernel's logits differ from "
+          f"the plain version's on the card")
+    check(tuple(logits.shape) == (LM_BATCH, AUD_FRAMES, base.vocab_size)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"{AUD_ARCH}: logits of shape {tuple(logits.shape)}, or not finite")
+    pre, _ = steps.make_prefill_step(hal, AUD_FRAMES)(params, frames)
+    diff = int((pre != logits).sum())
+    log(f"  (d) forward(mode='full') on {LM_BATCH} x {AUD_FRAMES} frames "
+        f"(KV chunks of {base.attn_kv_chunk}, a "
+        f"{AUD_FRAMES % base.attn_kv_chunk}-frame tail), haloc_axa n16m8k4: "
+        f"{per_fwd} approx_add launches and no other kernel; logits "
+        f"({tuple(logits.shape)}, finite) equal the plain version's on the "
+        f"card, bit for bit; the prefill step's "
+        f"logits (every frame's) differ from the full forward's in {diff} "
+        f"of {logits.numel()}")
+
+    # (e) times and the bound
+    flops = hubert_flops(base, LM_BATCH, AUD_FRAMES)
+    for label, cfg in (("exact", base), ("haloc_axa", hal)):
+        def fwd(c=cfg):
+            return T.forward(params, c, frames)[0]
+
+        walls = []
+        for _ in range(AUD_TIMED + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fwd()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(walls[1:])
+        prof = kernel_classes(device_times(torch, fwd, 1))
+        log(f"  (e) {AUD_ARCH} {label}: forward of {LM_BATCH} x {AUD_FRAMES} "
+            f"frames {ms:.3f} ms (median of {AUD_TIMED}) = "
+            f"{LM_BATCH * AUD_FRAMES * 1e3 / ms:.0f} frames/s ({card}); by "
+            f"kernel class: "
+            + (step_profile_line(prof, ms) if prof else
+               "the profiler recorded no device time (not measured)"))
+    log(f"      the forward's multiply-adds: {flops / 1e12:.3f} TFLOP, "
+        f"{flops / BF16_FLOPS_PER_S * 1e3:.3f} ms at the 989 TFLOP/s dense "
+        f"bf16 peak; its weights {tree_bytes(params) / 1e9:.3f} GB, "
+        f"{tree_bytes(params) / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s")
+    del logits, pre
+    torch.cuda.empty_cache()
+
+    # (d) its first layers against the CPU path
+    cut = dataclasses.replace(base, repeats=AUD_CPU_LAYERS)
+    small = dict(params, pattern=[params["pattern"][0][:AUD_CPU_LAYERS]])
+    one = {"frames": frames["frames"][:AUD_CPU_BATCH]}
+    rec = ResidualRecorder(lm_numerics("haloc_axa", "cuda", dev))
+    T.forward(small, dataclasses.replace(cut, approx=rec), one)
+    card_e = T.forward(small, cut, one)[0]
+    t0 = time.perf_counter()
+    cpu_params = to_cpu(small)
+    del params, small
+    torch.cuda.empty_cache()
+    cpu_e = T.forward(cpu_params, cut, {"frames": one["frames"].cpu()})[0]
+    cpu_s = time.perf_counter() - t0
+    exact_cc = lm_rel(torch, cpu_e, card_e.cpu())
+    check(exact_cc < LM_TOL,
+          f"{AUD_ARCH} cut to {AUD_CPU_LAYERS} layers, exact: the card's "
+          f"logits against the CPU path's {exact_cc:.4f} >= {LM_TOL}")
+    check_adds_on_cpu(torch, rec, lm_numerics("haloc_axa", "torch", "cpu"),
+                      AUD_ARCH)
+    log(f"  (d) {AUD_ARCH} cut to its first {AUD_CPU_LAYERS} layers (full "
+        f"width), {AUD_CPU_BATCH} x {AUD_FRAMES} frames, the CPU path "
+        f"({cpu_s:.1f} s): exact logits {exact_cc:.4f} (< {LM_TOL}); "
+        f"haloc_axa: each of the card's {len(rec.calls)} residual adds "
+        f"(the GELU output bias sums among them) equals the CPU path's add "
+        f"on the same operands, bit for bit")
+    return launches
+
+
+def vision_audio_phase(torch, np, dev, counts, card, errs):
+    """Phase 4j: cross attention and the audio frontend on the card
+    (llama-3.2-vision-11b's ``generate`` and hubert-xlarge's forward at
+    full width and depth, the residual adds in the ``approx_add``
+    kernel), held against the plain versions, the full forward and the
+    CPU path; returns the launches of the two paths."""
+    total = {}
+    for model in (vision_model, audio_model):
+        t0 = time.perf_counter()
+        launches = model(torch, np, dev, counts, card, errs)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        log(f"  {model.__name__} took {time.perf_counter() - t0:.1f} s")
     return total
 
 
@@ -4639,6 +5046,14 @@ def main():
     for name in LM_PATH_KERNELS:
         launches[name] += r_launches[name]
     log(f"  phase 4i took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 4j: cross attention and the audio frontend at full width "
+        "(llama-3.2-vision-11b, hubert-xlarge)")
+    t0 = time.perf_counter()
+    j_launches = vision_audio_phase(torch, np, dev, counts, card, errs)
+    for name in LM_PATH_KERNELS:
+        launches[name] += j_launches[name]
+    log(f"  phase 4j took {time.perf_counter() - t0:.1f} s")
 
     log("phase 5: times (CUDA events, median)")
     int32_ops_per_s = int32_rate(torch, dev)

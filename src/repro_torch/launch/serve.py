@@ -7,14 +7,18 @@
         --arch qwen3-4b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-9b --adder haloc_axa     # or mamba2-1.3b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama-3.2-vision-11b --adder haloc_axa --batch 4 \
+        --prompt-len 32 --new-tokens 16
 
-Every arch of the registry but the vision and audio ones serves (those
-raise ``NotImplementedError`` naming their ROADMAP item; hubert-xlarge is
-encoder-only and exits).
+Every arch of the registry serves but hubert-xlarge, which is
+encoder-only and exits (as the reference's launcher does).
 
 Parameters are drawn from a seeded generator on the device, held in bf16
-(the norm scales and the recurrent mixers' fp32 leaves in fp32); the prompt is random tokens from the same
-seed.  On the card the residual adds run in the ``approx_add`` kernel
+(the norm scales and the fp32 leaves of ``weights.FP32_LEAVES`` in fp32);
+the prompt is random tokens from the same seed, and a vision model's
+input (B, seq_len, embed_dim) bf16 embeddings, N(0, 1), drawn after them.
+On the card the residual adds run in the ``approx_add`` kernel
 (``--adder``), on the CPU in its plain version.
 """
 
@@ -57,6 +61,10 @@ def main(argv=None):
     batch = {"tokens": torch.randint(0, cfg.vocab_size,
                                      (args.batch, args.prompt_len),
                                      generator=gen, device=dev)}
+    if cfg.vision is not None:
+        batch["vision"] = torch.randn(
+            (args.batch, cfg.vision.seq_len, cfg.vision.embed_dim),
+            generator=gen, device=dev).to(torch.bfloat16)
     t0 = time.time()
     out = generate(params, cfg, batch, args.new_tokens,
                    temperature=args.temperature)

@@ -15,11 +15,14 @@ from repro_torch.models.config import ModelConfig
 
 def make_prefill_step(cfg: ModelConfig, ctx_len: int, batch_axes=None):
     """``prefill_step(params, batch) -> (last logits, cache)``: a fresh
-    cache of ``ctx_len`` positions on the parameters' device, filled."""
+    cache of ``ctx_len`` positions on the parameters' device, filled
+    (batch: ``tokens`` or an audio model's ``frames``, and a vision
+    model's ``vision``; a non-causal model returns every position's
+    logits)."""
     T._no_sharding(batch_axes, None)
 
     def prefill_step(params, batch):
-        b = len(batch["tokens"])
+        b = len(batch["tokens"] if "tokens" in batch else batch["frames"])
         cache = T.init_cache(cfg, b, ctx_len,
                              device=T.params_device(params))
         logits, cache, _ = T.forward(params, cfg, batch, mode="prefill",

@@ -1,9 +1,10 @@
-"""Self-attention residual mixer with KV-cache support (the port of
-``repro.models.attention``; cross attention belongs to the vision slice).
+"""Self/cross-attention residual mixers with KV-cache support (the port
+of ``repro.models.attention``).
 
 Cache layouts (lockstep batched serving):
   global attn : {"k","v": (B, S_ctx, Hkv, Dh) bf16, "pos": (S_ctx,) int32}
   local  attn : ring buffer of size W (slot = pos % W), same fields
+  cross  attn : {"k","v": (B, Sv, Hkv, Dh)}  (static after prefill)
 
 ``pos`` stores the absolute position held by each slot, -1 = empty; masks
 are computed from these absolute positions (``layers._mask_bias``), which
@@ -142,3 +143,68 @@ def attn_decode(p, cfg: ModelConfig, spec: BlockSpec, x, pos: int, cache,
         causal=cfg.causal, window=spec.window)
     b = x.shape[0]
     return L.dense(p["wo"], out.reshape(b, 1, cfg.q_dim)), cache
+
+
+# ----------------------------------------------------------- cross attn --
+
+def cross_attn_init(init, cfg: ModelConfig, spec: BlockSpec):
+    """Parameters of one cross-attention mixer: the projections without
+    bias, the q and k norms, and Llama-3.2's tanh gate (an fp32 scalar,
+    zero at init: the block starts as the identity)."""
+    return {
+        "wq": init.dense(cfg.d_model, cfg.q_dim),
+        "wk": init.dense(cfg.d_model, cfg.kv_dim),
+        "wv": init.dense(cfg.d_model, cfg.kv_dim),
+        "wo": init.dense(cfg.q_dim, cfg.d_model),
+        "kn": init.norm(cfg.head_dim),
+        "qn": init.norm(cfg.head_dim),
+        "gate": torch.zeros((), dtype=torch.float32, device=init.device),
+    }
+
+
+def cross_cache_init(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
+                     device=None):
+    shape = (batch, cfg.vision.seq_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cross_kv(p, cfg: ModelConfig, vis):
+    """vis: projected vision embeddings (B, Sv, D) -> k (normed), v."""
+    b, sv, _ = vis.shape
+    k = L.dense(p["wk"], vis).reshape(b, sv, cfg.num_kv_heads, cfg.head_dim)
+    v = L.dense(p["wv"], vis).reshape(b, sv, cfg.num_kv_heads, cfg.head_dim)
+    return L.rms_norm(p["kn"], k, cfg.norm_eps), v
+
+
+def tanh_gates(gates) -> torch.Tensor:
+    """``tanh`` of each fp32 scalar gate (XLA:CPU's, :func:`layers.
+    xla_tanh32`, on every device: some hundred small kernels a call on the
+    card, so :func:`transformer.cross_tanh_gates` takes every cross
+    block's gates in one call) rounded to bf16, the activations' dtype, as
+    a (n,) tensor."""
+    return L.xla_tanh32(torch.stack([g.float() for g in gates])).to(
+        torch.bfloat16)
+
+
+def gate(t, out, *, keep_fp32: bool = False):
+    """A gate's bf16 ``tanh`` ``t`` (:func:`tanh_gates`) times ``out``.
+    ``keep_fp32``: the product in fp32, unrounded, as XLA's fusion hands
+    it to an approximate residual add (an exact add reads it rounded)."""
+    return t.float() * out.float() if keep_fp32 else t.to(out.dtype) * out
+
+
+def cross_attn_apply(p, cfg: ModelConfig, spec: BlockSpec, x, kv,
+                     tanh_gate, *, keep_fp32: bool = False):
+    """Attention of x's queries over the vision k/v (no mask: every query
+    position and kv position is 0), gated by ``tanh_gate``, the bf16
+    ``tanh(p["gate"])`` (:func:`tanh_gates`, :func:`gate`)."""
+    k, v = kv
+    b, s, _ = x.shape
+    q = L.dense(p["wq"], x).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    q = L.rms_norm(p["qn"], q, cfg.norm_eps)
+    qpos = torch.zeros((s,), dtype=torch.int32, device=x.device)
+    kvpos = torch.zeros((k.shape[1],), dtype=torch.int32, device=x.device)
+    out = L.plain_attention(q, k, v, qpos, kvpos, causal=False, window=0)
+    out = L.dense(p["wo"], out.reshape(b, s, cfg.q_dim))
+    return gate(tanh_gate, out, keep_fp32=keep_fp32)

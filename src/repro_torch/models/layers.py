@@ -54,29 +54,65 @@ NEG_INF = -1e30
 #
 # - lhs [M, K] and rhs [K, N] (each contracting dim where a row-major
 #   product has it):
-#   - M > 50: by r = (N - 1) % 64 + 1, four chains for r <= 24 or
-#     32 < r <= 48, two for 24 < r <= 32, one for r > 48;
-#   - 1 < M <= 50: four chains for N <= 16; else one chain over each K
-#     block of floor(32768 / N) products, the blocks' sums added in turn;
+#   - M > 50: by the width r = (N - 1) % 64 + 1 of the last 64-column
+#     tile: one chain for r > 48; two for 24 < r <= 32, and for
+#     16 < r <= 24 past one tile; within one tile (N <= 64) for
+#     16 < r <= 24 two when K mod 4 is 1 or 2, else four, and for
+#     32 < r <= 48 one at K = 9, else four; four otherwise.  Past one
+#     tile, with t = (N - 1) // 64 full tiles and K >= 5 not a multiple
+#     of 4, the library takes another order (:func:`_other_order`);
+#   - 1 < M <= 50: four chains for N <= 16 (one for N = 16 at K = 9, 10,
+#     13 or 17); else one chain over each K block of floor(32768 / N)
+#     products, the blocks' sums added in turn;
 #   - M == 1: one chain;
 # - rhs held as [N, K] (``rhs_t``), M > 1: the chains of M > 50;
 # - lhs held as [K, M] (``lhs_t``): one chain;
 # - N == 1 with lhs [M, K], or M == 1 with rhs held as [N, K] (a
 #   matrix-vector product): eight chains.
 #
-# Outside the sweep's grid (K > XLA_ORDER_MAX_K, or 1 < M <= 50 with
-# K >= 128 and N > 508, where the library splits N between threads) the
-# product is torch's fp32 GEMM, rounded once (ROADMAP Queue C 1).  The
-# callers below hold their operands as the reference's compiled steps
-# hold them (``lhs_t``/``rhs_t``; the products' orientation is XLA's).
+# Outside the sweep's grid the product is torch's fp32 GEMM, rounded once
+# (ROADMAP Queue C 1): K > XLA_ORDER_MAX_K; 1 < M <= 50 with K >= 128 and
+# N > 508, where the library splits N between threads; and the products
+# of the M > 50 chains that :func:`_other_order` picks out (one chain or
+# two in place of four, one in place of two, by K and t).  The callers
+# below hold their operands as the reference's compiled steps hold them
+# (``lhs_t``/``rhs_t``; the products' orientation is XLA's).
 
 #: The largest K the sweep covered.
 XLA_ORDER_MAX_K = 256
 
 
-def _chains_by_width(n: int) -> int:
+def _other_order(r: int, t: int, k: int) -> bool:
+    """Whether a product of the M > 50 chains past one column tile (last
+    tile r columns wide, t full tiles) takes an order other than its
+    width's.  Read from ``tools/xla_dot_order.py --check`` at K = 3-73
+    and t = 1-12 (N <= 832) and at 350 random shapes up to K = 130 and
+    N = 1300: where these bounds hold the library never takes the
+    width's order, elsewhere it always does."""
+    m = k % 4
+    if r > 48 or m == 0 or k < 5:
+        return False
+    if 16 < r <= 32:
+        return m % 2 == 1 and k <= 2 * t + 1
+    if r <= 16:
+        return k <= 8 * t + 2 if m in (1, 2) else 3 * k <= 4 * t + 1
+    return k <= (4 - m) * (4 * t + 3)
+
+
+def _chains_by_width(n: int, k: int):
+    """The chains of the M > 50 class (None: another order)."""
     r = (n - 1) % 64 + 1
-    return 1 if r > 48 else 2 if 24 < r <= 32 else 4
+    if n > 64 and _other_order(r, (n - 1) // 64, k):
+        return None
+    if r > 48:
+        return 1
+    if 24 < r <= 32:
+        return 2
+    if 16 < r <= 24:
+        return 2 if n > 64 or k % 4 in (1, 2) else 4
+    if 32 < r and n <= 64 and k == 9:
+        return 1
+    return 4
 
 
 def xla_cpu_dot_order(m: int, k: int, n: int, *, lhs_t: bool = False,
@@ -90,31 +126,34 @@ def xla_cpu_dot_order(m: int, k: int, n: int, *, lhs_t: bool = False,
     if m == 1 or lhs_t:
         return 1, k
     if rhs_t or m > 50:
-        return _chains_by_width(n), k
+        chains = _chains_by_width(n, k)
+        return None if chains is None else (chains, k)
     if n <= 16:
-        return 4, k
+        return (1 if n == 16 and k in (9, 10, 13, 17) else 4), k
     if k >= 128 and n > 508:
         return None
     return 1, max(1, 32768 // n)
 
 
 def _chains(a: Tensor, b: Tensor, lo: int, hi: int, c: int) -> Tensor:
-    """sum_k a[..., :, k] b[..., k, :] over [lo, hi) in ``c`` chains."""
+    """sum_k a[..., :, k] b[..., k, :] over [lo, hi) in ``c`` chains (in
+    place: the same roundings, without a new tensor a product)."""
     body = hi - (hi - lo) % c
-    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-2] + (1,))
-    zero = torch.zeros(shape + (b.shape[-1],), dtype=torch.float32,
-                       device=a.device)
+    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-2] + (1,)) + (
+        b.shape[-1],)
+    prod = torch.empty(shape, dtype=torch.float32, device=a.device)
 
     def chain(start, stop, step):
-        acc = zero
+        acc = torch.zeros(shape, dtype=torch.float32, device=a.device)
         for j in range(start, stop, step):
-            acc = acc + a[..., :, j:j + 1] * b[..., j:j + 1, :]
+            torch.mul(a[..., :, j:j + 1], b[..., j:j + 1, :], out=prod)
+            acc.add_(prod)
         return acc
 
     accs = [chain(j0, body, c) for j0 in range(lo, lo + c)]
     while len(accs) > 1:
-        accs = [accs[i] + accs[i + 1] for i in range(0, len(accs), 2)]
-    return accs[0] + chain(body, hi, 1) if body < hi else accs[0]
+        accs = [accs[i].add_(accs[i + 1]) for i in range(0, len(accs), 2)]
+    return accs[0].add_(chain(body, hi, 1)) if body < hi else accs[0]
 
 
 def cpu_dot_f32(a: Tensor, b: Tensor, *, lhs_t: bool = False,
@@ -160,6 +199,15 @@ def dense(p, x: Tensor) -> Tensor:
     return y
 
 
+def dense_sum32(p, x: Tensor) -> Tensor:
+    """:func:`dense` as an approximate residual add reads it: the product
+    rounded to x's dtype, plus the bias in x's dtype, summed in fp32 and
+    left unrounded (XLA fuses the bias add into the add's quantize and
+    keeps the sum in fp32)."""
+    y = dense({"w": p["w"]}, x)
+    return y.float() + p["b"].to(x.dtype).float() if "b" in p else y
+
+
 #: XLA:CPU sums a row longer than this in windows of this many, each
 #: window one sequential fp32 sum, then the windows' sums in turn (again
 #: in windows past this many).
@@ -167,9 +215,9 @@ XLA_REDUCE_WINDOW = 32
 
 
 def _sequential_sum(x: Tensor) -> Tensor:
-    acc = x[..., 0]
+    acc = x[..., 0].clone()
     for j in range(1, x.shape[-1]):
-        acc = acc + x[..., j]
+        acc.add_(x[..., j])
     return acc
 
 
@@ -276,7 +324,9 @@ def apply_rope(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
     cos = cos[..., None, :]  # broadcast over heads -> (..., S, 1, D/2)
     sin = sin[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    # XLA:CPU contracts the first product of each half into an FMA
+    out = torch.cat([fma32(x1, cos, -(x2 * sin)), fma32(x2, cos, x1 * sin)],
+                    dim=-1)
     return out.to(x.dtype)
 
 
@@ -327,13 +377,15 @@ def plain_attention(q, k, v, qpos, kvpos, *, causal=True, window=0):
     s = _scores(q, k) * scale
     bias = _mask_bias(qpos, kvpos, causal=causal, window=window)
     bias = bias[None, None] if bias.ndim == 2 else bias[:, None]
-    p = torch.softmax(s + bias, dim=-1)
+    p = softmax32(s + bias)
     return _mix(p, v).transpose(1, 2)
 
 
 def _flash_fwd(q, k, v, qpos, kvpos, causal, window, chunk):
     """Online-softmax forward over KV chunks (a loop in place of the
-    reference's scan).  Returns (out (b,h,sq,dv) fp32, lse (b,h,sq))."""
+    reference's scan), its exps, sums and the two running updates (FMAs)
+    as XLA:CPU computes them.  Returns (out (b,h,sq,dv) fp32, lse
+    (b,h,sq); the lse's log is torch's)."""
     b, sq, h, d = q.shape
     dv = v.shape[-1]
     skv = k.shape[1]
@@ -347,10 +399,12 @@ def _flash_fwd(q, k, v, qpos, kvpos, causal, window, chunk):
         s = s + _mask_bias(qpos, kvpos[:, c0:c0 + chunk], causal=causal,
                            window=window)[:, None]
         m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + _mix(p, vci).to(torch.float32)
+        p = exp32(s - m_new[..., None])
+        corr = exp32(m - m_new)
+        l = fma32(l, corr, row_sum(p))
+        # this product XLA takes as written: p [q, k] @ v [k, d]
+        pv = matmul(p.to(vci.dtype), vci.transpose(1, 2))
+        acc = fma32(acc, corr[..., None], pv.to(torch.float32))
         m = m_new
     l_safe = torch.clamp(l, min=1e-30)
     return acc / l_safe[..., None], m + torch.log(l_safe)
@@ -412,7 +466,7 @@ def local_attention(q, k, v, *, window: int):
     out = []
     for i in range(n):
         sco = _scores(qb[:, i], k2[:, i]) * scale + bias[i][None, None]
-        p = torch.softmax(sco, dim=-1)
+        p = softmax32(sco)
         out.append(_mix(p, v2[:, i]).transpose(1, 2))
     return torch.stack(out, dim=1).reshape(b, s + pad, h, d)[:, :s]
 
@@ -463,8 +517,12 @@ def swiglu(p, x: Tensor) -> Tensor:
     return dense(p["wo"], h)
 
 
-def gelu_mlp(p, x: Tensor) -> Tensor:
-    return dense(p["wo"], gelu_tanh(dense(p["wi"], x)))
+def gelu_mlp(p, x: Tensor, *, sum32: bool = False) -> Tensor:
+    """The GELU MLP; ``sum32``: its output projection's bias sum kept in
+    fp32 unrounded (:func:`dense_sum32`), as an approximate residual add
+    reads it."""
+    out = dense_sum32 if sum32 else dense
+    return out(p["wo"], gelu_tanh(dense(p["wi"], x)))
 
 
 # ------------------------------------------------- fp32 elementwise math
@@ -595,6 +653,38 @@ def xla_log1p32(x: Tensor) -> Tensor:
                        _log1p_large(x))
 
 
+#: XLA:CPU's fp32 ``tanh`` (Eigen's rational form): the argument clamped
+#: to +-TANH_CLAMP, x P(x^2) / Q(x^2); x itself below TANH_SMALL in
+#: magnitude, +-1 from TANH_ONE on.
+TANH_SMALL = float.fromhex("0x1.a36e2ep-12")            # 0.0004
+TANH_CLAMP = float.fromhex("0x1.ffec88p+2")             # 7.9988
+TANH_ONE = 20.0
+TANH_NUM = _hex("-0x1.3e4b8p-52", "0x1.c266fcp-43", "-0x1.7a6ffep-34",
+                "0x1.b80082p-25", "0x1.f28694p-17", "0x1.4e1bdap-11",
+                "0x1.40b3b8p-8")
+TANH_DEN = _hex("0x1.41a7b0p-20", "0x1.f12bacp-14", "0x1.29540ap-9",
+                "0x1.40b3bap-8")
+
+
+def xla_tanh32(x: Tensor) -> Tensor:
+    """XLA:CPU's fp32 ``tanh``: both polynomials in x^2 by Horner's rule,
+    every step one FMA, the numerator times x, one division.  It runs on
+    any device (the exact FMA is fp64 arithmetic), so a gate's ``tanh``
+    on the card equals the CPU's."""
+    x = x.float()
+    c = x.clamp(-TANH_CLAMP, TANH_CLAMP)
+    c2 = c * c
+    num = fma32(c2, TANH_NUM[0], TANH_NUM[1])
+    for k in TANH_NUM[2:]:
+        num = fma32(c2, num, k)
+    den = fma32(c2, TANH_DEN[0], TANH_DEN[1])
+    for k in TANH_DEN[2:]:
+        den = fma32(c2, den, k)
+    out = torch.where(x.abs() < TANH_SMALL, x, (c * num) / den)
+    return torch.where(x.abs() >= TANH_ONE,
+                       torch.copysign(torch.ones_like(x), x), out)
+
+
 def exp32(x: Tensor) -> Tensor:
     """fp32 ``exp``: XLA:CPU's on the CPU, torch's on the card."""
     return xla_exp32(x) if x.device.type == "cpu" else torch.exp(x.float())
@@ -614,6 +704,18 @@ def sqrt32(x: Tensor) -> Tensor:
     if x.device.type == "cpu":
         return torch.sqrt(x.double()).float()
     return torch.sqrt(x.float())
+
+
+def softmax32(x: Tensor) -> Tensor:
+    """``jax.nn.softmax`` over the last axis of fp32 ``x``: on the CPU
+    exp(x - max) over its sum with XLA:CPU's ``exp`` and order of sums
+    (torch's own ``softmax`` there differs from it in the last bit of many
+    values, which a bf16 cast of the probabilities now and then keeps); on
+    the card torch's one-kernel ``softmax``."""
+    if x.device.type != "cpu":
+        return torch.softmax(x, dim=-1)
+    e = xla_exp32(x - x.amax(dim=-1, keepdim=True))
+    return e / row_sum(e)[..., None]
 
 
 def sigmoid32(x: Tensor) -> Tensor:

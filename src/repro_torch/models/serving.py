@@ -26,15 +26,17 @@ def _tokens(params, batch) -> torch.Tensor:
 def generate(params, cfg: ModelConfig, batch: Dict, max_new_tokens: int,
              *, temperature: float = 0.0, seed: int = 0,
              ctx_budget: Optional[int] = None, return_logits: bool = False):
-    """batch: {"tokens": (B, S_prompt)}.  Returns the (B, S+new) int32
-    tokens on the parameters' device; with ``return_logits`` also the
-    (B, new, V) logits each new token was chosen from."""
+    """batch: {"tokens": (B, S_prompt)} (+ a vision model's "vision",
+    which the prefill reads and the decode steps, through the cross
+    attention cache, do not).  Returns the (B, S+new) int32 tokens on the
+    parameters' device; with ``return_logits`` also the (B, new, V)
+    logits each new token was chosen from."""
     tokens = _tokens(params, batch)
     b, s = tokens.shape
     ctx = ctx_budget or (s + max_new_tokens)
     prefill = make_prefill_step(cfg, ctx)
     decode = make_decode_step(cfg)
-    logits, cache = prefill(params, {"tokens": tokens})
+    logits, cache = prefill(params, dict(batch, tokens=tokens))
     out, steps = [tokens], []
     gen = None
     if temperature > 0:
@@ -62,16 +64,21 @@ def generate(params, cfg: ModelConfig, batch: Dict, max_new_tokens: int,
 
 
 def teacher_forced_logits(params, cfg: ModelConfig, tokens, prompt_len: int,
-                          *, ctx_budget: Optional[int] = None):
+                          *, ctx_budget: Optional[int] = None,
+                          vision=None):
     """The (B, T - prompt_len, V) logits that prefill and decode give for
     each token after the prompt, with the given tokens fed in (not the
     model's own choices): what :func:`generate`'s ``return_logits`` would
-    give had it chosen exactly ``tokens``."""
+    give had it chosen exactly ``tokens`` (a vision model's prefill reads
+    ``vision``)."""
     tokens = _tokens(params, {"tokens": tokens})
     b, t = tokens.shape
     prefill = make_prefill_step(cfg, ctx_budget or t)
     decode = make_decode_step(cfg)
-    logits, cache = prefill(params, {"tokens": tokens[:, :prompt_len]})
+    first = {"tokens": tokens[:, :prompt_len]}
+    if vision is not None:
+        first["vision"] = vision
+    logits, cache = prefill(params, first)
     steps = [logits[:, -1]]
     for p in range(prompt_len, t - 1):
         logits, cache = decode(params, {"tokens": tokens[:, p:p + 1]}, p,

@@ -1,11 +1,17 @@
-"""Model assembly: embeddings, residual blocks, the block loop (the port of
-``repro.models.transformer``; the dense, MoE, hybrid and SSM families,
-forward only).
+"""Model assembly: embeddings and frontends, residual blocks, the block
+loop (the port of ``repro.models.transformer``; every family of the
+registry, forward only).
 
 Layout of a parameter tree (all plain dicts of tensors):
 
-  {"embed": {"table"}, "prefix": [block...], "pattern": [[block...]...],
-   "suffix": [block...], "final_norm": {...}, "lm_head": {...}}
+  {"embed": {"table"} | "frontend": {"w", "b"}, ["vis_adapter": {"w"},]
+   "prefix": [block...], "pattern": [[block...]...], "suffix": [block...],
+   "final_norm": {...}, "lm_head": {...}}
+
+An audio model (hubert-xlarge) takes ``frames`` through ``frontend`` in
+place of token ids; a vision model (llama-3.2-vision-11b) also takes
+``vision`` embeddings through ``vis_adapter`` at prefill, which its cross
+attention blocks read (their k/v are cached for decode).
 
 ``pattern`` holds one entry per pattern POSITION, as the reference's
 does; where the reference's entry is one block tree whose leaves carry a
@@ -21,11 +27,11 @@ residual-stream adds of every block run through the configured
 approximate adder in fixed point (``cfg.approx.residual_add`` -> the
 port's engine, the ``approx_add`` kernel on the card).
 
-Self attention (global or windowed), DeepSeek's latent attention (MLA),
-RecurrentGemma's RG-LRU and Mamba-2's SSD, with a SwiGLU, GELU or MoE MLP
-or none, are ported.  Cross attention, the audio and vision inputs,
-sharding (``batch_axes``/``mesh``) and the loss belong to later slices
-and raise ``NotImplementedError`` naming their ROADMAP entry.
+Self attention (global or windowed), Llama-3.2's gated cross attention,
+DeepSeek's latent attention (MLA), RecurrentGemma's RG-LRU and Mamba-2's
+SSD, with a SwiGLU, GELU or MoE MLP or none, are ported.  Sharding
+(``batch_axes``/``mesh``) and the loss belong to later slices; sharding
+raises ``NotImplementedError`` naming its ROADMAP entry.
 """
 
 from __future__ import annotations
@@ -53,9 +59,6 @@ Device = Union[str, torch.device, None]
 #: Where each unported part of a model config is planned (ROADMAP.md,
 #: Queue A).
 _UNPORTED = {
-    CROSS: "3 (cross attention and the audio frontend)",
-    "vision": "3 (cross attention and the audio frontend)",
-    "audio": "3 (cross attention and the audio frontend)",
     "sharding": "5 (sharding on a DeviceMesh)",
 }
 
@@ -72,29 +75,18 @@ _MIXERS = {
 _RECURRENT = (RGLRU, SSD)
 
 
-def _unported(what: str, key: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet: ROADMAP.md Queue A item "
-        f"{_UNPORTED[key]}")
-
-
 def check_ported(cfg: ModelConfig) -> ModelConfig:
-    """Raise ``NotImplementedError`` unless every block of ``cfg`` is self
-    attention, MLA, RG-LRU or SSD (with any MLP) and the input is
-    tokens."""
-    if cfg.audio is not None:
-        _unported(f"{cfg.name}'s audio input", "audio")
-    if cfg.vision is not None:
-        _unported(f"{cfg.name}'s vision input", "vision")
-    for spec in cfg.all_blocks():
-        if spec.mixer not in _MIXERS:
-            _unported(f"the {spec.mixer!r} mixer", spec.mixer)
-    return cfg
+    """``cfg`` validated: every mixer (``BlockSpec`` admits no other) and
+    input of the registry is ported; only sharding is not
+    (:func:`_no_sharding`)."""
+    return cfg.validate()
 
 
 def _no_sharding(batch_axes, mesh):
     if batch_axes is not None or mesh is not None:
-        _unported("batch_axes/mesh", "sharding")
+        raise NotImplementedError(
+            f"batch_axes/mesh is not ported to repro_torch yet: ROADMAP.md "
+            f"Queue A item {_UNPORTED['sharding']}")
 
 
 def resolve_device(device: Device = None) -> torch.device:
@@ -104,7 +96,8 @@ def resolve_device(device: Device = None) -> torch.device:
 
 
 def params_device(params: Params) -> torch.device:
-    return params["embed"]["table"].device
+    """The device of a parameter tree (every tree has a final norm)."""
+    return params["final_norm"]["scale"].device
 
 
 # ------------------------------------------------------------------ init --
@@ -164,8 +157,10 @@ class Init:
 
 
 def block_init(init: Init, cfg: ModelConfig, spec: BlockSpec) -> Params:
+    mixer_init = ATT.cross_attn_init if spec.mixer == CROSS \
+        else _MIXERS[spec.mixer][0]
     p: Params = {"ln1": init.norm(cfg.d_model),
-                 "mixer": _MIXERS[spec.mixer][0](init, cfg, spec)}
+                 "mixer": mixer_init(init, cfg, spec)}
     if spec.mlp != NONE:
         p["ln2"] = init.norm(cfg.d_model)
         if spec.mlp == SWIGLU:
@@ -175,6 +170,10 @@ def block_init(init: Init, cfg: ModelConfig, spec: BlockSpec) -> Params:
         else:
             p["mlp"] = {"wi": init.dense(cfg.d_model, cfg.d_ff, bias=True),
                         "wo": init.dense(cfg.d_ff, cfg.d_model, bias=True)}
+    if spec.mixer == CROSS:
+        # the MLP's own tanh gate, an fp32 scalar (zero at init)
+        p["gate_mlp"] = torch.zeros((), dtype=torch.float32,
+                                    device=init.device)
     return p
 
 
@@ -186,12 +185,21 @@ def init_params(seed: Union[int, torch.Generator], cfg: ModelConfig, *,
     own parameters across with :func:`repro_torch.models.weights.from_reference`.
     ``dtype`` is the matrices', biases' and embedding's (bf16 for
     serving); norm scales and the leaves the reference uses in fp32 (the
-    RG-LRU's ``lam``, the SSD's ``a_log`` and ``dt_bias``) stay fp32."""
-    check_ported(cfg.validate())
+    RG-LRU's ``lam``, the SSD's ``a_log`` and ``dt_bias``, the cross
+    attention's ``gate`` and ``gate_mlp``) stay fp32.  An audio model
+    has ``frontend`` (``feat_dim`` -> d_model, with bias) in place of
+    ``embed``; a vision model adds ``vis_adapter`` (no bias)."""
+    check_ported(cfg)
     init = Init(seed, resolve_device(device), dtype)
     d = cfg.d_model
-    p: Params = {"embed": {"table": init.normal((cfg.padded_vocab, d),
-                                                d ** -0.5)}}
+    p: Params = {}
+    if cfg.audio is not None:
+        p["frontend"] = init.dense(cfg.audio.feat_dim, d, bias=True)
+    else:
+        p["embed"] = {"table": init.normal((cfg.padded_vocab, d),
+                                           d ** -0.5)}
+    if cfg.vision is not None:
+        p["vis_adapter"] = init.dense(cfg.vision.embed_dim, d)
     p["prefix"] = [block_init(init, cfg, s) for s in cfg.prefix]
     p["suffix"] = [block_init(init, cfg, s) for s in cfg.suffix]
     p["pattern"] = [[block_init(init, cfg, s) for _ in range(cfg.repeats)]
@@ -220,8 +228,8 @@ def block_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,
         return RGm.rglru_cache_init(cfg, batch, dtype, device)
     if spec.mixer == SSD:
         return SSDm.ssd_cache_init(cfg, batch, dtype, device)
-    if spec.mixer != ATTN:
-        _unported(f"the {spec.mixer!r} mixer's cache", spec.mixer)
+    if spec.mixer == CROSS:
+        return ATT.cross_cache_init(cfg, batch, dtype, device)
     return ATT.attn_cache_init(cfg, spec, batch, ctx_len, dtype, device)
 
 
@@ -268,18 +276,51 @@ def _rope_dim(cfg: ModelConfig, spec: BlockSpec) -> int:
     return cfg.mla.rope_head_dim if spec.mixer == MLA else cfg.head_dim
 
 
+def cross_tanh_gates(cfg: ModelConfig, blocks: list) -> list:
+    """Each block's gates' bf16 tanh, in block order: (the mixer's, the
+    MLP's) for a cross block, None for the others; every gate of the
+    model in one call (:func:`attention.tanh_gates`)."""
+    specs = cfg.all_blocks()
+    cross = [p for p, spec in zip(blocks, specs) if spec.mixer == CROSS]
+    if not cross:
+        return [None] * len(specs)
+    tanhs = iter(ATT.tanh_gates([g for p in cross for g in (
+        p["mixer"]["gate"], p["gate_mlp"])]).unbind())
+    return [(next(tanhs), next(tanhs)) if spec.mixer == CROSS else None
+            for spec in specs]
+
+
 def block_apply(p: Params, cfg: ModelConfig, spec: BlockSpec, x, ctx,
                 cache: Optional[Params], mode: str, batch_axes=None,
-                mesh=None):
-    """mode: 'full' | 'prefill' | 'decode'. Returns (x, new_cache, aux);
-    aux is the MoE MLP's load-balancing loss, None for the other MLPs."""
+                mesh=None, *, carry=None, tanh_gates=None):
+    """mode: 'full' | 'prefill' | 'decode'. Returns (x, new_cache, aux,
+    sum32); aux is the MoE MLP's load-balancing loss, None for the other
+    MLPs; sum32 the block's last residual sum, unrounded fp32, with exact
+    adds (None under an approximate adder).
+
+    ``carry``: the previous block's sum32, which the first norm reads in
+    place of x (:func:`forward` hands it on inside a pattern repeat).
+    ``tanh_gates``: a cross block's two gates' bf16 tanh
+    (:func:`cross_tanh_gates`)."""
     _no_sharding(batch_axes, mesh)
-    if spec.mixer not in _MIXERS:
-        _unported(f"the {spec.mixer!r} mixer", spec.mixer)
-    _, apply, prefill, decode = _MIXERS[spec.mixer]
-    h = L.rms_norm(p["ln1"], x, cfg.norm_eps)
+    h = L.rms_norm(p["ln1"], x if carry is None else carry,
+                   cfg.norm_eps).to(x.dtype)
     new_cache = cache
-    if spec.mixer in _RECURRENT:
+    if spec.mixer == CROSS:
+        t_mix, t_mlp = tanh_gates
+        if mode == "decode":
+            kv = (cache["k"].to(h.dtype), cache["v"].to(h.dtype))
+        else:
+            kv = ATT.cross_kv(p["mixer"], cfg, ctx["vis"])
+            if mode == "prefill":
+                new_cache = {"k": kv[0].to(cache["k"].dtype),
+                             "v": kv[1].to(cache["v"].dtype)}
+        # an approximate add reads the gated product unrounded (XLA's
+        # fusion), an exact one rounded
+        mix = ATT.cross_attn_apply(p["mixer"], cfg, spec, h, kv, t_mix,
+                                   keep_fp32=cfg.approx.enabled)
+    elif spec.mixer in _RECURRENT:
+        _, apply, prefill, decode = _MIXERS[spec.mixer]
         if mode == "full":
             mix, _ = apply(p["mixer"], cfg, spec, h)
         elif mode == "prefill":
@@ -287,6 +328,7 @@ def block_apply(p: Params, cfg: ModelConfig, spec: BlockSpec, x, ctx,
         else:
             mix, new_cache = decode(p["mixer"], cfg, spec, h, cache)
     else:
+        _, apply, prefill, decode = _MIXERS[spec.mixer]
         rope = ctx.get("rope", {}).get((spec.rope_base,
                                         _rope_dim(cfg, spec)))
         if mode == "full":
@@ -299,7 +341,8 @@ def block_apply(p: Params, cfg: ModelConfig, spec: BlockSpec, x, ctx,
                                     cache, ctx["positions"], rope)
 
     if cfg.approx.enabled:
-        x = norm_in = cfg.approx.residual_add(x, mix.to(x.dtype))
+        x = norm_in = cfg.approx.residual_add(
+            x, mix if spec.mixer == CROSS else mix.to(x.dtype))
     else:
         # XLA adds in fp32 and hands the unrounded sum to the norm that
         # reads it; the stream (the second add's operand) is rounded
@@ -316,23 +359,47 @@ def block_apply(p: Params, cfg: ModelConfig, spec: BlockSpec, x, ctx,
         elif spec.mlp == SWIGLU:
             out = L.swiglu(p["mlp"], h2)
         else:
-            out = L.gelu_mlp(p["mlp"], h2)
-        x = cfg.approx.residual_add(x, out).to(x.dtype)
-    return x, new_cache, aux
+            # an approximate add reads the output bias sum unrounded
+            out = L.gelu_mlp(p["mlp"], h2, sum32=cfg.approx.enabled)
+        if spec.mixer == CROSS:
+            out = ATT.gate(t_mlp, out, keep_fp32=cfg.approx.enabled)
+        if cfg.approx.enabled:
+            x = cfg.approx.residual_add(x, out).to(x.dtype)
+        else:
+            norm_in = x.float() + out.float()
+            x = norm_in.to(x.dtype)
+    return x, new_cache, aux, None if cfg.approx.enabled else norm_in
 
 
 # --------------------------------------------------------------- forward --
 
-def embed_input(params, cfg: ModelConfig, batch):
-    """batch: {"tokens": (B, S) ints} -> (bf16 activations, ctx).  Ids
-    outside the vocabulary are clamped into it (a negative id counts from
-    the end first), as the reference's gather does."""
+def embed_input(params, cfg: ModelConfig, batch, need_vision: bool = True):
+    """batch: {"tokens": (B, S) ints} or {"frames": (B, S, feat_dim)}
+    (+ "vision": (B, Sv, embed_dim)) -> (bf16 activations, ctx).  Token
+    ids outside the vocabulary are clamped into it (a negative id counts
+    from the end first), as the reference's gather does; frames go
+    through ``frontend`` and the vision embeddings through
+    ``vis_adapter`` (into ``ctx["vis"]``), both cast to bf16 first.  A
+    decode step (``need_vision=False``) takes no vision input."""
     check_ported(cfg)
-    table = params["embed"]["table"]
-    n = table.shape[0]
-    tokens = torch.as_tensor(batch["tokens"], device=table.device)
-    ids = torch.where(tokens < 0, tokens + n, tokens).clamp(0, n - 1)
-    return table[ids].to(torch.bfloat16), {}
+
+    def input_on(name, w):
+        return torch.as_tensor(batch[name], device=w.device)
+
+    if cfg.audio is not None:
+        frames = input_on("frames", params["frontend"]["w"])
+        x = L.dense(params["frontend"], frames.to(torch.bfloat16))
+    else:
+        table = params["embed"]["table"]
+        n = table.shape[0]
+        tokens = input_on("tokens", table)
+        ids = torch.where(tokens < 0, tokens + n, tokens).clamp(0, n - 1)
+        x = table[ids].to(torch.bfloat16)
+    ctx = {}
+    if cfg.vision is not None and need_vision:
+        vis = input_on("vision", params["vis_adapter"]["w"])
+        ctx["vis"] = L.dense(params["vis_adapter"], vis.to(torch.bfloat16))
+    return x, ctx
 
 
 def forward(params, cfg: ModelConfig, batch, *, mode: str = "full",
@@ -342,7 +409,8 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "full",
 
     mode "full" scores every position; "prefill" fills ``cache`` and
     "decode" (one token at absolute position ``pos``) updates it, both
-    returning the last position's logits only.  ``aux_sum`` is the fp32
+    returning the last position's logits only (a non-causal model's
+    prefill returns every position's).  ``aux_sum`` is the fp32
     sum of the MoE layers' load-balancing losses in block order (0 without
     MoE layers)."""
     _no_sharding(batch_axes, mesh)
@@ -350,7 +418,7 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "full",
         raise ValueError(f"bad forward mode {mode!r}")
     if mode != "full" and cache is None:
         raise ValueError(f"mode {mode!r} needs a cache (init_cache)")
-    x, ctx = embed_input(params, cfg, batch)
+    x, ctx = embed_input(params, cfg, batch, need_vision=mode != "decode")
     b, s = x.shape[:2]
     if mode == "decode":
         ctx["pos"] = int(pos)
@@ -360,20 +428,30 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "full",
     ctx["positions"] = torch.arange(span.start, span.stop, dtype=torch.int32,
                                     device=x.device)
     # one pair of RoPE tables per (base, rotated dims), shared by the
-    # blocks that rotate (the recurrent mixers do not)
+    # blocks that rotate (the recurrent and cross mixers do not)
     specs = cfg.all_blocks()
     ctx["rope"] = {key: L.rope_tables(span, key[1], key[0], x.device)
                    for key in {(spec.rope_base, _rope_dim(cfg, spec))
                                for spec in specs
-                               if spec.mixer not in _RECURRENT}}
+                               if spec.mixer not in _RECURRENT + (CROSS,)}}
 
     caches = blocks_in_order(cfg, cache) if cache is not None \
         else [None] * len(specs)
+    blocks = blocks_in_order(cfg, params)
+    gates = cross_tanh_gates(cfg, blocks)
     new = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, spec, c in zip(blocks_in_order(cfg, params), specs, caches,
-                          strict=True):
-        x, nc, a = block_apply(p, cfg, spec, x, ctx, c, mode)
+    n0, n1 = len(cfg.prefix), len(cfg.pattern)
+    pattern = range(n0, n0 + n1 * cfg.repeats)
+    sum32 = None
+    for i, (p, spec, c, g) in enumerate(zip(blocks, specs, caches, gates,
+                                            strict=True)):
+        # inside one repeat of the pattern (one step of XLA's layer scan)
+        # a block's first norm reads the previous block's exact residual
+        # sum unrounded; across steps the carried stream is rounded
+        carry = sum32 if i in pattern and (i - n0) % n1 else None
+        x, nc, a, sum32 = block_apply(p, cfg, spec, x, ctx, c, mode,
+                                      carry=carry, tanh_gates=g)
         new.append(nc)
         if a is not None:
             aux = aux + a

@@ -48,10 +48,11 @@ def _unstack(tree, repeats: int):
 
 
 #: Leaves the reference uses in fp32 (norm scales; the RG-LRU's ``lam``;
-#: the SSD's ``a_log`` and ``dt_bias``): kept fp32 in a tree of any dtype.
-#: The other leaves are cast to the activations' dtype at use, so a bf16
-#: copy computes the same.
-FP32_LEAVES = ("scale", "lam", "a_log", "dt_bias")
+#: the SSD's ``a_log`` and ``dt_bias``; the cross attention's tanh gates
+#: ``gate`` and ``gate_mlp``): kept fp32 in a tree of any dtype.  The
+#: other leaves are cast to the activations' dtype at use, so a bf16 copy
+#: computes the same.
+FP32_LEAVES = ("scale", "lam", "a_log", "dt_bias", "gate", "gate_mlp")
 
 
 def from_reference(tree: Any, cfg: ModelConfig, *, device,
@@ -71,8 +72,8 @@ def from_reference(tree: Any, cfg: ModelConfig, *, device,
 
 def cache_from_reference(tree: Any, cfg: ModelConfig, *, device):
     """The reference's cache (numpy leaves) as the port's, on ``device``,
-    dtypes kept (bf16 k/v and conv states, int32 pos, fp32 recurrent
-    states ``h``/``state``)."""
+    dtypes kept (bf16 k/v, cross k/v and conv states, int32 pos, fp32
+    recurrent states ``h``/``state``)."""
     out = {"prefix": tree["prefix"], "suffix": tree["suffix"],
            "pattern": [_unstack(c, cfg.repeats) for c in tree["pattern"]]}
     return _map(out, lambda a, _p: to_tensor(a, device))

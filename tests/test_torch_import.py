@@ -162,27 +162,22 @@ def test_sources_name_neither_jax_nor_repro():
 
 
 def test_check_ported_names_each_family_s_roadmap_item():
-    """The MoE, MLA, RG-LRU and SSD families are ported; each other part
-    of a model config raises naming its current ROADMAP Queue A item."""
-    from repro_torch.configs import get_config, get_smoke_config
+    """Every family is ported (dense, MoE, MLA, RG-LRU, SSD, and the
+    vision and audio ones with cross attention): ``check_ported`` accepts
+    all ten archs; the one part left, sharding, raises naming its current
+    ROADMAP Queue A item."""
+    from repro_torch.configs import arch_names, get_config, get_smoke_config
     from repro_torch.models import transformer as T
-    for name in ("granite-moe-1b-a400m", "deepseek-v2-236b", "qwen3-4b",
-                 "recurrentgemma-9b", "mamba2-1.3b"):
+    names = arch_names()
+    assert len(names) == 10
+    for name in names:
         for cfg in (get_config(name), get_smoke_config(name)):
             assert T.check_ported(cfg) is cfg
-    for name, item, what in (
-            ("llama-3.2-vision-11b",
-             "3 (cross attention and the audio frontend)", "vision input"),
-            ("hubert-xlarge", "3 (cross attention and the audio frontend)",
-             "audio input")):
-        with pytest.raises(NotImplementedError) as err:
-            T.check_ported(get_smoke_config(name))
-        assert f"ROADMAP.md Queue A item {item}" in str(err.value)
-        assert what in str(err.value), err.value
-    cross = get_smoke_config("llama-3.2-vision-11b")
-    import dataclasses
-    with pytest.raises(NotImplementedError, match=r"item 3 \(cross "):
-        T.check_ported(dataclasses.replace(cross, vision=None))
+    assert set(T._UNPORTED) == {"sharding"}
+    with pytest.raises(NotImplementedError) as err:
+        T._no_sharding("data", None)
+    assert "ROADMAP.md Queue A item 5 (sharding on a DeviceMesh)" in str(
+        err.value)
 
 
 def test_default_engine_needs_the_card(monkeypatch):

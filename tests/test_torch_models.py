@@ -467,26 +467,22 @@ def test_gelu_block_matches_reference():
 @pytest.mark.parametrize("name", [n for n in arch_names()
                                   if get_config(n).family != "dense"])
 def test_unported_families_raise(name):
-    """Each family beyond the dense one raises for what is not ported yet,
-    naming its ROADMAP Queue A item: the MoE, hybrid (RG-LRU) and SSM
-    families (ported) for a mesh (item 5), the others for their mixer or
-    input (item 3)."""
-    ported = ("moe", "hybrid", "ssm")
+    """Every family beyond the dense one is ported (MoE, MLA, hybrid,
+    SSM, and since the cross attention and audio slice the vision and
+    audio ones): its full and smoke configs pass ``check_ported`` and
+    build parameters and caches; what is left raises, naming its ROADMAP
+    Queue A item: a forward over a mesh (item 5)."""
     for cfg in (get_config(name), get_smoke_config(name)):
-        if cfg.family in ported:
-            assert T.check_ported(cfg) is cfg
-            T.init_params(0, cfg, device="meta")
-            T.init_cache(cfg, 1, 8, device="meta")
-            continue
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP.md Queue A item 3 "):
-            T.init_params(0, cfg, device="meta")
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP.md Queue A item 3 "):
-            T.init_cache(cfg, 1, 8, device="meta")
-    base = get_smoke_config(name if get_config(name).family in ported
-                            else "qwen3-4b")
+        assert T.check_ported(cfg) is cfg
+        T.init_params(0, cfg, device="meta")
+        T.init_cache(cfg, 1, 8, device="meta")
+    base = get_smoke_config(name)
     params = T.init_params(0, base, device=CPU)
+    batch = ({"frames": torch.zeros((1, 2, base.audio.feat_dim))}
+             if base.audio is not None
+             else {"tokens": np.zeros((1, 2), np.int32)})
+    if base.vision is not None:
+        batch["vision"] = torch.zeros((1, base.vision.seq_len,
+                                       base.vision.embed_dim))
     with pytest.raises(NotImplementedError, match="Queue A item 5 "):
-        T.forward(params, base, {"tokens": np.zeros((1, 2), np.int32)},
-                  batch_axes="data")
+        T.forward(params, base, batch, batch_axes="data")

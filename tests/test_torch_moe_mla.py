@@ -304,6 +304,17 @@ DOT_GRID = {
                                                     80), {"rhs_t": True}),
     "vector": ((16, 32, 64), (8, 16, 24, 31, 32, 64, 128), (1,), {}),
     "vector_t": ((1,), (16, 24, 32, 64), (24, 32, 64), {"rhs_t": True}),
+    # K not a multiple of 4 within one column tile: llama-3.2-vision-11b's
+    # cross PV product (K = 17 vision positions, rhs held as [N, K]) and
+    # the M > 50 class it shares; N = 16 with few rows
+    "odd_k": ((16, 124), (9, 10, 17, 19), (17, 20, 31), {"rhs_t": True}),
+    "odd_k_rows": ((4, 20, 46), (9, 13, 17, 18), (16,), {}),
+    # past one column tile, K not a multiple of 4: the width's chains on
+    # each side of the bounds where the library takes another order
+    "past_one_tile": ((80,), (7, 13, 14, 22, 25, 45, 47),
+                      (80, 97, 153, 353, 601), {}),
+    "past_one_tile_t": ((16,), (7, 11, 13, 22, 45), (81, 97, 161, 345),
+                        {"rhs_t": True}),
 }
 
 
@@ -342,6 +353,36 @@ def test_dense_and_batched_products_equal_xla():
     vj, vt = bf16_pair(rng, (4, 31, 4, 16))
     want = jax.jit(lambda p, v: jnp.einsum("bhqk,bkhd->bhqd", p, v))(pj, vj)
     np.testing.assert_array_equal(f32(L._mix(pt, vt)), f32(want))
+
+
+def _width_chains(n):
+    r = (n - 1) % 64 + 1
+    return 1 if r > 48 else 2 if 16 < r <= 32 else 4
+
+
+@pytest.mark.parametrize("m,k,n,flags", [
+    (124, 9, 97, {}), (124, 10, 80, {}), (124, 7, 353, {}),
+    (124, 45, 225, {}), (80, 5, 153, {}), (80, 11, 345, {}),
+    (16, 5, 145, {"rhs_t": True}), (16, 10, 132, {"rhs_t": True})])
+def test_cpu_dot_other_order_past_one_tile(m, k, n, flags):
+    """Where ``xla_cpu_dot_order`` gives no order for the M > 50 chains
+    past one column tile, the library does not take the chains of the
+    last tile's width: the bounds pick out no shape the width fits."""
+    assert L.xla_cpu_dot_order(m, k, n, **flags) is None
+    a, b = _operands(m, k, n, m * 7919 + k * 31 + n)
+    width = L._chains(torch.from_numpy(a), torch.from_numpy(b), 0, k,
+                      _width_chains(n)).numpy()
+    assert not np.array_equal(width, _xla_dot(a, b, **flags))
+
+
+@pytest.mark.xfail(strict=True, reason="ROADMAP Queue C 1: the M > 50 "
+                   "chains past one column tile where the library takes "
+                   "another order by K and the tile count (the port takes "
+                   "torch's fp32 GEMM)")
+def test_cpu_dot_f32_other_order_past_one_tile():
+    a, b = _operands(124, 10, 80, 0)
+    got = L.cpu_dot_f32(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    assert np.array_equal(got, _xla_dot(a, b, False, False))
 
 
 @pytest.mark.xfail(strict=True, reason="ROADMAP Queue C 1: few rows with "

@@ -580,13 +580,32 @@ def test_params_and_cache_shapes_follow_the_reference():
 
 
 def test_forward_builds_rope_tables_only_for_rotating_blocks(monkeypatch):
+    """One table pair per (base, dims) of the blocks that rotate: none for
+    the recurrent mixers, none for cross attention (llama-3.2-vision-11b's
+    self blocks rotate at base 500000, its cross blocks not at all), one
+    for hubert-xlarge's encoder blocks."""
+    import dataclasses
+    from repro_torch.models.config import BlockSpec
     calls = []
     real = L.rope_tables
     monkeypatch.setattr(L, "rope_tables",
                         lambda *a, **k: calls.append(a) or real(*a, **k))
-    for name, want in ((SSD_ARCH, 0), (RG_ARCH, 1)):
+    vision = get_smoke_config("llama-3.2-vision-11b")
+    vision = dataclasses.replace(vision, pattern=(
+        BlockSpec(rope_base=500_000.0), BlockSpec(mixer="cross")))
+    cases = ((get_smoke_config(SSD_ARCH), 0), (get_smoke_config(RG_ARCH), 1),
+             (vision, 1), (get_smoke_config("hubert-xlarge"), 1))
+    for cfg, want in cases:
         calls.clear()
-        cfg = get_smoke_config(name)
         params = T.init_params(0, cfg, device=CPU)
-        T.forward(params, cfg, {"tokens": np.zeros((1, 5), np.int32)})
-        assert len(calls) == want, name
+        if cfg.audio is not None:
+            batch = {"frames": torch.zeros((1, 5, cfg.audio.feat_dim))}
+        else:
+            batch = {"tokens": np.zeros((1, 5), np.int32)}
+        if cfg.vision is not None:
+            batch["vision"] = torch.zeros((1, cfg.vision.seq_len,
+                                           cfg.vision.embed_dim))
+        T.forward(params, cfg, batch)
+        assert len(calls) == want, cfg.name
+        if cfg is vision:
+            assert calls[0][2] == 500_000.0     # the self blocks' base

@@ -21,6 +21,12 @@ Layouts: ``normal`` (lhs [M, K], rhs [K, N]), ``lhs_t`` (lhs held as
 ``tests/test_torch_moe_mla.py`` holds the port's ``cpu_dot_f32`` against
 XLA over the same grid.
 
+``--check`` holds that table against each point (``!`` where the rule's
+order does not fit, or where it gives none for the M > 50 chains past
+one column tile though the last tile's width's order fits); with
+``--random COUNT`` it checks COUNT random normal and ``rhs_t`` shapes up
+to K = 130 and N = 1300 (``--seed``) in place of the grid.
+
 ``--hlo ARCH`` prints every ``dot`` of the reference's compiled full,
 prefill and decode steps of a smoke config, with its operands' shapes:
 the layouts the model's products take (which the port's callers follow).
@@ -28,6 +34,10 @@ the layouts the model's products take (which the port's callers follow).
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/xla_dot_order.py
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/xla_dot_order.py \\
         --layout rhs_t --m 4 64 --k 16 31 --n 16 31 80
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tools/xla_dot_order.py \\
+        --check --m 124 --k $(seq 3 73) --n 97 161 289
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tools/xla_dot_order.py \\
+        --check --random 50 --seed 1
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/xla_dot_order.py \\
         --hlo deepseek-v2-236b
 
@@ -52,13 +62,14 @@ from jax import lax  # noqa: E402
 
 F32 = np.float32
 
-#: The (M, K, N) slices of the six smoke configs' 2-D products (tokens
-#: 4 x 31 full, 4 x 20 prefill, 4 decode, 2 x 24 and 2 x 23 in the parity
-#: test), the default grid.
-SMOKE_M = (1, 2, 4, 46, 48, 80, 124)
-SMOKE_K = (16, 24, 31, 32, 48, 64, 96, 128, 160, 192, 256)
-SMOKE_N = (4, 8, 16, 24, 32, 48, 64, 96, 128, 160, 192, 256, 419, 503, 509,
-           515, 601, 640)
+#: The (M, K, N) slices of the smoke configs' 2-D products (tokens or
+#: frames 4 x 31 full, 4 x 20 prefill, 4 decode, 2 x 24 and 2 x 23 in the
+#: parity test; llama-3.2-vision-11b's 17 vision positions, 68 rows), the
+#: default grid.
+SMOKE_M = (1, 2, 4, 46, 48, 68, 80, 124)
+SMOKE_K = (16, 17, 24, 31, 32, 48, 64, 96, 128, 160, 192, 256)
+SMOKE_N = (4, 8, 16, 17, 24, 31, 32, 48, 64, 96, 97, 128, 160, 192, 256,
+           419, 503, 509, 515, 601, 640)
 
 
 def bf16_values(rng, shape):
@@ -129,9 +140,80 @@ def sweep(ms, ks, ns, layout):
             print(f"{layout} M={m} K={k}  " + " ".join(row), flush=True)
 
 
+def order_name(chains, block, k):
+    return ("S" if chains == 1 else f"T{chains}") + (
+        "" if block >= k else f"/{block}")
+
+
+def width_chains(n):
+    """The M > 50 chains past one column tile by the last tile's width."""
+    r = (n - 1) % 64 + 1
+    return 1 if r > 48 else 2 if 16 < r <= 32 else 4
+
+
+def check_point(m, k, n, layout):
+    """(classification, the rule's order or "none", whether it misses)."""
+    from repro_torch.models.layers import xla_cpu_dot_order
+    got = classify(m, k, n, layout)
+    rule = xla_cpu_dot_order(m, k, n, lhs_t=layout == "lhs_t",
+                             rhs_t=layout == "rhs_t")
+    if rule is None:
+        past_tile = n > 64 and (layout == "rhs_t" or m > 50)
+        return got, "none", past_tile and order_name(
+            width_chains(n), k, k) in got
+    name = order_name(*rule, k)
+    return got, name, name not in got
+
+
+def check(ms, ks, ns, layout):
+    misses = 0
+    for m in ms:
+        for k in ks:
+            row = []
+            for n in ns:
+                got, name, miss = check_point(m, k, n, layout)
+                misses += miss
+                row.append(f"{n}:{'|'.join(got)}={name}"
+                           + ("!" if miss else ""))
+            print(f"{layout} M={m} K={k}  " + " ".join(row), flush=True)
+    print(f"{misses} misses")
+
+
+def check_random(count, seed):
+    rng = np.random.default_rng(seed)
+    misses = 0
+    for _ in range(count):
+        layout = "rhs_t" if rng.random() < 0.4 else "normal"
+        m = int(rng.integers(2, 100) if layout == "rhs_t"
+                else rng.integers(51, 200))
+        n, k = int(rng.integers(17, 1300)), int(rng.integers(3, 131))
+        if k % 4 == 0 and rng.random() < 0.7:
+            k += 1
+        got, name, miss = check_point(m, k, n, layout)
+        misses += miss
+        print(f"{layout} M={m} K={k} N={n}  {'|'.join(got)}={name}"
+              + ("!" if miss else ""), flush=True)
+    print(f"{misses} misses")
+
+
+def smoke_batch(cfg, b, s):
+    """The input of a step on ``b`` x ``s`` positions: tokens, or an audio
+    model's frames; a vision model's embeddings beside them."""
+    batch = {}
+    if cfg.audio is not None:
+        batch["frames"] = jnp.zeros((b, s, cfg.audio.feat_dim), jnp.bfloat16)
+    else:
+        batch["tokens"] = jnp.zeros((b, s), jnp.int32)
+    if cfg.vision is not None:
+        batch["vision"] = jnp.zeros((b, cfg.vision.seq_len,
+                                     cfg.vision.embed_dim), jnp.bfloat16)
+    return batch
+
+
 def hlo_dots(arch):
     """Every dot of the reference's compiled steps of ``arch``'s smoke
-    config (haloc_axa residual adds), with its operands' shapes."""
+    config (haloc_axa residual adds), with its operands' shapes.  An
+    encoder-only config (no decode) lists its full and prefill steps."""
     from repro.configs import get_smoke_config
     from repro.launch import steps
     from repro.models import transformer as T
@@ -139,16 +221,16 @@ def hlo_dots(arch):
     cfg = get_smoke_config(arch).with_approx(
         make_numerics("haloc_axa", "residual"))
     params = jax.jit(T.init_params, static_argnums=1)(jax.random.key(1), cfg)
-    toks = jnp.zeros((4, 31), jnp.int32)
     runs = {
-        "full": (jax.jit(lambda p, t: T.forward(p, cfg, {"tokens": t})[0]),
-                 (params, toks)),
+        "full": (jax.jit(lambda p, b: T.forward(p, cfg, b)[0]),
+                 (params, smoke_batch(cfg, 4, 31))),
         "prefill": (jax.jit(steps.make_prefill_step(cfg, 32)),
-                    (params, {"tokens": toks[:, :20]})),
-        "decode": (jax.jit(steps.make_decode_step(cfg)),
-                   (params, {"tokens": toks[:, :1]}, jnp.int32(20),
-                    T.init_cache(cfg, 4, 32))),
+                    (params, smoke_batch(cfg, 4, 20))),
     }
+    if cfg.causal:
+        runs["decode"] = (jax.jit(steps.make_decode_step(cfg)),
+                          (params, {"tokens": jnp.zeros((4, 1), jnp.int32)},
+                           jnp.int32(20), T.init_cache(cfg, 4, 32)))
     dot = re.compile(r"(%\S+) = (f32\[[^\]]*\])\S* dot\((%[^,]+), "
                      r"(%[^)]+)\), (.*?)(, metadata|$)")
     for mode, (fn, args) in runs.items():
@@ -170,6 +252,12 @@ def main(argv=None):
     ap.add_argument("--m", type=int, nargs="+", default=SMOKE_M)
     ap.add_argument("--k", type=int, nargs="+", default=SMOKE_K)
     ap.add_argument("--n", type=int, nargs="+", default=SMOKE_N)
+    ap.add_argument("--check", action="store_true",
+                    help="hold the port's xla_cpu_dot_order against each "
+                         "point")
+    ap.add_argument("--random", type=int, metavar="COUNT",
+                    help="with --check: COUNT random shapes, not the grid")
+    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--hlo", metavar="ARCH",
                     help="print the dots of ARCH's compiled smoke steps")
     args = ap.parse_args(argv)
@@ -177,7 +265,12 @@ def main(argv=None):
         hlo_dots(args.hlo)
         return
     print(f"jax {jax.__version__}, {os.cpu_count()} cores")
-    sweep(args.m, args.k, args.n, args.layout)
+    if args.check and args.random:
+        check_random(args.random, args.seed)
+    elif args.check:
+        check(args.m, args.k, args.n, args.layout)
+    else:
+        sweep(args.m, args.k, args.n, args.layout)
 
 
 if __name__ == "__main__":
