@@ -268,8 +268,9 @@ just before each of its two paths and read just after (their
    haloc_axa: 76 and 48 ``approx_add`` launches a forward step and no
    other kernel, tokens and every step's logits bit for bit those of the
    plain versions on the card; (b) with exact adds prefill + decode
-   against ``forward(mode="full")`` within 0.04, under haloc_axa the
-   teacher-forced logits equal to ``generate``'s (the parity printed);
+   against ``forward(mode="full")`` within 0.04 on the first blocks,
+   under haloc_axa the teacher-forced logits equal to ``generate``'s (the
+   parity printed);
    (c) each model cut to its first blocks (one rec/rec/attn repeat; two
    SSD layers) against the port's CPU path, teacher-forced on the card's
    tokens: exact logits within the rule, every haloc_axa residual add
@@ -296,7 +297,7 @@ counts set to 0 just before each of its two paths and read just after
    launches a forward step and no other kernel, tokens and every step's
    logits bit for bit those of the plain versions on the card; (b) with
    exact adds prefill + decode against ``forward(mode="full")`` by depth
-   (5, 20, 40 layers; gated < 0.04 at full depth, the others printed),
+   (gated < 0.04 at full depth, 40 layers),
    under haloc_axa the teacher-forced logits equal to ``generate``'s (the
    parity printed); (c) the first pattern
    repeat (4 self + 1 cross) against the port's CPU path, teacher-forced
@@ -314,6 +315,43 @@ counts set to 0 just before each of its two paths and read just after
    llama-3.2-vision-11b --adder haloc_axa --batch 4 --prompt-len 32
    --new-tokens 16`` exits 0.
 
+The training slice adds phase 4k, at full width, its counts set to 0 just
+before each of its three paths and read just after (their ``approx_add``
+launches join the ``kernels`` line), under deterministic algorithms
+(``CUBLAS_WORKSPACE_CONFIG=:4096:8``, set before the first cuBLAS call):
+
+4k. (a) ``approx_add`` against its plain version at (4, 128 | 1, 2560)
+   and (4, 128 | 1, 1024); (b) Qwen3-4B at full width cut to 24 of its 36
+   layers (3,200,254,464 fp32 parameters: 36 layers' parameters,
+   gradients and AdamW states do not fit the card): ``init_state`` and 3
+   steps of ``make_train_step`` on ``synthetic_batch(cfg,
+   DataConfig(seq_len=128, global_batch=4), step)`` under haloc_axa: 48
+   ``approx_add`` launches a step and no other kernel, a finite loss and
+   ``grad_norm > 0`` at every step, the peak memory against the state's
+   bytes; the same steps with the plain version on the card: every loss,
+   ce, aux and grad_norm and the final parameters equal bit for bit;
+   (c) Qwen3-4B cut to its first 2 layers (parameters drawn on the CPU
+   from seed 1), one step's loss (within 1e-3) and gradients (every leaf
+   within 0.05) on the card against the CPU path, exact adds; under
+   haloc_axa each residual add of the card's forward equal to the CPU
+   path's on its operands, the losses and the worst gradient leaf
+   printed; (d) granite-moe-1b-a400m at its full config
+   (1,389,151,232 parameters) as (b), ``aux > 0``; (e) the flash VJP at
+   (1, 4096, 32/8 heads, 128), causal, against autograd through
+   ``plain_attention``: output, dq, dk, dv within 0.02, both timed with
+   their peak memory; (f) for (b) and (d), exact and haloc_axa: step ms
+   split into forward, backward and update, tokens/s, a profiled step's
+   launches and idle share, and the bound (the FLOP at 989 TFLOP/s plus
+   AdamW's 28 B a parameter at 3.35 TB/s); (g) ``python -m
+   repro_torch.launch.train --arch granite-moe-1b-a400m --adder haloc_axa
+   --steps 4 --batch 4 --seq 128`` exits 0 and prints its line; (h) the
+   qwen3-4b smoke config under haloc_axa trained 4 steps with a
+   checkpoint every 2 (``build/train_restart``), restarted and run to
+   step 6: steps 4 and 5's losses equal an uninterrupted run's.  (c)'s
+   CPU half (``chip_smoke.py --train-cpu-half``, a process of its own)
+   and (g) start after the build (phase 2b) and run beside phases 3-4c,
+   which time nothing; they are joined before phase 4d.
+
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 run from a directory without ``src/repro_torch``, it exits non-zero and
@@ -322,6 +360,7 @@ prints no result.
 
 import contextlib
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -3468,9 +3507,10 @@ def recurrent_cut(cfg, params, blocks=None):
 
 
 #: The depths phase 4i's exact prefill/decode parity is read at: the cut
-#: model (gated), then deeper (printed).
-REC_DEPTHS = {"recurrentgemma-9b": (3, 12, 38), "mamba2-1.3b": (2, 12, 24,
-                                                                48)}
+#: model (gated; the deeper printed figures, mamba2-1.3b's 12, 24 and 48
+#: blocks and recurrentgemma-9b's 12 and 38, were cut when phase 4k joined
+#: the run: PERF.md §6 has them).
+REC_DEPTHS = {"recurrentgemma-9b": (3,), "mamba2-1.3b": (2,)}
 
 
 def recurrent_parity(torch, T, base, params, prompt, new):
@@ -3620,9 +3660,9 @@ def recurrent_model(torch, np, dev, counts, card, errs, arch, plen,
     log(f"  (b) prefill/decode against forward(mode='full'), {REC_NEW} "
         f"steps, exact adds, by depth (blocks: max): "
         f"{', '.join(f'{k}: {v:.4f}' for k, v in par.items())} (gated < "
-        f"{LM_TOL} at {first} blocks; deeper printed: the recurrent decode "
-        f"and the full forward's chunked or scanned form round otherwise "
-        f"and the gap grows with depth, ROADMAP Queue C 12); haloc_axa "
+        f"{LM_TOL} at {first} blocks: the recurrent decode and the full "
+        f"forward's chunked or scanned form round otherwise and the gap "
+        f"grows with depth, ROADMAP Queue C 12); haloc_axa "
         f"teacher-forced equal to generate's logits bit for bit, against "
         f"the full forward {min(hal_par):.4f}-{max(hal_par):.4f} (printed, "
         f"not gated: Queue C 3)")
@@ -3771,9 +3811,10 @@ def recurrent_phase(torch, np, dev, counts, card, errs):
 #: tail).
 VIS_ARCH, VIS_PARAMS, VIS_NEW = "llama-3.2-vision-11b", 9_791_936_528, 32
 AUD_ARCH, AUD_PARAMS, AUD_FRAMES = "hubert-xlarge", 945_451_520, 1500
-#: Depths (layers) the exact prefill/decode parity is read at: one pattern
-#: repeat and 20 layers (printed), then full depth (gated).
-VIS_DEPTHS = (5, 20, 40)
+#: Depths (layers) the exact prefill/decode parity is read at: full depth
+#: (gated; the printed 5 and 20 were cut when phase 4k joined the run:
+#: PERF.md §6 has their figures).
+VIS_DEPTHS = (40,)
 #: hubert's CPU case: its first two layers, one sequence of all the frames.
 AUD_CPU_LAYERS, AUD_CPU_BATCH = 2, 1
 #: Forwards timed (after one untimed) for hubert's times.
@@ -4130,6 +4171,528 @@ def vision_audio_phase(torch, np, dev, counts, card, errs):
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
         log(f"  {model.__name__} took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+# ------------------------------------------------------------ phase 4k --
+
+#: Phase 4k's cells: Qwen3-4B at full width cut to TRAIN_LAYERS layers
+#: (its 36 do not fit the card with fp32 AdamW states: 70.6 GB of
+#: parameters, gradients, m and v) and granite-moe-1b-a400m at its full
+#: config, trained on synthetic batches of TRAIN_BATCH x TRAIN_SEQ tokens
+#: (``DataConfig(seq_len=128, global_batch=4)``).
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_PARAMS = "qwen3-4b", 24, 3_200_254_464
+TRAIN_MOE_ARCH, TRAIN_MOE_PARAMS = "granite-moe-1b-a400m", 1_389_151_232
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3
+#: The card-against-CPU case: Qwen3-4B cut to its first two layers.
+TRAIN_CPU_LAYERS = 2
+TRAIN_GRAD_TOL, TRAIN_LOSS_TOL = 0.05, 1e-3
+#: Torch's CPU threads in (c)'s CPU half, a process beside phases 3-4c:
+#: half the host's 8 cores, the rest for those phases and (g).
+TRAIN_CPU_THREADS = 4
+#: The flash VJP case: Qwen3-4B's attention at one 4096-token sequence
+#: (past the plain path's 1M-score limit), against autograd through the
+#: plain path.
+FLASH_B, FLASH_S, FLASH_H, FLASH_HKV, FLASH_D = 1, 4096, 32, 8, 128
+FLASH_TOL = 0.02
+#: Published dense bf16 peak of an H100 SXM (NVIDIA's H100 datasheet).
+BF16_FLOP_PER_S = 989e12
+#: AdamW's bytes a parameter: it reads p, g, m and v and writes p, m and
+#: v, fp32 each.
+ADAMW_BYTES = 28
+#: The restart case's smoke config and checkpoint directory.
+TRAIN_RESTART_ARCH = "qwen3-4b"
+TRAIN_CKPT_DIR = ROOT / "build" / "train_restart"
+
+
+def train_batches(cfg, steps):
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    return [synthetic_batch(cfg, data, s) for s in range(steps)]
+
+
+def copy_params(tree):
+    """A copy of every leaf where it lies (on the card the state's 16 B a
+    parameter leave room for one more fp32 copy of the parameters)."""
+    from repro_torch.tree import leaves
+    return [t.detach().clone() for t in leaves(tree)]
+
+
+def train_run(torch, cfg, opt, batches, dev, seed=0):
+    """``init_state(seed)`` on the card and one ``make_train_step`` per
+    batch; returns (state, [(loss, ce, aux, grad_norm) a step], the
+    warnings torch raised about nondeterministic ops)."""
+    import warnings
+    from repro_torch.launch import steps
+    state = steps.init_state(seed, cfg, opt, device=dev)
+    step = steps.make_train_step(cfg, opt)
+    rows = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for b in batches:
+            state, met = step(state, b)
+            rows.append(tuple(float(met[k]) for k in
+                              ("loss", "ce", "aux", "grad_norm")))
+    nondet = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                     if "deterministic" in str(w.message)})
+    return state, rows, nondet
+
+
+def timed_train_step(torch, cfg, opt, state, batch):
+    """One train step on ``state`` split into forward (``loss_fn``),
+    backward (``torch.autograd.grad``) and update (``adamw.update``),
+    each ended by a synchronize: wall ms (forward, backward, update)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves, unflatten
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flat = [p.detach().requires_grad_(True) for p in leaves(state["params"])]
+    loss, _ = T.loss_fn(unflatten(state["params"], flat), cfg, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(flat, grads)]
+    del loss, flat
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    adamw.update(opt, unflatten(state["params"], grads), state["opt"],
+                 state["params"])
+    del grads
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3
+
+
+def train_times(torch, cfg, opt, state, batch, label, card, flop, n_params,
+                reps=3):
+    """(f): the median split of ``reps`` timed steps after an untimed
+    one, tokens/s, a profiled step's launches and idle share, and the
+    bound (FLOP at the bf16 peak plus AdamW's bytes at 3.35 TB/s)."""
+    from repro_torch.launch import steps
+    split = [timed_train_step(torch, cfg, opt, state, batch)
+             for _ in range(reps + 1)][1:]
+    fwd, bwd, upd = (statistics.median(c) for c in zip(*split))
+    step_ms = statistics.median(sum(r) for r in split)
+    step = steps.make_train_step(cfg, opt)
+    prof = kernel_classes(device_times(
+        torch, lambda: step(state, batch), 1))
+    flop_ms = flop / BF16_FLOP_PER_S * 1e3
+    opt_ms = ADAMW_BYTES * n_params / HBM_BYTES_PER_S * 1e3
+    log(f"  (f) {label}: step {step_ms:.3f} ms = forward {fwd:.3f} + "
+        f"backward {bwd:.3f} + update {upd:.3f} ms (wall, median of {reps});"
+        f" {TRAIN_BATCH * TRAIN_SEQ * 1e3 / step_ms:.1f} tokens/s; bound "
+        f"{flop_ms + opt_ms:.3f} ms ({flop / 1e12:.3f} TFLOP at 989 TFLOP/s "
+        f"= {flop_ms:.3f} ms, plus AdamW's {ADAMW_BYTES * n_params / 1e9:.2f}"
+        f" GB at 3.35 TB/s = {opt_ms:.3f} ms), {step_ms / (flop_ms + opt_ms):.1f}x "
+        f"the bound; {card}")
+    if prof:
+        log(f"      a profiled step: {step_profile_line(prof, step_ms)}")
+    else:
+        log("      a profiled step: the profiler recorded no device time "
+            "(not measured)")
+    return step_ms
+
+
+def check_equal_runs(torch, a_rows, b_rows, a_params, b_state, nondet, what):
+    """kernel == plain: every step's loss, ce, aux and grad_norm and every
+    final parameter equal, bit for bit; where torch warned of a
+    nondeterministic op, step 1's loss bit for bit and the rest within
+    1e-6 relative."""
+    from repro_torch.tree import leaves
+    b_params = leaves(b_state["params"])
+    if not nondet:
+        check(a_rows == b_rows,
+              f"{what}: the kernel's losses/grad norms {a_rows} differ from "
+              f"the plain version's {b_rows}")
+        for i, (x, y) in enumerate(zip(a_params, b_params, strict=True)):
+            check(torch.equal(x, y),
+                  f"{what}: final parameter leaf {i} differs between the "
+                  f"kernel and the plain version")
+        return "equal bit for bit"
+    check(a_rows[0][0] == b_rows[0][0],
+          f"{what}: step 1's loss differs between the kernel and the plain "
+          f"version")
+    for ra, rb in zip(a_rows, b_rows, strict=True):
+        for x, y in zip(ra, rb):
+            check(abs(x - y) <= 1e-6 * max(abs(y), 1e-30),
+                  f"{what}: {ra} against {rb} past 1e-6 relative")
+    worst = max(float((x.double() - y.double()).norm()
+                      / max(float(y.double().norm()), 1e-30))
+                for x, y in zip(a_params, b_params))
+    check(worst <= 1e-6, f"{what}: final parameters {worst:.2e} apart")
+    return (f"step 1's loss bit for bit, the rest within 1e-6 (final "
+            f"parameters {worst:.2e} apart; nondeterministic ops: {nondet})")
+
+
+def train_model(torch, np, dev, counts, card, arch, cfg, n_params, flop):
+    """(b) or (d): TRAIN_STEPS counted steps under haloc_axa (the kernel),
+    the same steps with the plain version on the card, then (f)'s times
+    with exact adds and haloc_axa; returns the counted launches."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100)
+    hal = cfg.with_approx(lm_numerics("haloc_axa", "cuda", dev))
+    plain = cfg.with_approx(lm_numerics("haloc_axa", "torch", dev))
+    batches = train_batches(cfg, TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (state, rows, nondet), launches = run_counted(
+        torch, counts, LM_PATH_KERNELS,
+        lambda: train_run(torch, hal, opt, batches, dev),
+        f"{arch} train path ({TRAIN_STEPS} steps)")
+    peak = torch.cuda.max_memory_allocated(dev)
+    predicted = train_state_bytes(state["params"])
+    check(T.param_count(state["params"]) == n_params,
+          f"{arch}: {T.param_count(state['params'])} parameters, not "
+          f"{n_params}")
+    per_step = 2 * cfg.num_layers
+    check(launches["approx_add"] == per_step * TRAIN_STEPS,
+          f"{arch}: approx_add launched {launches['approx_add']} times in "
+          f"{TRAIN_STEPS} train steps, not {per_step} a step")
+    check(all(n == 0 for k, n in launches.items() if k != "approx_add"),
+          f"{arch}: the train path launched other kernels: {launches}")
+    for loss, ce, aux, gnorm in rows:
+        check(np.isfinite(loss) and gnorm > 0,
+              f"{arch}: loss {loss}, grad_norm {gnorm}")
+    if cfg.moe is not None:
+        check(all(r[2] > 0 for r in rows), f"{arch}: aux {rows}")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    log(f"  {arch}: {cfg.num_layers} layers, {n_params} parameters; "
+        f"{TRAIN_STEPS} steps of make_train_step on {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens under haloc_axa: {per_step} approx_add "
+        f"launches a step; (loss, ce, aux, grad_norm) a step: {rows}; "
+        f"peak {peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB "
+        f"({(total - peak) / 2**30:.2f} GiB to spare) against "
+        f"{predicted / 2**30:.2f} GiB predicted")
+    a_params = copy_params(state["params"])
+    step_ms = {}
+    for label, c in (("haloc_axa", hal), ("exact", cfg)):
+        step_ms[label] = train_times(torch, c, opt, state, batches[0],
+                                     f"{arch} {label}", card, flop, n_params)
+    del state
+    torch.cuda.empty_cache()
+    pstate, prow, pnondet = train_run(torch, plain, opt, batches, dev)
+    nondet = sorted(set(nondet) | set(pnondet))
+    how = check_equal_runs(torch, rows, prow, a_params, pstate, nondet,
+                           f"{arch} train steps")
+    log(f"  {arch}: the same {TRAIN_STEPS} steps with the plain version on "
+        f"the card (deterministic algorithms, CUBLAS_WORKSPACE_CONFIG="
+        f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')}): {how}")
+    del pstate, a_params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_state_bytes(params):
+    """Predicted peak: fp32 parameters, gradients, m and v (16 B a
+    parameter) and the bf16 copies of the blocks' matrices that the
+    backward keeps (2 B each; the embedding is gathered before its cast,
+    the head runs under checkpointing)."""
+    from repro_torch.tree import leaves_with_paths
+    n = sum(t.numel() for _, t in leaves_with_paths(params))
+    matrices = sum(t.numel() for path, t in leaves_with_paths(params)
+                   if t.ndim >= 2 and path[0] not in ("embed", "lm_head"))
+    return 16 * n + 2 * matrices
+
+
+def train_cpu_inputs(torch):
+    """(c)'s model, parameters and batch: Qwen3-4B cut to its first
+    TRAIN_CPU_LAYERS layers at full width, its fp32 parameters drawn on
+    the CPU from seed 1 (both halves draw the same), one batch."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cut = dataclasses.replace(get_config(TRAIN_ARCH),
+                              repeats=TRAIN_CPU_LAYERS)
+    return cut, T.init_params(1, cut, device="cpu"), \
+        train_batches(cut, 1)[0]
+
+
+def train_cpu_half():
+    """(c)'s CPU half, ``chip_smoke.py --train-cpu-half``: one step's
+    loss and gradients on the port's CPU path with exact adds and under
+    haloc_axa, on TRAIN_CPU_THREADS threads; pickled to stdout as
+    {label: (loss, [gradient leaves as numpy], seconds)} and "init"."""
+    import pickle
+    # the pickle alone on stdout: anything else printed goes to stderr
+    result = os.fdopen(os.dup(1), "wb")
+    os.dup2(2, 1)
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.tree import leaves
+    torch.set_num_threads(TRAIN_CPU_THREADS)
+    t0 = time.perf_counter()
+    cut, params, batch = train_cpu_inputs(torch)
+    out = {"init": time.perf_counter() - t0}
+    for label, cfg in (("exact", cut), ("haloc_axa", cut.with_approx(
+            lm_numerics("haloc_axa", "torch", "cpu")))):
+        t0 = time.perf_counter()
+        (loss, _), grads = steps.value_and_grad(params, cfg, batch)
+        out[label] = (float(loss), [g.numpy() for g in leaves(grads)],
+                      time.perf_counter() - t0)
+    pickle.dump(out, result, protocol=5)
+    result.close()
+
+
+#: (g): the launcher at granite's full config.
+TRAIN_LAUNCHER = ["-m", "repro_torch.launch.train", "--arch",
+                  TRAIN_MOE_ARCH, "--adder", "haloc_axa", "--steps", "4",
+                  "--batch", "4", "--seq", "128"]
+
+
+def start_train_background(torch, dev):
+    """Phase 4k's (c) and (g), started after the build: (c)'s CPU half
+    and the launcher (g) each in a process of its own, then (c)'s card
+    half here.  They run beside phases 3-4c, which time nothing, and are
+    joined before phase 4d (:func:`finish_train_background`), so no timed
+    cell runs beside them.  An exit before the join kills both."""
+    import atexit
+    import dataclasses
+    from repro_torch.launch import steps
+    from repro_torch.tree import leaves, tree_map
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    half = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--train-cpu-half"], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE)
+    logs = [open(out_dir / f"train_launcher.{k}", "w")
+            for k in ("out", "err")]
+    launcher = subprocess.Popen([sys.executable] + TRAIN_LAUNCHER, cwd=ROOT,
+                                env=env, stdout=logs[0], stderr=logs[1])
+
+    def kill():
+        for proc in (half, launcher):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(kill)
+    cut, cpu_params, batch = train_cpu_inputs(torch)
+    params = tree_map(lambda t: t.to(dev), cpu_params)
+    del cpu_params
+    rec = ResidualRecorder(lm_numerics("haloc_axa", "cuda", dev))
+    card = {}
+    for label, cfg in (("exact", cut),
+                       ("haloc_axa", dataclasses.replace(cut, approx=rec))):
+        (loss, _), grads = steps.value_and_grad(params, cfg, batch)
+        card[label] = (float(loss), leaves(grads))
+    with torch.no_grad():
+        check_adds_on_cpu(torch, rec, lm_numerics("haloc_axa", "torch",
+                                                  "cpu"),
+                          f"{TRAIN_ARCH} train step")
+    n_adds = len(rec.calls)
+    del params, rec
+    log(f"  (c)'s card half: {time.perf_counter() - t0:.1f} s (its "
+        f"parameters drawn on the CPU); each of the card's {n_adds} "
+        f"haloc_axa residual adds equals the CPU path's on its operands, "
+        f"bit for bit")
+    return {"half": half, "launcher": launcher, "logs": logs, "card": card}
+
+
+def finish_train_background(torch, dev, bg):
+    """Waits for (c)'s CPU half and the launcher; (c): the card's loss
+    within TRAIN_LOSS_TOL of the CPU path's and every gradient leaf within
+    TRAIN_GRAD_TOL, exact adds (the haloc_axa figures printed); (g): the
+    launcher exited 0 and printed its report line."""
+    import pickle
+    t0 = time.perf_counter()
+    half, launcher = bg["half"], bg["launcher"]
+    try:
+        cpu = pickle.load(half.stdout)
+    except Exception as e:  # the half's traceback is on stderr above
+        half.wait()
+        fail(f"(c)'s CPU half exited {half.returncode}: {e!r}")
+    check(half.wait() == 0, f"(c)'s CPU half exited {half.returncode}")
+    launcher.wait(timeout=600)
+    waited = time.perf_counter() - t0
+    for f in bg["logs"]:
+        f.close()
+    figures = {}
+    for label in ("exact", "haloc_axa"):
+        loss, grads = bg["card"][label]
+        cpu_loss, cpu_grads, secs = cpu[label]
+        worst = 0.0
+        for g, c in zip(grads, cpu_grads, strict=True):
+            c = torch.from_numpy(c).to(dev, torch.float64)
+            worst = max(worst, float((g.double() - c).norm()
+                                     / max(float(c.norm()), 1e-30)))
+        figures[label] = (loss, cpu_loss, worst, secs)
+    init_s = cpu["init"]
+    del bg["card"], cpu
+    torch.cuda.empty_cache()
+    loss, cpu_loss, worst, _ = figures["exact"]
+    check(abs(loss - cpu_loss) <= TRAIN_LOSS_TOL * abs(cpu_loss),
+          f"{TRAIN_ARCH} cut to {TRAIN_CPU_LAYERS} layers, exact: the "
+          f"card's loss {loss} against the CPU path's {cpu_loss}")
+    check(worst < TRAIN_GRAD_TOL,
+          f"{TRAIN_ARCH} cut to {TRAIN_CPU_LAYERS} layers, exact: a "
+          f"gradient leaf {worst:.4f} from the CPU path's")
+    h = figures["haloc_axa"]
+    log(f"  phase 4k (c) {TRAIN_ARCH} cut to its first {TRAIN_CPU_LAYERS} "
+        f"layers (full width), one step on {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens, the card against the CPU path (the CPU's half a process "
+        f"on {TRAIN_CPU_THREADS} threads beside phases 3-4c: parameters "
+        f"{init_s:.1f} s, exact {figures['exact'][3]:.1f} s, haloc_axa "
+        f"{h[3]:.1f} s; waited {waited:.1f} s for it and (g) here): exact "
+        f"loss {loss:.6f} / {cpu_loss:.6f} (within {TRAIN_LOSS_TOL} "
+        f"relative), worst gradient leaf {worst:.4f} (< {TRAIN_GRAD_TOL}); "
+        f"haloc_axa (printed, not gated: ROADMAP Queue C 3): loss "
+        f"{h[0]:.6f} / {h[1]:.6f}, worst gradient leaf {h[2]:.4f}")
+    out = (ROOT / "build" / "train_launcher.out").read_text().strip()
+    lines = out.splitlines()
+    check(launcher.returncode == 0 and lines
+          and lines[-1].startswith(f"{TRAIN_MOE_ARCH}: loss "),
+          f"python {' '.join(TRAIN_LAUNCHER)} exited {launcher.returncode}:"
+          f" {out[-2000:]} "
+          f"{(ROOT / 'build' / 'train_launcher.err').read_text()[-2000:]}")
+    log(f"  phase 4k (g) python {' '.join(TRAIN_LAUNCHER)} (beside phases "
+        f"3-4c): exit 0: {lines[-1]}")
+
+
+def flash_case(torch, dev, card):
+    """(e): the flash VJP against autograd through the plain path at
+    Qwen3-4B's attention shapes, both timed with their peak memory."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    b, s, h, hkv, d = FLASH_B, FLASH_S, FLASH_H, FLASH_HKV, FLASH_D
+    q, k, v, g = rnd(b, s, h, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), \
+        rnd(b, s, h, d)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)
+    res = {}
+    for name, fn in (("flash", L.chunked_attention),
+                     ("plain", L.plain_attention)):
+        ms, peak = [], 0
+        for _ in range(3):
+            leaves_ = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*leaves_, pos, pos, causal=True)
+            grads = torch.autograd.grad(out, leaves_, g)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated(dev) - base
+        res[name] = (out.detach(), [x.detach() for x in grads],
+                     statistics.median(ms[1:]), peak)
+    (fo, fg, fms, fpeak), (po, pg, pms, ppeak) = res["flash"], res["plain"]
+
+    def rel(x, y):
+        return float((x.float() - y.float()).norm() / y.float().norm())
+
+    errs = [rel(fo, po)] + [rel(x, y) for x, y in zip(fg, pg)]
+    check(max(errs) < FLASH_TOL,
+          f"flash VJP against the plain path: output, dq, dk, dv "
+          f"{errs} (rule {FLASH_TOL})")
+    log(f"  (e) flash VJP (chunked_attention, KV chunk 1024) at ({b}, {s}, "
+        f"{h}/{hkv}, {d}), causal: output, dq, dk, dv within "
+        f"{', '.join(f'{e:.4f}' for e in errs)} of autograd through "
+        f"plain_attention (< {FLASH_TOL}); forward + backward {fms:.3f} ms, "
+        f"peak {fpeak / 2**30:.3f} GiB above its inputs, against the plain "
+        f"path's {pms:.3f} ms and {ppeak / 2**30:.3f} GiB (wall, median of "
+        f"2; {card})")
+
+
+def train_restart_case(torch, dev, counts):
+    """(h): the smoke config trained 4 steps with a checkpoint every 2,
+    restarted and run to step 6: steps 4 and 5's losses equal an
+    uninterrupted run's, bit for bit.  Returns the counted launches."""
+    import shutil
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train_loop import TrainLoopConfig, run
+    cfg = get_smoke_config(TRAIN_RESTART_ARCH).with_approx(
+        lm_numerics("haloc_axa", "cuda", dev))
+    data = DataConfig(seq_len=64, global_batch=4, seed=3)
+    opt = AdamWConfig(lr=5e-3, warmup_steps=2, total_steps=6)
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+
+    def loop(total, ckpt):
+        return run(cfg, opt, data, TrainLoopConfig(
+            total_steps=total, ckpt_every=2, log_every=1,
+            ckpt_dir=str(ckpt) if ckpt else None), device=dev)["history"]
+
+    def path():
+        whole = loop(6, None)
+        loop(4, TRAIN_CKPT_DIR)
+        return whole, loop(6, TRAIN_CKPT_DIR)
+
+    (whole, resumed), launches = run_counted(
+        torch, counts, LM_PATH_KERNELS, path, "train loop restart path")
+    got = {h["step"]: h["loss"] for h in resumed}
+    want = {h["step"]: h["loss"] for h in whole}
+    check(sorted(got) == [4, 5] and all(got[s] == want[s] for s in got),
+          f"restart: steps 4-5 losses {got} against the uninterrupted "
+          f"run's {want}")
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    log(f"  (h) {cfg.name} under haloc_axa, 4 x 64 tokens: 4 steps with a "
+        f"checkpoint every 2, restarted from step 4 and run to 6: losses "
+        f"{[got[s] for s in (4, 5)]} equal the uninterrupted run's, bit for "
+        f"bit")
+    return launches
+
+
+def moe_active_params(cfg, n_params):
+    """The parameters a token's forward reaches: all but the routed
+    experts, plus its top-k experts."""
+    mc = cfg.moe
+    expert = 3 * cfg.d_model * mc.d_ff
+    layers = sum(s.mlp == "moe" for s in cfg.all_blocks())
+    return n_params - layers * mc.num_experts * expert \
+        + layers * mc.experts_per_token * expert
+
+
+def train_phase(torch, np, dev, counts, card, errs):
+    """Phase 4k: training on the card (loss and gradients, AdamW, the
+    train step, data, checkpoints and the train loop) at Qwen3-4B's full
+    width and granite-moe-1b-a400m's full config; returns the launches
+    of the counted paths."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    for width in (2560, 1024):
+        check_lm_kernel_shapes(torch, np, dev, errs, width=width,
+                               prompt=TRAIN_SEQ)
+    log(f"  (a) approx_add equals its plain version at the train step's "
+        f"residual adds, ({TRAIN_BATCH}, {TRAIN_SEQ}, 2560) and "
+        f"({TRAIN_BATCH}, {TRAIN_SEQ}, 1024), every kind, both forms")
+    log("  (c) and (g) ran beside phases 3-4c (above)")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    total = {}
+    try:
+        qwen = dataclasses.replace(get_config(TRAIN_ARCH),
+                                   repeats=TRAIN_LAYERS)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        granite = get_config(TRAIN_MOE_ARCH)
+        cases = [("(b)", TRAIN_ARCH, qwen, TRAIN_PARAMS,
+                  6 * TRAIN_PARAMS * tokens),
+                 ("(d)", TRAIN_MOE_ARCH, granite, TRAIN_MOE_PARAMS,
+                  6 * moe_active_params(granite, TRAIN_MOE_PARAMS) * tokens)]
+        for tag, arch, cfg, n, flop in cases:
+            t0 = time.perf_counter()
+            log(f"  {tag} {arch}")
+            launches = train_model(torch, np, dev, counts, card, arch, cfg,
+                                   n, flop)
+            for k, c in launches.items():
+                total[k] = total.get(k, 0) + c
+            log(f"  {tag} took {time.perf_counter() - t0:.1f} s")
+        flash_case(torch, dev, card)
+        launches = train_restart_case(torch, dev, counts)
+        for k, c in launches.items():
+            total[k] = total.get(k, 0) + c
+    finally:
+        torch.use_deterministic_algorithms(False)
     return total
 
 
@@ -4875,6 +5438,8 @@ def main():
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
     sys.path.insert(0, str(ROOT / "src"))
+    # phase 4k runs cuBLAS deterministically (before its first handle)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
     import torch
 
@@ -4891,6 +5456,9 @@ def main():
     secs = _build.build_all()
     log(f"phase 2: built {len(_build.SOURCES)} kernels in {secs:.1f} s")
     report_ptxas(_build)
+    log("phase 2b: phase 4k's (c) and (g) start beside phases 3-4c, which "
+        "time nothing (joined before phase 4d)")
+    train_bg = start_train_background(torch, dev)
 
     log("phase 3: kernels against their plain versions on the card")
     errs = {name: 0 for name in MAIN_PATH_KERNELS + FFT_PATH_KERNELS
@@ -5001,6 +5569,8 @@ def main():
     for line in format_table(m_rows).splitlines():
         log("    " + line)
 
+    finish_train_background(torch, dev, train_bg)
+
     log("phase 4d: Table 1, the Fig-6 design space and the Monte-Carlo "
         "cross-check on the card")
     t0 = time.perf_counter()
@@ -5055,6 +5625,14 @@ def main():
         launches[name] += j_launches[name]
     log(f"  phase 4j took {time.perf_counter() - t0:.1f} s")
 
+    log("phase 4k: training at full width (Qwen3-4B cut to "
+        f"{TRAIN_LAYERS} layers, granite-moe-1b-a400m)")
+    t0 = time.perf_counter()
+    k_launches = train_phase(torch, np, dev, counts, card, errs)
+    for name in LM_PATH_KERNELS:
+        launches[name] += k_launches[name]
+    log(f"  phase 4k took {time.perf_counter() - t0:.1f} s")
+
     log("phase 5: times (CUDA events, median)")
     int32_ops_per_s = int32_rate(torch, dev)
     entries = measure(torch, np, dev, launches, errs, int32_ops_per_s)
@@ -5077,4 +5655,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--train-cpu-half"]:
+        sys.path.insert(0, str(ROOT / "src"))
+        train_cpu_half()
+    else:
+        main()

@@ -187,11 +187,38 @@ def tanh_gates(gates) -> torch.Tensor:
         torch.bfloat16)
 
 
+class _Gate(torch.autograd.Function):
+    """The gated product with the reference's backward: its cotangent
+    bf16 (the reference's product is), ``out``'s gradient ``g * t`` in
+    bf16, and the gate's the sum of the bf16 products ``g * out`` as
+    XLA:CPU reduces them (:func:`layers.bf16_sum`: a bf16 accumulator;
+    on the card torch's fp32 sum)."""
+
+    @staticmethod
+    def forward(ctx, t, out, keep_fp32):
+        ctx.save_for_backward(t, out)
+        if keep_fp32:
+            return t.float() * out.float()
+        return t.to(out.dtype) * out
+
+    @staticmethod
+    def backward(ctx, g):
+        t, out = ctx.saved_tensors
+        g = g.to(torch.bfloat16)
+        gt = gout = None
+        if ctx.needs_input_grad[0]:
+            gt = L.bf16_sum((g * out.to(g.dtype)).float())
+        if ctx.needs_input_grad[1]:
+            gout = g * t.to(g.dtype)
+        return gt, gout, None
+
+
 def gate(t, out, *, keep_fp32: bool = False):
     """A gate's bf16 ``tanh`` ``t`` (:func:`tanh_gates`) times ``out``.
     ``keep_fp32``: the product in fp32, unrounded, as XLA's fusion hands
-    it to an approximate residual add (an exact add reads it rounded)."""
-    return t.float() * out.float() if keep_fp32 else t.to(out.dtype) * out
+    it to an approximate residual add (an exact add reads it rounded).
+    Its backward is the reference's (:class:`_Gate`)."""
+    return _Gate.apply(t, out, keep_fp32)
 
 
 def cross_attn_apply(p, cfg: ModelConfig, spec: BlockSpec, x, kv,

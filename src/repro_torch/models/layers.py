@@ -1,5 +1,5 @@
 """Shared neural-net layers: norms, RoPE, attention paths, MLPs (the port
-of ``repro.models.layers``, forward only).
+of ``repro.models.layers``), with the derivatives jax gives them.
 
 Conventions (the reference's)
 -----------------------------
@@ -19,13 +19,18 @@ Conventions (the reference's)
 - Masks are computed from ABSOLUTE positions (qpos/kvpos tensors), which
   makes ring-buffer decode caches and padding uniform everywhere.
 
-The flash backward of the reference (its custom VJP) belongs to the
-training slice; these functions are the forward pass.
+Every function here differentiates as the reference's does under
+``jax.grad``: the emulations of XLA:CPU's arithmetic (the ordered
+products, ``exp``, ``log1p``, ``tanh``, the fused multiply-adds) are
+``torch.autograd.Function``s whose backward is jax's derivative rule,
+and the chunked attention carries the reference's flash VJP (recompute
+the probabilities per KV chunk from the saved log-sum-exp).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -71,15 +76,22 @@ NEG_INF = -1e30
 #   matrix-vector product): eight chains.
 #
 # Outside the sweep's grid the product is torch's fp32 GEMM, rounded once
-# (ROADMAP Queue C 1): K > XLA_ORDER_MAX_K; 1 < M <= 50 with K >= 128 and
+# (ROADMAP Queue C 1): K > XLA_ORDER_MAX_K (XLA_ORDER_WIDE_K for the
+# M > 50 chains of the swept sizes); 1 < M <= 50 with K >= 128 and
 # N > 508, where the library splits N between threads; and the products
 # of the M > 50 chains that :func:`_other_order` picks out (one chain or
 # two in place of four, one in place of two, by K and t).  The callers
 # below hold their operands as the reference's compiled steps hold them
 # (``lhs_t``/``rhs_t``; the products' orientation is XLA's).
 
-#: The largest K the sweep covered.
+#: The largest K the sweep covered; for the chains of more than 50 rows
+#: (lhs [M, K], rhs held either way, 1 < N) it covered K up to
+#: XLA_ORDER_WIDE_K (the smoke configs' backward products over tokens and
+#: over the vocabulary) at M up to XLA_ORDER_WIDE_MN and N up to twice
+#: that.
 XLA_ORDER_MAX_K = 256
+XLA_ORDER_WIDE_K = 512
+XLA_ORDER_WIDE_MN = 512
 
 
 def _other_order(r: int, t: int, k: int) -> bool:
@@ -119,7 +131,9 @@ def xla_cpu_dot_order(m: int, k: int, n: int, *, lhs_t: bool = False,
                       rhs_t: bool = False):
     """(chains, K block) of XLA:CPU's fp32 dot of one (m, k) @ (k, n)
     slice held as the flags say, or None outside the swept grid."""
-    if k > XLA_ORDER_MAX_K:
+    wide = 50 < m <= XLA_ORDER_WIDE_MN and 1 < n <= 2 * XLA_ORDER_WIDE_MN \
+        and not lhs_t
+    if k > (XLA_ORDER_WIDE_K if wide else XLA_ORDER_MAX_K):
         return None
     if (n == 1 and m > 1 and not lhs_t) or (m == 1 and n > 1 and rhs_t):
         return 8, k
@@ -156,18 +170,28 @@ def _chains(a: Tensor, b: Tensor, lo: int, hi: int, c: int) -> Tensor:
     return accs[0].add_(chain(body, hi, 1)) if body < hi else accs[0]
 
 
-def cpu_dot_f32(a: Tensor, b: Tensor, *, lhs_t: bool = False,
-                rhs_t: bool = False) -> Tensor:
-    """``a @ b`` in fp32 (batched over leading dims, which broadcast) in
-    XLA:CPU's order of summation for bf16-valued operands held as the
-    flags say (the table above); outside the swept grid torch's fp32
-    GEMM."""
+def _ordered_dot(a: Tensor, b: Tensor, lhs_t: bool, rhs_t: bool) -> Tensor:
     a, b = a.float(), b.float()
     m, k = a.shape[-2:]
-    order = xla_cpu_dot_order(m, k, b.shape[-1], lhs_t=lhs_t, rhs_t=rhs_t)
+    n = b.shape[-1]
+    order = xla_cpu_dot_order(m, k, n, lhs_t=lhs_t, rhs_t=rhs_t)
     if order is None:
         return a @ b
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    per = max(1, CPU_CHUNK // (m * n))
+    if math.prod(lead) <= per:
+        return _ordered_slices(a, b, order)
+    # a few slices at a time, so that their accumulators stay in the cache
+    # (each output is its own sum: the same roundings in any grouping)
+    a = a.expand(*lead, m, k).reshape(-1, m, k)
+    b = b.expand(*lead, k, n).reshape(-1, k, n)
+    return torch.cat([_ordered_slices(x, y, order) for x, y in
+                      zip(a.split(per), b.split(per))]).reshape(*lead, m, n)
+
+
+def _ordered_slices(a: Tensor, b: Tensor, order) -> Tensor:
     chains, block = order
+    k = a.shape[-1]
     out = None
     for lo in range(0, k, block):
         part = _chains(a, b, lo, min(k, lo + block), chains)
@@ -175,16 +199,72 @@ def cpu_dot_f32(a: Tensor, b: Tensor, *, lhs_t: bool = False,
     return out
 
 
+def _t(x: Tensor) -> Tensor:
+    return x.transpose(-1, -2)
+
+
+#: The backward of an ordered product ``out = a @ b`` in the layouts the
+#: reference's compiled train step gives it (``tools/xla_dot_order.py
+#: --hlo``), by the product's role: (a's gradient, b's gradient) from
+#: (a, b, g).  A dense layer (``x @ w``): ``g @ w^T`` with w held as it
+#: lies, [N, K] (``rhs_t``), and ``x^T @ g`` with x^T materialized.  The
+#: attention scores (``q @ k^T``): dq = ``g @ k`` as k lies, dk =
+#: ``g^T @ q`` with g held as it lies, [K, M] (``lhs_t``).  The attention
+#: mix (``v^T @ p^T``, p held as [q, k]): ``g @ p`` and ``v @ g``.
+_BACKWARD = {
+    "dense": (lambda a, b, g: _ordered_dot(g, _t(b), False, True),
+              lambda a, b, g: _ordered_dot(_t(a), g, False, False)),
+    "scores": (lambda a, b, g: _ordered_dot(g, _t(b), False, False),
+               lambda a, b, g: _t(_ordered_dot(_t(g), a, True, False))),
+    "mix": (lambda a, b, g: _ordered_dot(g, _t(b), False, False),
+            lambda a, b, g: _ordered_dot(_t(a), g, False, False)),
+}
+
+
+class _CpuDot(torch.autograd.Function):
+    """The ordered product with the two transposed products as its
+    backward (:data:`_BACKWARD`).  Each gradient is summed over broadcast
+    dims and cast to its input's dtype by autograd, as jax rounds a bf16
+    product's cotangent."""
+
+    @staticmethod
+    def forward(ctx, a, b, lhs_t, rhs_t, role):
+        ctx.save_for_backward(a, b)
+        ctx.role = role
+        return _ordered_dot(a, b, lhs_t, rhs_t)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        rule_a, rule_b = _BACKWARD[ctx.role]
+        ga = rule_a(a, b, g).sum_to_size(a.shape) \
+            if ctx.needs_input_grad[0] else None
+        gb = rule_b(a, b, g).sum_to_size(b.shape) \
+            if ctx.needs_input_grad[1] else None
+        return ga, gb, None, None, None
+
+
+def cpu_dot_f32(a: Tensor, b: Tensor, *, lhs_t: bool = False,
+                rhs_t: bool = False, role: str = "dense") -> Tensor:
+    """``a @ b`` in fp32 (batched over leading dims, which broadcast) in
+    XLA:CPU's order of summation for bf16-valued operands held as the
+    flags say (the table above); outside the swept grid torch's fp32
+    GEMM.  Differentiable, its backward the ``role``'s
+    (:data:`_BACKWARD`)."""
+    return _CpuDot.apply(a, b, lhs_t, rhs_t, role)
+
+
 def matmul(a: Tensor, b: Tensor, *, lhs_t: bool = False,
-           rhs_t: bool = False) -> Tensor:
+           rhs_t: bool = False, role: str = "dense") -> Tensor:
     """``a @ b`` (batched) in a's dtype, as XLA computes the reference's
     products: a bf16 product on the CPU through :func:`cpu_dot_f32`
     (``lhs_t``/``rhs_t``: how the reference's compiled step holds the
-    operands), rounded once; on the card cuBLAS's bf16 product with fp32
-    accumulation."""
+    operands; ``role``: its backward's layouts), rounded once; on the
+    card cuBLAS's bf16 product with fp32 accumulation."""
     b = b.to(a.dtype)
     if a.device.type == "cpu" and a.dtype == torch.bfloat16:
-        return cpu_dot_f32(a, b, lhs_t=lhs_t, rhs_t=rhs_t).to(a.dtype)
+        return cpu_dot_f32(a, b, lhs_t=lhs_t, rhs_t=rhs_t,
+                           role=role).to(a.dtype)
     return a @ b
 
 
@@ -209,8 +289,9 @@ def dense_sum32(p, x: Tensor) -> Tensor:
 
 
 #: XLA:CPU sums a row longer than this in windows of this many, each
-#: window one sequential fp32 sum, then the windows' sums in turn (again
-#: in windows past this many).
+#: window one sequential sum, then the windows' sums in turn (again in
+#: windows past this many); a row that is no multiple of it is padded
+#: with zeros, half the padding (rounded down) in front.
 XLA_REDUCE_WINDOW = 32
 
 
@@ -221,25 +302,169 @@ def _sequential_sum(x: Tensor) -> Tensor:
     return acc
 
 
+def _window_pad(n: int):
+    pad = (-n) % XLA_REDUCE_WINDOW
+    return pad // 2, pad - pad // 2
+
+
+class _RowSumCPU(torch.autograd.Function):
+    """The sum over the last axis in XLA:CPU's order (windows of
+    XLA_REDUCE_WINDOW); its gradient the cotangent broadcast over that
+    axis, the sum's derivative (what autograd gives through the windows'
+    column selects, without a zero tensor of x's size for each)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.shape = x.shape
+        w = XLA_REDUCE_WINDOW
+        while x.shape[-1] > w:
+            x = F.pad(x, _window_pad(x.shape[-1]))
+            x = _sequential_sum(x.reshape(*x.shape[:-1], -1, w))
+        return _sequential_sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., None].expand(ctx.shape)
+
+
 def row_sum(x: Tensor) -> Tensor:
     """The fp32 sum over the last axis: on the CPU in XLA:CPU's order
-    (windows of XLA_REDUCE_WINDOW, zero-padded at the end; read for rows
-    of multiples of the window and up to it), on the card torch's own."""
+    (:class:`_RowSumCPU`), on the card torch's own."""
     if x.device.type != "cpu":
         return x.sum(dim=-1)
+    return _RowSumCPU.apply(x)
+
+
+def _windows(x: Tensor) -> Tensor:
+    """(..., D) -> (windows..., n, D): each leading dim longer than
+    XLA_REDUCE_WINDOW cut into windows of it (the shorter ones whole), a
+    window's rows in row-major order."""
     w = XLA_REDUCE_WINDOW
-    while x.shape[-1] > w:
-        nb = -(-x.shape[-1] // w)
-        x = F.pad(x, (0, nb * w - x.shape[-1]))
-        x = _sequential_sum(x.reshape(*x.shape[:-1], nb, w))
-    return _sequential_sum(x)
+    lead = x.shape[:-1]
+    win = [min(n, w) for n in lead]
+    x = F.pad(x, [0, 0] + [p for n in reversed(lead) for p in
+                            (_window_pad(n) if n > w else (0, 0))])
+    nd = len(lead)
+    x = x.reshape([v for n, k in zip(x.shape[:-1], win)
+                   for v in (n // k, k)] + [x.shape[-1]])
+    x = x.permute(*range(0, 2 * nd, 2), *range(1, 2 * nd, 2), 2 * nd)
+    return x.reshape(*x.shape[:nd], -1, x.shape[-1])
+
+
+def _sequential_sum_bf16(x: Tensor) -> Tensor:
+    acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    for j in range(x.shape[-1]):
+        acc = (acc + x[..., j]).to(torch.bfloat16).float()
+    return acc
+
+
+def bf16_sum(x: Tensor) -> Tensor:
+    """The sum of every element of ``x`` (bf16 values) as XLA:CPU reduces
+    a bf16 tensor: its accumulator bf16, every add rounded to it; each
+    dim longer than XLA_REDUCE_WINDOW cut into windows of that many (the
+    shorter ones whole), each window summed in row-major order from
+    zero, and the windows' sums again until no dim is longer.  Returns
+    an fp32 scalar holding a bf16 value.  On the card torch's own sum
+    (fp32 accumulation) of the bf16 values."""
+    x = x.float()
+    if x.device.type != "cpu":
+        return x.sum().to(torch.bfloat16).float()
+    x = x[..., None]
+    while x.dim() > 1 and max(x.shape[:-1]) > XLA_REDUCE_WINDOW:
+        x = _sequential_sum_bf16(_windows(x).transpose(-1, -2))
+    return _sequential_sum_bf16(x.reshape(-1))
+
+
+@functools.lru_cache(maxsize=None)
+def _rsqrt_estimates() -> Tensor:
+    from repro_torch.models.rsqrt_table import RSQRT_ESTIMATES as s
+    top = torch.tensor([int(s[i:i + 3], 16) for i in range(0, len(s), 3)],
+                       dtype=torch.int32)
+    return (126 << 23) | (top << 11)
+
+
+def xla_rsqrt32(x: Tensor) -> Tensor:
+    """XLA:CPU's fp32 ``rsqrt`` (its machine code, jax 0.9.0, x86-64):
+    the hardware estimate (:mod:`repro_torch.models.rsqrt_table`) refined
+    by two Newton steps, each ``y + (-y / 2) fma(x y, y, -1)`` with the
+    two multiply-adds fused; a positive normal input only (XLA keeps the
+    estimate for the others: torch's ``rsqrt`` stands for it here).  Not
+    the correctly rounded value: it misses it in the last bit for about
+    one input in eight."""
+    x = x.float()
+    b = x.view(torch.int32)
+    e = (b >> 23) & 0xFF
+    par = (e - 127) & 1
+    y = (_rsqrt_estimates().to(x.device)[par * 1024
+                                         + ((b & 0x7FFFFF) >> 13)]
+         - (((e - 127 - par) // 2) << 23)).view(torch.float32)
+    for _ in range(2):
+        y = fma32(y * -0.5, fma32(x * y, y, -1.0), y)
+    return torch.where((x > 0) & (e < 255) & (e > 0), y, torch.rsqrt(x))
+
+
+def _sum_leading_of_products(a: Tensor, b: Tensor) -> Tensor:
+    """The fp32 sum of a * b (..., D) over every leading dim, as XLA:CPU
+    reduces it: with every leading dim at most XLA_REDUCE_WINDOW long it
+    fuses the product into the reduction, one FMA a row in row-major
+    order; past that it rounds the products, sums each window of
+    XLA_REDUCE_WINDOW rows (the shorter dims whole) in row-major order and
+    then the windows' sums, again in windows until no dim is longer.
+    (Read for (rows, D) and (B, S, D) with B, S <= 32; XLA orders the
+    (B, S, H, D) reduction of the q/k norms otherwise.)"""
+    if a.dim() == 1:
+        a, b = a[None], b[None]
+    if max(a.shape[:-1]) <= XLA_REDUCE_WINDOW:
+        a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+        acc = torch.zeros(a.shape[-1], dtype=torch.float32)
+        for j in range(a.shape[0]):
+            acc = fma32(a[j], b[j], acc)
+        return acc
+    x = a * b
+    while x.dim() > 1 and max(x.shape[:-1]) > XLA_REDUCE_WINDOW:
+        x = _sequential_sum(_windows(x).transpose(-1, -2))
+    return _sequential_sum(x.reshape(-1, x.shape[-1]).transpose(0, 1))
+
+
+class _RmsNormCPU(torch.autograd.Function):
+    """The norm's value as XLA:CPU computes the reference's (the mean as
+    the sum times the fp32 reciprocal of the width, XLA's ``rsqrt``:
+    :func:`xla_rsqrt32`) and its backward as XLA computes jax's (read
+    from the compiled VJP): with gs = g * scale, xc = x * c, c = (sum(x
+    gs) * (inv / (var + eps) * -0.5)) / width, the input's gradient
+    fma(gs, inv, xc) + xc; the scale's the sum over rows of (x inv) g,
+    one FMA a row."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        xf = x.float()
+        var = row_sum(xf * xf)[..., None] * np.float32(1 / xf.shape[-1])
+        inv = xla_rsqrt32(var + eps)
+        ctx.save_for_backward(xf, scale, var, inv)
+        ctx.eps = eps
+        return xf * inv * scale
+
+    @staticmethod
+    def backward(ctx, g):
+        xf, scale, var, inv = ctx.saved_tensors
+        gs = g * scale
+        r = row_sum(xf * gs)[..., None]
+        c = (r * ((inv / (var + ctx.eps)) * -0.5)) * np.float32(
+            1 / xf.shape[-1])
+        xc = xf * c
+        gscale = _sum_leading_of_products(xf * inv, g) \
+            if ctx.needs_input_grad[1] else None
+        return fma32(gs, inv, xc) + xc, gscale, None
 
 
 def rms_norm(p, x: Tensor, eps: float = 1e-6) -> Tensor:
+    """The reference's RMS norm in x's dtype; on the CPU as XLA:CPU
+    computes it and its gradient (:class:`_RmsNormCPU`), on the card
+    torch's ops (the rsqrt correctly rounded, through fp64)."""
+    if x.device.type == "cpu":
+        return _RmsNormCPU.apply(x, p["scale"], eps).to(x.dtype)
     xf = x.to(torch.float32)
     var = (row_sum(xf * xf) / xf.shape[-1])[..., None]
-    # the fp32 rsqrt correctly rounded (through fp64, one value a row):
-    # XLA's and torch's own fp32 rsqrt each miss it in the last bit
     inv = torch.rsqrt((var + eps).to(torch.float64)).to(torch.float32)
     return (xf * inv * p["scale"]).to(x.dtype)
 
@@ -356,16 +581,16 @@ def _mask_bias(qpos: Tensor, kvpos: Tensor, *, causal: bool,
 def _scores(q: Tensor, k: Tensor) -> Tensor:
     """(b, h, q, k) fp32 scores of the working-dtype product (rounded to
     it first, as ``jnp.einsum("bqhd,bkhd->bhqk")`` does)."""
-    return matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1)).to(
-        torch.float32)
+    return matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1),
+                  role="scores").to(torch.float32)
 
 
 def _mix(p: Tensor, v: Tensor) -> Tensor:
     """``jnp.einsum("bhqk,bkhd->bhqd", p, v)`` (b, h, q, d) in v's dtype,
     taken as XLA takes it: (v^T p^T)^T, with p held as [q, k]."""
     vt = v.permute(0, 2, 3, 1)                      # (b, h, d, k)
-    return matmul(vt, p.to(v.dtype).transpose(2, 3), rhs_t=True) \
-        .transpose(2, 3)
+    return matmul(vt, p.to(v.dtype).transpose(2, 3), rhs_t=True,
+                  role="mix").transpose(2, 3)
 
 
 def plain_attention(q, k, v, qpos, kvpos, *, causal=True, window=0):
@@ -410,9 +635,55 @@ def _flash_fwd(q, k, v, qpos, kvpos, causal, window, chunk):
     return acc / l_safe[..., None], m + torch.log(l_safe)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The reference's flash attention with its custom VJP
+    (``_flash_vjp_fwd``/``_flash_vjp_bwd``): the forward saves q, k, v,
+    the output (b, sq, h, dv) in q's dtype and the log-sum-exp, nothing
+    per chunk; the backward recomputes each KV chunk's probabilities
+    from the log-sum-exp, with delta = rowsum(dO * O), and sums dq over
+    the chunks in fp32.  q, k, v: (b, s, h, d), the heads already
+    repeated; qpos (b, sq), kvpos (b, skv), skv a multiple of ``chunk``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, kvpos, causal, window, chunk):
+        out, lse = _flash_fwd(q, k, v, qpos, kvpos, causal, window, chunk)
+        outq = out.transpose(1, 2).to(q.dtype)
+        ctx.save_for_backward(q, k, v, qpos, kvpos, outq, lse)
+        ctx.args = (causal, window, chunk)
+        return outq
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, qpos, kvpos, out, lse = ctx.saved_tensors
+        causal, window, chunk = ctx.args
+        scale = q.shape[-1] ** -0.5
+        g = g.float().transpose(1, 2)                   # (b, h, sq, dv)
+        delta = (g * out.float().transpose(1, 2)).sum(dim=-1)   # (b,h,sq)
+        qf = q.float().transpose(1, 2)                  # (b, h, sq, d)
+        dq = torch.zeros_like(qf)
+        dks, dvs = [], []
+        for c0 in range(0, k.shape[1], chunk):
+            kci, vci = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+            s = _scores(q, kci) * scale
+            s = s + _mask_bias(qpos, kvpos[:, c0:c0 + chunk], causal=causal,
+                               window=window)[:, None]
+            p = exp32(s - lse[..., None])                # (b, h, sq, c)
+            kf = kci.float().transpose(1, 2)             # (b, h, c, d)
+            dvs.append(p.transpose(2, 3) @ g)            # (b, h, c, dv)
+            dp = g @ vci.float().permute(0, 2, 3, 1)     # (b, h, sq, c)
+            ds = p * (dp - delta[..., None]) * scale
+            dq = dq + ds @ kf
+            dks.append(ds.transpose(2, 3) @ qf)          # (b, h, c, d)
+        dk = torch.cat(dks, dim=2).transpose(1, 2)
+        dv = torch.cat(dvs, dim=2).transpose(1, 2)
+        return (dq.transpose(1, 2).to(q.dtype), dk.to(k.dtype),
+                dv.to(v.dtype), None, None, None, None, None)
+
+
 def chunked_attention(q, k, v, qpos, kvpos, *, causal=True, window=0,
                       chunk=1024):
-    """Flash attention forward (online softmax over KV chunks)."""
+    """Flash attention (online softmax over KV chunks) with the
+    reference's memory-optimal VJP (:class:`_FlashAttention`)."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     if kvpos.ndim == 1:
@@ -428,8 +699,7 @@ def chunked_attention(q, k, v, qpos, kvpos, *, causal=True, window=0,
         qpos = qpos[None]
     kvpos = kvpos.expand(b, skv)
     qpos = qpos.expand(b, sq)
-    out, _ = _flash_fwd(q, k, v, qpos, kvpos, causal, window, chunk)
-    return out.transpose(1, 2).to(q.dtype)
+    return _FlashAttention.apply(q, k, v, qpos, kvpos, causal, window, chunk)
 
 
 def local_attention(q, k, v, *, window: int):
@@ -499,8 +769,26 @@ def attention_any(q, k, v, qpos, kvpos, *, causal=True, window=0,
 # ``F.silu``/``F.gelu`` rounds once and differs in the last bit of many
 # bf16 outputs.
 
+class _Silu(torch.autograd.Function):
+    """``jax.nn.silu`` as XLA computes it and its gradient in x's dtype,
+    every op rounded (read from the compiled VJP): with s the sigmoid,
+    ``g s + (x g) (s (1 - s))``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g * s + (x * g) * (s * (1 - s))
+
+
 def silu(x: Tensor) -> Tensor:
-    return x * (1 / (1 + torch.exp(-x)))
+    return _Silu.apply(x)
 
 
 def gelu_tanh(x: Tensor) -> Tensor:
@@ -564,7 +852,79 @@ LOG1P_SMALL = float.fromhex("0x1.a8279ap-2")           # sqrt(2) - 1
 MIN_NORMAL = float.fromhex("0x1p-126")
 
 
+#: Elements a CPU emulation takes at a time: its fp64 temporaries then
+#: stay in the cache (7x faster on a (4, 128, 151936) logit tensor).
+CPU_CHUNK = 1 << 18
+
+
+def _by_chunks(fn, x: Tensor) -> Tensor:
+    """Elementwise ``fn(x)``, on the CPU CPU_CHUNK elements at a time."""
+    if x.device.type != "cpu" or x.numel() <= CPU_CHUNK:
+        return fn(x)
+    flat = x.reshape(-1)
+    return torch.cat([fn(c) for c in flat.split(CPU_CHUNK)]).reshape(
+        x.shape)
+
+
+class _Unary(torch.autograd.Function):
+    """``fn(x)`` (an elementwise emulation torch cannot differentiate: it
+    reads bits, floors, or selects between branches) with the backward
+    jax gives the function it emulates: ``vjp(g, x, out)``, op for op."""
+
+    @staticmethod
+    def forward(ctx, x, fn, vjp):
+        out = _by_chunks(fn, x)
+        ctx.save_for_backward(x, out)
+        ctx.vjp = vjp
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return ctx.vjp(g, x, out), None, None
+
+
+def _with_vjp(fn, vjp):
+    """``fn`` (fp32) as a function whose backward is ``vjp(g, x, out)``."""
+    def wrapped(x: Tensor) -> Tensor:
+        return _Unary.apply(x.float(), fn, vjp)
+    wrapped.__doc__ = fn.__doc__
+    return wrapped
+
+
+class _Fma(torch.autograd.Function):
+    """:func:`_fma32` with the derivatives of ``a * b + c``."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(a, b)
+        ctx.shapes = (a.shape, b.shape, c.shape)
+        return _fma32(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        sa, sb, sc = ctx.shapes
+        return ((g * b).sum_to_size(sa), (g * a).sum_to_size(sb),
+                g.sum_to_size(sc))
+
+
 def fma32(a, b, c) -> Tensor:
+    """fp32 ``a * b + c`` rounded once, as an FMA instruction rounds it
+    (:func:`_fma32`); differentiable in each tensor operand."""
+    if all(isinstance(t, Tensor) and t.device.type != "cpu"
+           for t in (a, b, c)):
+        return torch.addcmul(c.float(), a.float(), b.float())
+    devs = [t.device for t in (a, b, c) if isinstance(t, Tensor)]
+    dev = next((d for d in devs if d.type != "cpu"), devs[0])
+    a, b, c = (torch.as_tensor(t, dtype=torch.float32, device=dev)
+               for t in (a, b, c))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (a, b, c)):
+        return _Fma.apply(a, b, c)
+    return _fma32(a, b, c)
+
+
+def _fma32(a, b, c) -> Tensor:
     """fp32 ``a * b + c`` rounded once, as an FMA instruction rounds it.
 
     The product of two fp32 values is exact in fp64, and the fp64 sum is
@@ -574,10 +934,26 @@ def fma32(a, b, c) -> Tensor:
     lies.  Three tensors on the card take one ``torch.addcmul`` kernel
     instead (the exact route is about 15 kernels, 0.4 ms on an SSD
     layer's (4, 64, 128, 64) state)."""
-    if all(isinstance(t, Tensor) and t.device.type != "cpu"
-           for t in (a, b, c)):
-        return torch.addcmul(c.float(), a.float(), b.float())
-    a, b, c = (torch.as_tensor(t, dtype=torch.float32) for t in (a, b, c))
+    s = torch.addcmul(c.double(), a.double(), b.double())
+    r = s.float()
+    # a halfway case has the 29 fp64 mantissa bits below fp32's 24 equal
+    # to 1 followed by zeros; where r is not a normal fp32 value (but for
+    # an exact zero) fewer bits are kept: both are checked one by one
+    # (they are rare)
+    near = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    small = r.abs() < MIN_NORMAL
+    if bool(small.any()):
+        near |= small & (s != 0)
+    if not bool(near.any()):
+        return r
+    a, b, c = torch.broadcast_tensors(a, b, c)
+    idx = near.nonzero(as_tuple=True)
+    r = r.clone()
+    r[idx] = _fma32_exact(a[idx], b[idx], c[idx])
+    return r
+
+
+def _fma32_exact(a, b, c) -> Tensor:
     p = a.double() * b.double()
     cd = c.double()
     s = p + cd
@@ -592,14 +968,22 @@ def fma32(a, b, c) -> Tensor:
     return torch.where(off_mid, other, r)
 
 
+def _fma32_host(a: float, b: float, c: float) -> np.float32:
+    """:func:`_fma32` of three host scalars."""
+    return np.float32(_fma32(*(torch.tensor(float(np.float32(t)),
+                                            dtype=torch.float32)
+                               for t in (a, b, c))).item())
+
+
 def ftz(x: Tensor) -> Tensor:
     """Results below the smallest normal fp32 flushed to (signed) zero."""
     return torch.where(x.abs() < MIN_NORMAL, x * 0.0, x)
 
 
-def xla_exp32(x: Tensor) -> Tensor:
+def _xla_exp32(x: Tensor) -> Tensor:
     """XLA:CPU's fp32 ``exp``: 2^n times a degree-7 polynomial of the
-    reduced argument, every multiply-add one FMA."""
+    reduced argument, every multiply-add one FMA; its derivative jax's,
+    ``g * out``."""
     x = x.float().clamp(*EXP_CLAMP)
     n = torch.floor(fma32(x, LOG2E, 0.5)).clamp(-127.0, 127.0)
     r = fma32(-n, LN2_HI, x)
@@ -610,6 +994,9 @@ def xla_exp32(x: Tensor) -> Tensor:
     y = fma32(p, r * r, r) + 1.0
     scale = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
     return ftz(y * scale)
+
+
+xla_exp32 = _with_vjp(_xla_exp32, lambda g, x, out: g * out)
 
 
 def _log1p_small(x: Tensor) -> Tensor:
@@ -646,11 +1033,16 @@ def _log1p_large(x: Tensor) -> Tensor:
     return torch.where(v == float("inf"), v, out)
 
 
-def xla_log1p32(x: Tensor) -> Tensor:
-    """XLA:CPU's fp32 ``log1p``."""
+def _xla_log1p32(x: Tensor) -> Tensor:
+    """XLA:CPU's fp32 ``log1p``; its derivative jax's, ``g / (1 + x)``
+    (the large branch reads the mantissa's bits, through which torch
+    would give none)."""
     x = x.float()
     return torch.where(x.abs() < LOG1P_SMALL, _log1p_small(x),
                        _log1p_large(x))
+
+
+xla_log1p32 = _with_vjp(_xla_log1p32, lambda g, x, out: g / (x + 1))
 
 
 #: XLA:CPU's fp32 ``tanh`` (Eigen's rational form): the argument clamped
@@ -666,11 +1058,12 @@ TANH_DEN = _hex("0x1.41a7b0p-20", "0x1.f12bacp-14", "0x1.29540ap-9",
                 "0x1.40b3bap-8")
 
 
-def xla_tanh32(x: Tensor) -> Tensor:
+def _xla_tanh32(x: Tensor) -> Tensor:
     """XLA:CPU's fp32 ``tanh``: both polynomials in x^2 by Horner's rule,
     every step one FMA, the numerator times x, one division.  It runs on
     any device (the exact FMA is fp64 arithmetic), so a gate's ``tanh``
-    on the card equals the CPU's."""
+    on the card equals the CPU's.  Its backward is jax's as XLA computes
+    it, ``m + m out`` with ``m = g (1 - out)``, one FMA."""
     x = x.float()
     c = x.clamp(-TANH_CLAMP, TANH_CLAMP)
     c2 = c * c
@@ -683,6 +1076,14 @@ def xla_tanh32(x: Tensor) -> Tensor:
     out = torch.where(x.abs() < TANH_SMALL, x, (c * num) / den)
     return torch.where(x.abs() >= TANH_ONE,
                        torch.copysign(torch.ones_like(x), x), out)
+
+
+def _tanh_vjp(g, x, out):
+    m = g * (1 - out)
+    return fma32(m, out, m)
+
+
+xla_tanh32 = _with_vjp(_xla_tanh32, _tanh_vjp)
 
 
 def exp32(x: Tensor) -> Tensor:
@@ -706,26 +1107,53 @@ def sqrt32(x: Tensor) -> Tensor:
     return torch.sqrt(x.float())
 
 
+class _SoftmaxCPU(torch.autograd.Function):
+    """``e / sum(e)``, e = exp(x - max), and its backward as XLA:CPU
+    computes the reference's (jax differentiates the composition): with
+    s = sum(e), ``(g / s - sum(g (1 / s^2) e)) e``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        e = _by_chunks(_xla_exp32, x - x.amax(dim=-1, keepdim=True))
+        s = row_sum(e)[..., None]
+        ctx.save_for_backward(e, s)
+        return e / s
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s = ctx.saved_tensors
+        r = row_sum((g * (1 / (s * s))) * e)[..., None]
+        return (g / s + -r) * e
+
+
 def softmax32(x: Tensor) -> Tensor:
     """``jax.nn.softmax`` over the last axis of fp32 ``x``: on the CPU
     exp(x - max) over its sum with XLA:CPU's ``exp`` and order of sums
     (torch's own ``softmax`` there differs from it in the last bit of many
-    values, which a bf16 cast of the probabilities now and then keeps); on
-    the card torch's one-kernel ``softmax``."""
+    values, which a bf16 cast of the probabilities now and then keeps),
+    its backward as XLA computes the reference's (:class:`_SoftmaxCPU`);
+    on the card torch's one-kernel ``softmax``."""
     if x.device.type != "cpu":
         return torch.softmax(x, dim=-1)
-    e = xla_exp32(x - x.amax(dim=-1, keepdim=True))
-    return e / row_sum(e)[..., None]
+    return _SoftmaxCPU.apply(x.float())
 
 
-def sigmoid32(x: Tensor) -> Tensor:
-    """``jax.nn.sigmoid`` in fp32: 1 / (1 + exp(-x))."""
+def _sigmoid32(x: Tensor) -> Tensor:
     return ftz(1.0 / (exp32(-x) + 1.0))
 
 
-def softplus32(x: Tensor) -> Tensor:
+sigmoid32 = _with_vjp(_sigmoid32, lambda g, x, out: g * (out * (1 - out)))
+sigmoid32.__doc__ = """``jax.nn.sigmoid`` in fp32: 1 / (1 + exp(-x)); its
+backward jax's, ``g * (out * (1 - out))``."""
+
+
+def _softplus32(x: Tensor) -> Tensor:
     """``jax.nn.softplus`` in fp32: max(x, 0) + log1p(exp(-|x|)), NaN
-    kept."""
-    x = x.float()
+    kept; its derivative jax's (``logaddexp(x, 0)``'s), ``g * exp(x -
+    out)`` (the sigmoid), on every device (torch's own through ``max``
+    and ``|x|`` gives 1 at x = 0, not 1/2)."""
     out = torch.clamp_min(x, 0.0) + log1p32(exp32(-x.abs()))
     return torch.where(torch.isnan(x), x, out)
+
+
+softplus32 = _with_vjp(_softplus32, lambda g, x, out: g * exp32(x - out))

@@ -160,8 +160,9 @@ def _moe_chunk(p, cfg: ModelConfig, x):
 
 def moe_apply(p, cfg: ModelConfig, x):
     """x: (B, S, D) -> (out (B, S, D), aux_loss scalar).  With shared
-    experts ``out`` is the fp32 sum of the routed and shared outputs (each
-    rounded to x's dtype), for the residual add to round."""
+    experts under an approximate adder ``out`` is the fp32 sum of the
+    routed and shared outputs (each rounded to x's dtype), for the
+    residual add to round; with exact adds it is that sum rounded."""
     mc = cfg.moe
     b, s, d = x.shape
     if s == 1:
@@ -176,9 +177,12 @@ def moe_apply(p, cfg: ModelConfig, x):
     else:
         out, aux = _moe_chunk(p, cfg, x)
     if "shared" in p:
-        # XLA adds the two bf16 outputs in fp32 inside the fusion that
-        # consumes the sum (the residual add) and never rounds it: keep it
+        # XLA adds the two bf16 outputs in fp32; an approximate residual
+        # add's quantize reads that sum unrounded (its fusion keeps it),
+        # an exact residual add reads it rounded to x's dtype
         out = out.float() + L.swiglu(p["shared"], x).float()
+        if not cfg.approx.enabled:
+            out = out.to(x.dtype)
     return out, aux
 
 

@@ -1,6 +1,6 @@
 """Model assembly: embeddings and frontends, residual blocks, the block
-loop (the port of ``repro.models.transformer``; every family of the
-registry, forward only).
+loop and the training loss (the port of ``repro.models.transformer``;
+every family of the registry).
 
 Layout of a parameter tree (all plain dicts of tensors):
 
@@ -29,9 +29,12 @@ port's engine, the ``approx_add`` kernel on the card).
 
 Self attention (global or windowed), Llama-3.2's gated cross attention,
 DeepSeek's latent attention (MLA), RecurrentGemma's RG-LRU and Mamba-2's
-SSD, with a SwiGLU, GELU or MoE MLP or none, are ported.  Sharding
-(``batch_axes``/``mesh``) and the loss belong to later slices; sharding
-raises ``NotImplementedError`` naming its ROADMAP entry.
+SSD, with a SwiGLU, GELU or MoE MLP or none, are ported, and so is the
+loss (:func:`loss_fn`), which autograd differentiates as ``jax.grad``
+differentiates the reference's (``models.layers``' emulations carry
+jax's derivative rules).  Sharding (``batch_axes``/``mesh``) belongs to
+a later slice and raises ``NotImplementedError`` naming its ROADMAP
+entry.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.ax.backends import get_backend
 from repro_torch.ax.engine import resolve_device as _resolve_device
@@ -290,6 +294,26 @@ def cross_tanh_gates(cfg: ModelConfig, blocks: list) -> list:
             for spec in specs]
 
 
+class _ExactResidual(torch.autograd.Function):
+    """An exact residual add as XLA fuses the reference's: the sum in
+    fp32, returned rounded to x's dtype (the stream) and unrounded (what
+    the next norm reads); its backward the reference's, where the norm's
+    input is the rounded sum: the two cotangents, each in x's dtype,
+    added and rounded to it, for both operands."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        s = x.float() + y.float()
+        ctx.dtypes = (x.dtype, y.dtype)
+        return s.to(x.dtype), s
+
+    @staticmethod
+    def backward(ctx, g_x, g_s):
+        dt, dty = ctx.dtypes
+        g = g_x if g_s is None else (g_s.to(dt).float() + g_x.float()).to(dt)
+        return g, g.to(dty)
+
+
 def block_apply(p: Params, cfg: ModelConfig, spec: BlockSpec, x, ctx,
                 cache: Optional[Params], mode: str, batch_axes=None,
                 mesh=None, *, carry=None, tanh_gates=None):
@@ -346,8 +370,7 @@ def block_apply(p: Params, cfg: ModelConfig, spec: BlockSpec, x, ctx,
     else:
         # XLA adds in fp32 and hands the unrounded sum to the norm that
         # reads it; the stream (the second add's operand) is rounded
-        norm_in = x.float() + mix.to(x.dtype).float()
-        x = norm_in.to(x.dtype)
+        x, norm_in = _ExactResidual.apply(x, mix.to(x.dtype))
     aux = None
     if spec.mlp != NONE:
         h2 = L.rms_norm(p["ln2"], norm_in, cfg.norm_eps).to(x.dtype)
@@ -366,8 +389,7 @@ def block_apply(p: Params, cfg: ModelConfig, spec: BlockSpec, x, ctx,
         if cfg.approx.enabled:
             x = cfg.approx.residual_add(x, out).to(x.dtype)
         else:
-            norm_in = x.float() + out.float()
-            x = norm_in.to(x.dtype)
+            x, norm_in = _ExactResidual.apply(x, out)
     return x, new_cache, aux, None if cfg.approx.enabled else norm_in
 
 
@@ -404,7 +426,7 @@ def embed_input(params, cfg: ModelConfig, batch, need_vision: bool = True):
 
 def forward(params, cfg: ModelConfig, batch, *, mode: str = "full",
             cache: Optional[Params] = None, pos=None, batch_axes=None,
-            mesh=None):
+            mesh=None, return_prelogits: bool = False):
     """Returns (logits, new_cache, aux_sum).
 
     mode "full" scores every position; "prefill" fills ``cache`` and
@@ -412,7 +434,8 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "full",
     returning the last position's logits only (a non-causal model's
     prefill returns every position's).  ``aux_sum`` is the fp32
     sum of the MoE layers' load-balancing losses in block order (0 without
-    MoE layers)."""
+    MoE layers).  ``return_prelogits``: the final norm's output in place
+    of the logits (what :func:`loss_fn` hands to the head)."""
     _no_sharding(batch_axes, mesh)
     if mode not in ("full", "prefill", "decode"):
         raise ValueError(f"bad forward mode {mode!r}")
@@ -460,5 +483,57 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "full",
     if mode in ("prefill", "decode") and cfg.causal:
         x = x[:, -1:]  # only the last position's logits are needed
     new_cache = blocks_layout(cfg, new) if cache is not None else None
+    if return_prelogits:
+        return x, new_cache, aux
     return L.dense(params["lm_head"], x), new_cache, aux
+
+
+# ------------------------------------------------------------------ loss --
+
+def logsumexp32(x):
+    """``jax.nn.logsumexp`` over the last axis of fp32 ``x``: on the CPU
+    its max, XLA:CPU's ``exp`` and order of sums (:func:`layers.exp32`,
+    :func:`layers.row_sum`); on the card torch's one-kernel
+    ``logsumexp``.  The max carries no gradient, as jax's does not."""
+    if x.device.type != "cpu":
+        return torch.logsumexp(x, dim=-1)
+    amax = x.amax(dim=-1, keepdim=True).detach()
+    amax = torch.where(torch.isfinite(amax), amax, torch.zeros_like(amax))
+    return torch.log(L.row_sum(L.exp32(x - amax))) + amax[..., 0]
+
+
+def softmax_cross_entropy(logits, labels):
+    """Per-position CE of fp32 logits (..., V) against integer labels:
+    logsumexp minus the gold logit (a gather: the same value as the
+    reference's iota compare and masked sum, which adds only zeros to
+    it)."""
+    logits = logits.to(torch.float32)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return logsumexp32(logits) - gold
+
+
+def _head_loss(cfg: ModelConfig, head, x, labels):
+    logits = L.dense(head, x)
+    if cfg.padded_vocab != cfg.vocab_size:
+        # padded vocab slots masked to -inf (exact CE over the true vocab)
+        viota = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(viota < cfg.vocab_size, logits,
+                             torch.full((), L.NEG_INF, dtype=logits.dtype,
+                                        device=logits.device))
+    return softmax_cross_entropy(logits, labels).mean()
+
+
+def loss_fn(params, cfg: ModelConfig, batch, batch_axes=None, mesh=None):
+    """The reference's training loss: the full forward to the final norm,
+    then the head and the CE under activation checkpointing (the (B, S,
+    V) logits and the softmax internals are recomputed in the backward,
+    as under the reference's ``jax.checkpoint``), plus 0.01 times the MoE
+    load-balancing loss.  Returns (loss, {"ce", "aux"}), fp32 scalars."""
+    x, _, aux = forward(params, cfg, batch, mode="full",
+                        batch_axes=batch_axes, mesh=mesh,
+                        return_prelogits=True)
+    labels = torch.as_tensor(batch["labels"], device=x.device)
+    ce = checkpoint(_head_loss, cfg, params["lm_head"], x, labels,
+                    use_reentrant=False)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 

@@ -9,6 +9,8 @@ the port's.
 
     params = from_reference(jax.tree.map(np.asarray, ref_params), cfg,
                             device="cpu")
+    state = state_from_reference(jax.tree.map(np.asarray, ref_state), cfg,
+                                 device="cpu")
 """
 
 from __future__ import annotations
@@ -77,3 +79,21 @@ def cache_from_reference(tree: Any, cfg: ModelConfig, *, device):
     out = {"prefix": tree["prefix"], "suffix": tree["suffix"],
            "pattern": [_unstack(c, cfg.repeats) for c in tree["pattern"]]}
     return _map(out, lambda a, _p: to_tensor(a, device))
+
+
+def state_from_reference(tree: Any, cfg: ModelConfig, *, device):
+    """The reference's train state (``params``, ``opt`` with ``m``, ``v``
+    and ``count``, and ``step``; numpy leaves) as the port's, on
+    ``device``: every float tree fp32 with the pattern unstacked, the
+    counters int32 scalars."""
+
+    def count(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32,
+                            device=device)
+
+    opt = tree["opt"]
+    return {"params": from_reference(tree["params"], cfg, device=device),
+            "opt": {"m": from_reference(opt["m"], cfg, device=device),
+                    "v": from_reference(opt["v"], cfg, device=device),
+                    "count": count(opt["count"])},
+            "step": count(tree["step"])}

@@ -1,0 +1,151 @@
+"""AdamW with global-norm clipping, fp32 states (the port of
+``repro.optim.adamw``).
+
+The states ``m`` and ``v`` are fp32 trees of the parameters' structure
+(the port's: dicts and lists, the pattern unstacked); weight decay
+applies to the leaves with ``ndim >= 2`` in the reference's layout,
+where a pattern position's blocks are stacked along one more dim: so
+every leaf under ``pattern`` of at least one dim decays (its blocks'
+norm scales and biases too), and outside it only matrices and up.
+:func:`update` writes the new
+parameters and states into the tensors it is given and returns them: the
+reference's train loop donates its state to the step, and at full width
+a second copy of the parameters, ``m`` and ``v`` does not fit the card.
+
+On the CPU the arithmetic is what XLA:CPU compiles for the reference's
+jitted update (read from its optimized HLO and machine code, jax 0.9.0,
+x86-64): divisions by constants taken as products with their fp32
+reciprocals, ``mh / (sqrt(vh) + eps)`` taken as ``m / (b1c * (sqrt(v /
+b2c) + eps))``, the C library's ``cosf`` and ``powf``, and the
+multiply-adds LLVM contracts done as one rounding (``layers.fma32``).
+Given the same gradients and states the update then equals the
+reference's bit for bit, except through the global norm: its sum of
+squares is XLA's vectorized reduction, which the port does not follow
+(the norm agrees to a few ulps; a clipped step's scale with it).  On the
+card the same expressions run as torch kernels (``fma32`` is
+``addcmul`` there).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import math
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+@functools.lru_cache(maxsize=None)
+def _libm_powf():
+    fn = L._libm().powf
+    fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float, ctypes.c_float]
+    return fn
+
+
+def _schedule_host(cfg: AdamWConfig, step: int) -> float:
+    """The reference's schedule at one step, in fp32 as XLA:CPU computes
+    it (a host scalar)."""
+    f = np.float32
+    s = f(step)
+    if s < f(cfg.warmup_steps):
+        val = s * f(_f32(1.0 / max(1.0, cfg.warmup_steps)))
+    else:
+        prog = (s + f(-cfg.warmup_steps)) * f(_f32(
+            1.0 / max(1.0, cfg.total_steps - cfg.warmup_steps)))
+        prog = min(f(1.0), max(f(0.0), prog))
+        c = f(L._libm().cosf(float(prog * f(math.pi))))
+        val = L._fma32_host(c + f(1.0),
+                            (1 - cfg.min_lr_ratio) * 0.5, cfg.min_lr_ratio)
+    return float(val * f(cfg.lr))
+
+
+def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
+    """Linear warmup to ``lr``, then a cosine decay to ``min_lr_ratio *
+    lr`` at ``total_steps``: an fp32 scalar tensor (on ``step``'s device
+    when it is a tensor)."""
+    dev = step.device if isinstance(step, torch.Tensor) else None
+    return torch.tensor(_schedule_host(cfg, int(step)), dtype=torch.float32,
+                        device=dev)
+
+
+def init(params) -> Dict[str, Any]:
+    """Zero fp32 ``m`` and ``v`` beside ``params``, and an int32 count."""
+    zeros = functools.partial(tree_map, lambda p: torch.zeros_like(
+        p, dtype=torch.float32))
+    dev = leaves(params)[0].device
+    return {"m": zeros(params), "v": zeros(params),
+            "count": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum, over the leaves in order, of each leaf's fp32 sum
+    of squares."""
+    total = None
+    for g in leaves(tree):
+        sq = torch.sum(g.float() * g.float())
+        total = sq if total is None else total + sq
+    return L.sqrt32(total)
+
+
+@torch.no_grad()
+def update(cfg: AdamWConfig, grads, opt_state, params):
+    """One AdamW step: returns (params, opt_state, {"grad_norm", "lr"}),
+    the parameters and ``m``/``v`` updated in place (see the module
+    docstring), ``count`` a new scalar."""
+    count = int(opt_state["count"]) + 1
+    gnorm = global_norm(grads)
+    dev = gnorm.device
+    scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(
+        gnorm, _f32(1e-9)), 1.0)
+    lr = _schedule_host(cfg, count)
+    f = np.float32
+    b1c = float(f(1) - f(_libm_powf()(cfg.b1, float(count))))
+    b2c = float(f(1) - f(_libm_powf()(cfg.b2, float(count))))
+
+    def const(x):
+        return torch.tensor(_f32(x), dtype=torch.float32, device=dev)
+
+    b1, b2, b1r, b2r = (const(x) for x in
+                        (cfg.b1, cfg.b2, 1 - cfg.b1, 1 - cfg.b2))
+    wd, neg_lr = const(cfg.weight_decay), const(-lr)
+
+    def upd(path, p, g, m, v):
+        gs = g.float() * scale
+        m.copy_(L.fma32(m, b1, gs * b1r))
+        v.copy_(L.fma32(v, b2, (gs * b2r) * gs))
+        step = m / (b1c * (L.sqrt32(v / b2c) + _f32(cfg.eps)))
+        if p.ndim + (path[:1] == ("pattern",)) >= 2:
+            step = L.fma32(p, wd, step)
+        p.copy_(L.fma32(neg_lr, step, p))
+
+    for (path, p), g, m, v in zip(
+            leaves_with_paths(params), leaves(grads), leaves(opt_state["m"]),
+            leaves(opt_state["v"]), strict=True):
+        upd(path, p, g, m, v)
+    new_opt = {"m": opt_state["m"], "v": opt_state["v"],
+               "count": torch.tensor(count, dtype=torch.int32, device=dev)}
+    return params, new_opt, {"grad_norm": gnorm,
+                             "lr": torch.tensor(lr, device=dev)}

@@ -187,6 +187,22 @@ def test_moe_shard_map_falls_back_without_a_mesh():
         MOE.moe_apply_shard_map(p, cfg, x, batch_axes="data", mesh=object())
 
 
+def test_deepseek_exact_add_logits_equal_reference_at_seed_3():
+    """ROADMAP Queue C 14: with exact adds XLA rounds the routed plus
+    shared experts' sum to bf16 before the residual add (under an
+    approximate adder it keeps it in fp32).  DeepSeek-V2's smoke config at
+    seed 3, full mode: the logits equal the reference's bit for bit (rel
+    0.1268 before, past the 0.08 MoE rule)."""
+    from test_torch_lm_serving import port_cfg, reference_run
+    from repro_torch.models import transformer as T
+    tree, toks, _, _, ref_full, ref_aux = reference_run(MLA_ARCH, "off", 3)
+    cfg = port_cfg(MLA_ARCH, "off")
+    params = W.from_reference(tree, cfg, device="cpu")
+    full, _, aux = T.forward(params, cfg, {"tokens": toks[:, :-1]})
+    np.testing.assert_array_equal(f32(full), ref_full)
+    assert abs(float(aux) - ref_aux) <= 1e-6 * abs(ref_aux)
+
+
 # --------------------------------------------------------------- mla ---
 
 def _mla_setup(mode="decompress", seed=5):

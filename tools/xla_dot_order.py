@@ -28,8 +28,9 @@ one column tile though the last tile's width's order fits); with
 to K = 130 and N = 1300 (``--seed``) in place of the grid.
 
 ``--hlo ARCH`` prints every ``dot`` of the reference's compiled full,
-prefill and decode steps of a smoke config, with its operands' shapes:
-the layouts the model's products take (which the port's callers follow).
+prefill, train and decode steps of a smoke config, with its operands'
+shapes: the layouts the model's products take, the backward's included
+(which the port's callers follow).
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/xla_dot_order.py
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/xla_dot_order.py \\
@@ -212,12 +213,15 @@ def smoke_batch(cfg, b, s):
 
 def hlo_dots(arch):
     """Every dot of the reference's compiled steps of ``arch``'s smoke
-    config (haloc_axa residual adds), with its operands' shapes.  An
-    encoder-only config (no decode) lists its full and prefill steps."""
+    config (haloc_axa residual adds), with its operands' shapes: the full
+    forward, prefill, the train step on 2 x 32 tokens (forward, backward
+    and update) and decode.  An encoder-only config (no decode) lists no
+    decode step."""
     from repro.configs import get_smoke_config
     from repro.launch import steps
     from repro.models import transformer as T
     from repro.numerics.approx_ops import make_numerics
+    from repro.optim.adamw import AdamWConfig
     cfg = get_smoke_config(arch).with_approx(
         make_numerics("haloc_axa", "residual"))
     params = jax.jit(T.init_params, static_argnums=1)(jax.random.key(1), cfg)
@@ -227,6 +231,11 @@ def hlo_dots(arch):
         "prefill": (jax.jit(steps.make_prefill_step(cfg, 32)),
                     (params, smoke_batch(cfg, 4, 20))),
     }
+    batch = dict(smoke_batch(cfg, 2, 32),
+                 labels=jnp.zeros((2, 32), jnp.int32))
+    runs["train"] = (jax.jit(steps.make_train_step(cfg, AdamWConfig())),
+                     (steps.init_state(jax.random.key(1), cfg,
+                                       AdamWConfig()), batch))
     if cfg.causal:
         runs["decode"] = (jax.jit(steps.make_decode_step(cfg)),
                           (params, {"tokens": jnp.zeros((4, 1), jnp.int32)},
