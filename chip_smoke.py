@@ -205,7 +205,7 @@ join the ``kernels`` line):
    (a) the path: Qwen3-4B at full width and depth (36 layers, d_model
    2560, 32/8 heads, d_ff 9728, vocab 151936; bf16 matrices from a seeded
    generator on the card), ``make_numerics("haloc_axa", "residual")``,
-   ``generate`` of 4 x (128 + 32) tokens, greedy: 72 ``approx_add``
+   ``generate`` of 4 x (128 + 4) tokens, greedy: 72 ``approx_add``
    launches a forward step and no other kernel, tokens and every step's
    logits bit for bit those of the plain versions on the card; (b)
    prefill + decode against ``forward(mode="full")`` within the
@@ -218,7 +218,7 @@ join the ``kernels`` line):
    exact logits within the rule, every haloc_axa residual add on the card
    equal to the CPU path's on its operands; (d) gemma3-27b at full width
    cut to 8 layers (one pattern repeat and the suffix), batch 2, an
-   1100-token prompt past its 1024 window and 16 decode steps: exact
+   1100-token prompt past its 1024 window and 4 decode steps: exact
    parity within the rule, haloc_axa teacher-forced equal to
    ``generate``; (e) prefill ms, decode ms a step and tokens/s, exact and
    haloc_axa, and a ``torch.profiler`` breakdown of one decode step
@@ -236,8 +236,8 @@ launches join the ``kernels`` line):
    (4, 1, 1024); granite-moe-1b-a400m at its full published config (24
    layers, d_model 1024, 16/8 heads, 32 experts top-8 with d_ff 512,
    vocab 49155 padded to 51200; bf16 weights from a seeded generator on
-   the card), ``generate`` of 4 x (128 + 32) tokens under haloc_axa: 48
-   ``approx_add`` launches a forward step (1536) and no other kernel,
+   the card), ``generate`` of 4 x (128 + 4) tokens under haloc_axa: 48
+   ``approx_add`` launches a forward step (192) and no other kernel,
    tokens and every step's logits bit for bit those of the plain versions
    on the card; with exact adds at capacity factor 8 and one sequence
    chunk, prefill + decode against ``forward(mode="full")`` within the
@@ -248,7 +248,7 @@ launches join the ``kernels`` line):
    (d_model 5120, 128 heads, MLA kv_lora 512 / q_lora 1536 / rope 64,
    160 routed experts top-6 + 2 shared, 8 sequence chunks), depth cut
    from 60 to 3 layers (the dense block and two MoE blocks), ``generate``
-   of 4 x (128 + 8) tokens: 6 launches a step (48), bit for bit against
+   of 4 x (128 + 4) tokens: 6 launches a step (24), bit for bit against
    the plain versions; ``mla_decode``'s absorbed mode against decompress
    with exact adds, teacher-forced, within 0.04; the times.
 
@@ -263,7 +263,7 @@ just before each of its two paths and read just after (their
    1,446,714,368), bf16 weights from a seeded generator on the card with
    ``lam``, ``a_log`` and ``dt_bias`` fp32: ``approx_add`` against its
    plain version at (4, 128 | 600, d_model) and (4, 1, d_model); (a)
-   ``generate`` of 4 x (128 + 32) and 4 x (600 + 32) tokens (600: two
+   ``generate`` of 4 x (128 + 4) and 4 x (600 + 4) tokens (600: two
    chunks and an 88-token tail, ``ssd_apply``'s remainder path) under
    haloc_axa: 76 and 48 ``approx_add`` launches a forward step and no
    other kernel, tokens and every step's logits bit for bit those of the
@@ -279,7 +279,7 @@ just before each of its two paths and read just after (their
    idle share and device time by kernel class and inside the mixers,
    the bytes bound, and the CPU path's ``exp`` emulation timed on the
    card; (e) recurrentgemma-9b at batch 2 with a 2100-token prompt past
-   its window and 16 decode steps: exact parity within the rule,
+   its window and 4 decode steps: exact parity within the rule,
    haloc_axa teacher-forced equal to ``generate``.
 
 The cross attention and audio slice adds phase 4j, at full width, its
@@ -292,7 +292,7 @@ counts set to 0 just before each of its two paths and read just after
    4096) and (4, 1500 | 1, 1280); (a) llama-3.2-vision-11b at full width
    and depth (40 layers: 32 self, rope base 500000, 8 gated cross
    attention; d_model 4096, 32/8 heads x 128, d_ff 14336, vocab 128256;
-   9,791,936,528 parameters), ``generate`` of 4 x (128 + 32) tokens with
+   9,791,936,528 parameters), ``generate`` of 4 x (128 + 4) tokens with
    a (4, 1601, 4096) vision input under haloc_axa: 80 ``approx_add``
    launches a forward step and no other kernel, tokens and every step's
    logits bit for bit those of the plain versions on the card; (b) with
@@ -351,6 +351,29 @@ launches join the ``kernels`` line), under deterministic algorithms
    CPU half (``chip_smoke.py --train-cpu-half``, a process of its own)
    and (g) start after the build (phase 2b) and run beside phases 3-4c,
    which time nothing; they are joined before phase 4d.
+
+The sharding slice adds phase 4l, its counts set to 0 just before each
+of its two paths and read just after (their ``approx_add`` launches join
+the ``kernels`` line), on a (1, 1) ("data", "model") ``DeviceMesh`` over
+one NCCL rank (a ``HashStore``), under deterministic algorithms:
+
+4l. (a) Qwen3-4B at full width cut to 4 layers (1,181,638,144 fp32
+   parameters): the placed state's bytes on the card against the dry
+   run's per-device state bytes (``launch.dryrun.state_bytes``, within
+   the caching allocator's rounding); 3 steps of ``train_loop.run(mesh=
+   ...)`` on 4 x 128 tokens under haloc_axa: 8 ``approx_add`` launches a
+   step and no other kernel, the losses and every leaf of the state
+   (parameters, m, v, count, step) equal to the plain version's on the
+   sharded loop and, exact and haloc_axa, to the unsharded loop's, bit
+   for bit; the sharded step's ms, launches and idle share; (b)
+   granite-moe-1b-a400m at its full config, ``use_shard_map=True``: the
+   prefill step on the mesh of 4 x 128 tokens under haloc_axa, counted
+   (48 launches), its last logits against ``moe_apply``'s (haloc_axa and
+   exact, the MoE rule 0.08), and cut to 2 layers the card against the
+   CPU path (exact, 0.08); (c) ``python -m torch.distributed.run
+   --standalone --nproc-per-node 1 -m repro_torch.launch.train --arch
+   qwen3-4b --smoke --steps 2`` exits 0 and prints its line (started after the
+   build, beside phases 3-4c, with phase 4k's (g)).
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -2842,14 +2865,14 @@ def integrity_phase(torch, np, dev, counts, card, a8, b8, gbatch, batch):
 #: from a seeded generator on the card, the residual adds through
 #: haloc_axa n16m8k4 (``make_numerics("haloc_axa", "residual")``).
 LM_ARCH = "qwen3-4b"
-LM_BATCH, LM_PROMPT, LM_NEW = 4, 128, 32
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 128, 4
 #: The card-against-CPU case: the same model cut to its first two layers.
-LM_CPU_LAYERS, LM_CPU_NEW = 2, 8
+LM_CPU_LAYERS, LM_CPU_NEW = 2, 2
 #: The window case: gemma3-27b at full width cut to one pattern repeat
 #: and the suffix (8 layers: 5 local, 1 global, 2 local), a prompt longer
 #: than its 1024-token window.
 LM_WINDOW_ARCH = "gemma3-27b"
-LM_WINDOW_BATCH, LM_WINDOW_PROMPT, LM_WINDOW_NEW = 2, 1100, 16
+LM_WINDOW_BATCH, LM_WINDOW_PROMPT, LM_WINDOW_NEW = 2, 1100, 4
 #: The reference's parity rule (``tests/test_models_smoke.py``):
 #: max |d| / max(1, max |logit|).
 LM_TOL = 0.04
@@ -2857,7 +2880,7 @@ LM_TOL = 0.04
 LM_PATH_KERNELS = ("approx_add",)
 #: Decode steps timed after a prefill, then steps profiled (the first
 #: three of them timed unprofiled).
-LM_TIMED_STEPS, LM_PROFILED_STEPS = 16, 6
+LM_TIMED_STEPS, LM_PROFILED_STEPS = 4, 6
 #: cuBLAS kernels (bf16 GEMMs and their split-K reductions), by name.
 MATMUL_KERNEL_MARKS = ("gemm", "nvjet", "xmma", "cutlass", "splitK")
 
@@ -3219,8 +3242,8 @@ def lm_phase(torch, np, dev, counts, card, errs):
 #: The MoE slice's models: granite-moe-1b-a400m at its full published
 #: config, and DeepSeek-V2 at full width cut to its dense block and two
 #: MoE blocks (60 layers do not fit one card).
-MOE_ARCH, MOE_NEW = "granite-moe-1b-a400m", 32
-MLA_ARCH, MLA_REPEATS, MLA_NEW = "deepseek-v2-236b", 2, 8
+MOE_ARCH, MOE_NEW = "granite-moe-1b-a400m", 4
+MLA_ARCH, MLA_REPEATS, MLA_NEW = "deepseek-v2-236b", 2, 4
 #: The reference's parity rule with MoE layers, at capacity factor 8 and
 #: one sequence chunk (``tests/test_models_smoke.py``).
 MOE_TOL = 0.08
@@ -3479,15 +3502,15 @@ def moe_phase(torch, np, dev, counts, card, errs):
 #: tail: ``ssd_apply``'s remainder path at the published chunk).
 REC_MODELS = (("recurrentgemma-9b", 128, 9_627_095_040),
               ("mamba2-1.3b", 600, 1_446_714_368))
-REC_NEW = 32
+REC_NEW = 4
 #: recurrentgemma's window case: a prompt past the 2048 window.
-REC_WINDOW_BATCH, REC_WINDOW_PROMPT, REC_WINDOW_NEW = 2, 2100, 16
+REC_WINDOW_BATCH, REC_WINDOW_PROMPT, REC_WINDOW_NEW = 2, 2100, 4
 #: The CPU case: the model cut to its first blocks (recurrentgemma one
 #: pattern repeat, rec/rec/attn; mamba2 two layers), prompts of these
-#: lengths (mamba2's: a 256-token chunk and a 44-token tail), 8 new
+#: lengths (mamba2's: a 256-token chunk and a 44-token tail), 2 new
 #: tokens.
 REC_CPU_PROMPT = {"recurrentgemma-9b": 128, "mamba2-1.3b": 300}
-REC_CPU_NEW = 8
+REC_CPU_NEW = 2
 
 
 def recurrent_cut(cfg, params, blocks=None):
@@ -3809,7 +3832,7 @@ def recurrent_phase(torch, np, dev, counts, card, errs):
 #: width and depth (48 encoder layers), 4 x 1500 frames of 512 features
 #: (30 s of audio at 50 Hz: two KV chunks of 1024, the second a 476-frame
 #: tail).
-VIS_ARCH, VIS_PARAMS, VIS_NEW = "llama-3.2-vision-11b", 9_791_936_528, 32
+VIS_ARCH, VIS_PARAMS, VIS_NEW = "llama-3.2-vision-11b", 9_791_936_528, 4
 AUD_ARCH, AUD_PARAMS, AUD_FRAMES = "hubert-xlarge", 945_451_520, 1500
 #: Depths (layers) the exact prefill/decode parity is read at: full depth
 #: (gated; the printed 5 and 20 were cut when phase 4k joined the run:
@@ -4463,9 +4486,13 @@ def start_train_background(torch, dev):
             for k in ("out", "err")]
     launcher = subprocess.Popen([sys.executable] + TRAIN_LAUNCHER, cwd=ROOT,
                                 env=env, stdout=logs[0], stderr=logs[1])
+    slogs = [open(out_dir / f"shard_launcher.{k}", "w")
+             for k in ("out", "err")]
+    sharded = subprocess.Popen([sys.executable] + SHARD_LAUNCHER, cwd=ROOT,
+                               env=env, stdout=slogs[0], stderr=slogs[1])
 
     def kill():
-        for proc in (half, launcher):
+        for proc in (half, launcher, sharded):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -4490,7 +4517,8 @@ def start_train_background(torch, dev):
         f"parameters drawn on the CPU); each of the card's {n_adds} "
         f"haloc_axa residual adds equals the CPU path's on its operands, "
         f"bit for bit")
-    return {"half": half, "launcher": launcher, "logs": logs, "card": card}
+    return {"half": half, "launcher": launcher, "logs": logs + slogs,
+            "sharded": sharded, "card": card}
 
 
 def finish_train_background(torch, dev, bg):
@@ -4508,6 +4536,7 @@ def finish_train_background(torch, dev, bg):
         fail(f"(c)'s CPU half exited {half.returncode}: {e!r}")
     check(half.wait() == 0, f"(c)'s CPU half exited {half.returncode}")
     launcher.wait(timeout=600)
+    bg["sharded"].wait(timeout=600)
     waited = time.perf_counter() - t0
     for f in bg["logs"]:
         f.close()
@@ -4550,6 +4579,16 @@ def finish_train_background(torch, dev, bg):
           f" {out[-2000:]} "
           f"{(ROOT / 'build' / 'train_launcher.err').read_text()[-2000:]}")
     log(f"  phase 4k (g) python {' '.join(TRAIN_LAUNCHER)} (beside phases "
+        f"3-4c): exit 0: {lines[-1]}")
+    sharded = bg["sharded"]
+    out = (ROOT / "build" / "shard_launcher.out").read_text().strip()
+    lines = out.splitlines()
+    check(sharded.returncode == 0 and lines
+          and lines[-1].startswith("qwen3-4b-smoke: loss "),
+          f"python {' '.join(SHARD_LAUNCHER)} exited {sharded.returncode}: "
+          f"{out[-2000:]} "
+          f"{(ROOT / 'build' / 'shard_launcher.err').read_text()[-2000:]}")
+    log(f"  phase 4l (c) python {' '.join(SHARD_LAUNCHER)} (beside phases "
         f"3-4c): exit 0: {lines[-1]}")
 
 
@@ -4693,6 +4732,262 @@ def train_phase(torch, np, dev, counts, card, errs):
             total[k] = total.get(k, 0) + c
     finally:
         torch.use_deterministic_algorithms(False)
+    return total
+
+
+# ------------------------------------------------------------ phase 4l --
+
+#: Phase 4l's cells: Qwen3-4B at full width cut to SHARD_LAYERS layers,
+#: trained SHARD_STEPS steps on TRAIN_BATCH x TRAIN_SEQ tokens through the
+#: train loop on a (1, 1) mesh; granite-moe-1b-a400m's expert-parallel
+#: prefill at its full config (and at SHARD_MOE_CPU_LAYERS layers against
+#: the CPU path).
+SHARD_LAYERS, SHARD_STEPS, SHARD_MOE_CPU_LAYERS = 4, 3, 2
+#: The caching allocator hands a tensor a block of at least its bytes: a
+#: large one rounded up to 2 MiB at most.
+ALLOC_ROUND = 2 << 20
+#: (c): the launcher under torch.distributed.run, one rank; --standalone
+#: takes a free port for the rendezvous (the default 29500 may be taken).
+SHARD_LAUNCHER = ["-m", "torch.distributed.run", "--standalone",
+                  "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+                  "--arch", "qwen3-4b", "--smoke", "--steps", "2"]
+
+
+def one_rank_mesh(torch):
+    """A process group of this one process over NCCL (a ``HashStore``:
+    no port) and the (1, 1) ("data", "model") mesh over it."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    mesh = make_host_mesh(1, 1)
+    check(hasattr(mesh, "get_group"),
+          f"make_host_mesh(1, 1) over one NCCL rank gave {mesh!r}")
+    return mesh
+
+
+def loop_run(torch, cfg, opt, mesh, dev):
+    """``train_loop.run`` for SHARD_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
+    tokens (on ``mesh`` when one is given); returns (the state, the
+    losses)."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.runtime.train_loop import TrainLoopConfig, run
+    out = run(cfg, opt, DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH),
+              TrainLoopConfig(total_steps=SHARD_STEPS, log_every=1),
+              mesh=mesh, device=dev)
+    return out["state"], [h["loss"] for h in out["history"]]
+
+
+def check_same_state(torch, a, b, what):
+    """Every leaf of two train states (parameters, m, v, count, step)
+    equal, bit for bit (a sharded state's gathered)."""
+    from repro_torch.sharding import rules as R
+    from repro_torch.tree import leaves
+    la, lb = leaves(a), leaves(b)
+    check(len(la) == len(lb), f"{what}: {len(la)} leaves against {len(lb)}")
+    for i, (x, y) in enumerate(zip(la, lb)):
+        check(torch.equal(R.full_tensor(x), R.full_tensor(y)),
+              f"{what}: state leaf {i} differs")
+    return len(la)
+
+
+def sharded_step_times(torch, cfg, opt, mesh, dev, card, reps=3):
+    """(a)'s times: the sharded step's wall ms (median of ``reps`` after
+    one untimed), a profiled step's launches and idle share."""
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.launch import steps
+    from repro_torch.sharding import rules as R
+    state = R.place_state(steps.init_state(0, cfg, opt, device=dev), mesh)
+    step = steps.make_train_step(cfg, opt, batch_axes=R.batch_axes(mesh),
+                                 mesh=mesh)
+    batch = synthetic_batch(cfg, DataConfig(seq_len=TRAIN_SEQ,
+                                            global_batch=TRAIN_BATCH), 0)
+    ms = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        float(met["loss"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(ms[1:])
+    prof = kernel_classes(device_times(torch, lambda: step(state, batch), 1))
+    line = step_profile_line(prof, step_ms) if prof else \
+        "the profiler recorded no device time (not measured)"
+    return step_ms, line
+
+
+def sharded_train_case(torch, np, dev, counts, card, mesh):
+    """(a): Qwen3-4B cut to SHARD_LAYERS layers through the train loop on
+    the (1, 1) mesh, exact and haloc_axa, against the unsharded loop and
+    the plain version; the placed state's bytes against the dry run's.
+    Returns the counted launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import rules as R
+    from repro_torch.tree import leaves
+    cut = dataclasses.replace(get_config(TRAIN_ARCH), repeats=SHARD_LAYERS)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    placed = R.place_state(steps.init_state(0, cut, opt, device=dev), mesh)
+    torch.cuda.synchronize()
+    got = torch.cuda.memory_allocated(dev) - base
+    want = dryrun.state_bytes(cut, mesh)
+    n = len(leaves(placed))
+    check(0 <= got - want <= ALLOC_ROUND * n,
+          f"the placed state holds {got} bytes on the card, the dry run "
+          f"says {want} (within {ALLOC_ROUND >> 20} MiB a leaf, {n} "
+          f"leaves)")
+    del placed
+    log(f"  (a) {TRAIN_ARCH} at full width cut to {SHARD_LAYERS} layers: the "
+        f"placed state allocates {got} bytes on the card; the dry run's "
+        f"per-device state bytes on the (1, 1) mesh {want}, {got - want} "
+        f"fewer (the caching allocator rounds each of the {n} leaves' "
+        f"blocks up, by under {ALLOC_ROUND >> 20} MiB)")
+    hal = cut.with_approx(lm_numerics("haloc_axa", "cuda", dev))
+    plain = cut.with_approx(lm_numerics("haloc_axa", "torch", dev))
+    (h_state, h_loss), launches = run_counted(
+        torch, counts, LM_PATH_KERNELS,
+        lambda: loop_run(torch, hal, opt, mesh, dev),
+        f"sharded train loop ({SHARD_STEPS} steps, haloc_axa)")
+    per_step = 2 * cut.num_layers
+    check(launches["approx_add"] == per_step * SHARD_STEPS,
+          f"the sharded train loop launched approx_add "
+          f"{launches['approx_add']} times in {SHARD_STEPS} steps, not "
+          f"{per_step} a step")
+    check(all(c == 0 for k, c in launches.items() if k != "approx_add"),
+          f"the sharded train loop launched other kernels: {launches}")
+    check(all(np.isfinite(x) for x in h_loss), f"haloc_axa losses {h_loss}")
+    p_state, p_loss = loop_run(torch, plain, opt, mesh, dev)
+    check(p_loss == h_loss, f"haloc_axa: the kernel's losses {h_loss} "
+          f"against the plain version's {p_loss}")
+    check_same_state(torch, h_state, p_state, "the kernel against the plain "
+                     "version on the sharded loop")
+    del p_state
+    losses = {"haloc_axa": (h_state, h_loss), "exact": None}
+    for label, cfg in (("haloc_axa", hal), ("exact", cut)):
+        state, loss = losses[label] or loop_run(torch, cfg, opt, mesh, dev)
+        u_state, u_loss = loop_run(torch, cfg, opt, None, dev)
+        check(loss == u_loss, f"{label}: the sharded loop's losses {loss} "
+              f"against the unsharded loop's {u_loss}")
+        nleaves = check_same_state(torch, state, u_state,
+                                   f"{label} sharded against unsharded")
+        losses[label] = loss
+        del state, u_state
+        torch.cuda.empty_cache()
+    del h_state
+    log(f"  (a) train_loop.run(mesh=(1, 1)) {SHARD_STEPS} steps on "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, deterministic algorithms: "
+        f"{per_step} approx_add launches a step; losses {losses}; the loss "
+        f"and all {nleaves} leaves of the state (parameters, m, v, count, "
+        f"step) equal the unsharded loop's bit for bit, exact and "
+        f"haloc_axa; the kernel's sharded run equals the plain version's")
+    for label, cfg in (("haloc_axa", hal), ("exact", cut)):
+        step_ms, line = sharded_step_times(torch, cfg, opt, mesh, dev, card)
+        log(f"  (a) {label} sharded step: {step_ms:.3f} ms (wall, median of "
+            f"3; {card}); a profiled step: {line}")
+        torch.cuda.empty_cache()
+    return launches
+
+
+def ep_prefill(torch, cfg, params, prompt, mesh):
+    from repro_torch.launch import steps
+    from repro_torch.sharding import rules as R
+    step = steps.make_prefill_step(cfg, TRAIN_SEQ,
+                                   batch_axes=R.batch_axes(mesh), mesh=mesh)
+    with torch.no_grad():
+        return step(params, prompt)[0]
+
+
+def ep_prefill_case(torch, dev, counts, card, mesh):
+    """(b): granite-moe-1b-a400m's expert-parallel prefill
+    (``use_shard_map=True``) on the (1, 1) mesh against ``moe_apply``'s,
+    at its full config, counted; at SHARD_MOE_CPU_LAYERS layers the card
+    against the CPU path.  Returns the counted launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules as R
+    from repro_torch.tree import tree_map
+    base = get_config(MOE_ARCH)
+    ep = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, use_shard_map=True))
+    hal_ep = ep.with_approx(lm_numerics("haloc_axa", "cuda", dev))
+    hal = base.with_approx(lm_numerics("haloc_axa", "cuda", dev))
+    params = T.init_params(0, base, device=dev, dtype=torch.bfloat16)
+    placed = R.place(params, R.tree_shardings(params, mesh, R.PARAM_RULES),
+                     mesh)
+    prompt = lm_prompt(torch, base, TRAIN_BATCH, TRAIN_SEQ, dev, 7)
+    got, launches = run_counted(
+        torch, counts, LM_PATH_KERNELS,
+        lambda: ep_prefill(torch, hal_ep, placed, prompt, mesh),
+        f"{MOE_ARCH} expert-parallel prefill")
+    check(launches["approx_add"] == 2 * base.num_layers,
+          f"the expert-parallel prefill launched approx_add "
+          f"{launches['approx_add']} times, not {2 * base.num_layers}")
+    want = ep_prefill(torch, hal, placed, prompt, mesh)
+    rel = lm_rel(torch, got, want)
+    eex = lm_rel(torch, ep_prefill(torch, ep, placed, prompt, mesh),
+                 ep_prefill(torch, base, placed, prompt, mesh))
+    check(max(rel, eex) < MOE_TOL,
+          f"{MOE_ARCH}: the expert-parallel prefill's logits {rel:.4f} "
+          f"(haloc_axa) / {eex:.4f} (exact) from moe_apply's (rule "
+          f"{MOE_TOL})")
+    del params, placed
+    torch.cuda.empty_cache()
+    log(f"  (b) {MOE_ARCH} at its full config ({base.num_layers} layers, "
+        f"{base.moe.num_experts} experts), use_shard_map=True on the (1, 1) "
+        f"mesh, prefill of {TRAIN_BATCH} x {TRAIN_SEQ}: "
+        f"{2 * base.num_layers} approx_add launches; last logits "
+        f"{rel:.6f} (haloc_axa) and {eex:.6f} (exact) from moe_apply's "
+        f"(rule {MOE_TOL})")
+    cut = dataclasses.replace(ep, repeats=SHARD_MOE_CPU_LAYERS)
+    cpu_params = T.init_params(1, cut, device="cpu", dtype=torch.bfloat16)
+    card_params = R.place(tree_map(lambda t: t.to(dev), cpu_params),
+                          R.tree_shardings(cpu_params, mesh, R.PARAM_RULES),
+                          mesh)
+    cpu_prompt = {"tokens": prompt["tokens"].cpu()}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu_logits = T.forward(cpu_params, cut, cpu_prompt,
+                               mode="prefill", cache=T.init_cache(
+                                   cut, TRAIN_BATCH, TRAIN_SEQ,
+                                   device="cpu"))[0]
+    cpu_s = time.perf_counter() - t0
+    card_logits = ep_prefill(torch, cut, card_params, prompt, mesh)
+    crel = lm_rel(torch, card_logits, cpu_logits)
+    check(crel < MOE_TOL,
+          f"{MOE_ARCH} cut to {SHARD_MOE_CPU_LAYERS} layers, exact: the "
+          f"card's expert-parallel prefill {crel:.4f} from the CPU path's")
+    log(f"  (b) cut to {SHARD_MOE_CPU_LAYERS} layers (parameters drawn on "
+        f"the CPU), exact adds: the card's expert-parallel prefill on the "
+        f"mesh against the CPU path's ({cpu_s:.1f} s there): last logits "
+        f"{crel:.6f} apart (rule {MOE_TOL})")
+    return launches
+
+
+def sharding_phase(torch, np, dev, counts, card):
+    """Phase 4l: sharding on a one-rank DeviceMesh (the train loop on a
+    (1, 1) mesh, the expert-parallel MoE); returns the counted launches.
+    The process group is torn down at the end."""
+    import torch.distributed as dist
+    mesh = one_rank_mesh(torch)
+    total = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.perf_counter()
+        for launches in (sharded_train_case(torch, np, dev, counts, card,
+                                            mesh),
+                         ep_prefill_case(torch, dev, counts, card, mesh)):
+            for k, c in launches.items():
+                total[k] = total.get(k, 0) + c
+        log(f"  phase 4l's (a) and (b) took {time.perf_counter() - t0:.1f} s")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
     return total
 
 
@@ -5632,6 +5927,15 @@ def main():
     for name in LM_PATH_KERNELS:
         launches[name] += k_launches[name]
     log(f"  phase 4k took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 4l: sharding on a one-rank DeviceMesh (Qwen3-4B cut to "
+        f"{SHARD_LAYERS} layers through the train loop, granite-moe-1b-a400m"
+        f"'s expert-parallel prefill)")
+    t0 = time.perf_counter()
+    s_launches = sharding_phase(torch, np, dev, counts, card)
+    for name in LM_PATH_KERNELS:
+        launches[name] += s_launches[name]
+    log(f"  phase 4l took {time.perf_counter() - t0:.1f} s")
 
     log("phase 5: times (CUDA events, median)")
     int32_ops_per_s = int32_rate(torch, dev)

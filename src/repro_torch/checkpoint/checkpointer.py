@@ -11,7 +11,13 @@
   the call returns, so the caller may go on updating the state's tensors
   in place.
 - restore(): verifies every hash (``IOError`` on a mismatch) and loads
-  the leaves into the structure of ``like`` on the device given.
+  the leaves into the structure of ``like`` on the device given; with
+  ``shardings`` (a tree of specs) and ``mesh`` it places each onto the
+  current mesh (this rank's shard in a DTensor), which may differ from
+  the saving job's: the reference's resharding restore.
+- a sharded state (DTensor leaves) is saved as full leaves, as the
+  reference's ``device_get`` gives them: every rank gathers each leaf
+  (the call is collective) and rank 0 alone writes.
 - keep policy: the newest ``keep`` checkpoints are retained.
 """
 
@@ -30,6 +36,7 @@ import torch
 
 from repro_torch.ioutil import atomic_replace_dir, sha256_bytes, sha256_file
 from repro_torch.models.transformer import resolve_device
+from repro_torch.sharding import rules as R
 from repro_torch.tree import leaves, unflatten
 
 
@@ -40,7 +47,7 @@ def _leaf_name(i: int) -> str:
 def _to_host(t) -> np.ndarray:
     """A host copy of ``t`` (a copy on the CPU too: the caller may
     update ``t`` in place while an async save writes)."""
-    t = torch.as_tensor(t).detach()
+    t = R.full_tensor(torch.as_tensor(t)).detach()
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
     return t.to("cpu", copy=True).numpy()
@@ -53,6 +60,15 @@ def _from_host(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
     return t.to(device)
 
 
+def _writer(flat) -> bool:
+    """Whether this process writes a state: rank 0 of a sharded state's
+    process group, any process for a plain one."""
+    if not any(R.is_dtensor(t) for t in flat):
+        return True
+    import torch.distributed as dist
+    return dist.get_rank() == 0
+
+
 class Checkpointer:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -62,12 +78,16 @@ class Checkpointer:
 
     # ------------------------------------------------------------- save --
     def save(self, step: int, state: Any, wait: bool = True):
-        """Serialize ``state`` at ``step``.  Set wait=False for async."""
+        """Serialize ``state`` at ``step``.  Set wait=False for async.
+        A sharded state: every rank calls it (the leaves are gathered),
+        rank 0 writes."""
         self.wait()  # one in-flight async save at a time
         flat = leaves(state)
         dtypes = [str(torch.as_tensor(t).dtype).replace("torch.", "")
                   for t in flat]
         host = [_to_host(t) for t in flat]
+        if not _writer(flat):
+            return
 
         def _do():
             tmp = os.path.join(self.dir, f".tmp_step_{step}_{os.getpid()}")
@@ -111,11 +131,16 @@ class Checkpointer:
         return max(steps) if steps else None
 
     def restore(self, like: Any, step: Optional[int] = None,
-                device=None) -> Any:
+                device=None, shardings: Any = None, mesh=None) -> Any:
         """The checkpoint at ``step`` (the newest when ``None``) in the
         structure of ``like`` (any tree of that structure, e.g. one on the
-        meta device), its tensors on ``device`` (``None``: the card)."""
-        dev = resolve_device(device)
+        meta device), its tensors on ``device`` (``None``: the card; the
+        mesh's device with one).  ``shardings``: a tree of specs (a
+        ``None`` spec: a plain tensor), placed onto ``mesh``
+        (:func:`repro_torch.sharding.rules.place`); every rank reads
+        every leaf and keeps its shard."""
+        dev = R.mesh_device(mesh) if mesh is not None \
+            else resolve_device(device)
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -138,7 +163,10 @@ class Checkpointer:
                 raise IOError(f"integrity failure in {path}")
             arr = np.load(io.BytesIO(raw), allow_pickle=False)
             out.append(_from_host(arr, meta["dtype"], dev))
-        return unflatten(like, out)
+        tree = unflatten(like, out)
+        if shardings is not None:
+            tree = R.place(tree, shardings, mesh)
+        return tree
 
     def _gc(self):
         steps = sorted(

@@ -1,0 +1,353 @@
+"""The dry run on the meta device: does a cell fit, and what does its
+sharded step move (the port of ``repro.launch.dryrun``).
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+    PYTHONPATH=src python -m repro_torch.launch.dryrun \\
+        --arch qwen3-4b --shape train_4k --mesh multi
+
+For one (arch, shape) cell on the reference's production meshes
+(``single``: (16, 16) ("data", "model"); ``multi``: (2, 16, 16) ("pod",
+"data", "model")) it builds the step's inputs on the meta device (no
+allocation), places them with the sharding rules on the abstract mesh
+(no 256 or 512 ranks are needed) and writes a record:
+
+- ``params_total``, ``params_active`` (the reference's
+  ``count_params``/``active_param_count``), ``model_flops`` (6 or 2 x
+  active parameters x tokens), ``tokens``, ``seq``, ``devices``;
+- ``memory``: the per-device bytes of the parameters, the optimizer
+  state, the cache and the batch under the rules' placements, and
+  ``argument_size_in_bytes``, their sum over the step's arguments (the
+  reference's compiled ``memory_analysis`` field of that name);
+- ``collectives``: the port's own plan, the all-gathers, reduce-scatters
+  and all-reduces its sharded step issues, each with its count and the
+  bytes of its results on one device (:func:`collective_plan`).
+
+The reference's HLO FLOP and collective figures (``launch/hlo_cost.py``)
+have no counterpart: torch produces no HLO.  Cells run in this process
+(there is no device count to isolate), in a few seconds all.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import os
+import sys
+import time
+import traceback
+from typing import Dict
+
+from repro_torch.models.moe import EXPERT_LEAVES
+from repro_torch.sharding import rules as R
+from repro_torch.tree import leaves_with_paths
+
+COLLECTIVES = ("all-gather", "reduce-scatter", "all-reduce")
+
+
+def count_params(tree) -> int:
+    return sum(t.numel() for _, t in leaves_with_paths(tree))
+
+
+def active_param_count(cfg, params_tree) -> int:
+    """Total params minus the inactive expert fraction (MoE), by the
+    reference's rule: a leaf under ``mlp`` and ``wi``/``wg``/``wo`` with
+    at least three dims in the reference's stacked layout (a pattern
+    leaf has one more there) counts ``(1 - k / E)`` of its size, rounded
+    down per stacked leaf."""
+    total = count_params(params_tree)
+    if cfg.moe is None:
+        return total
+    frac = 1.0 - cfg.moe.experts_per_token / cfg.moe.num_experts
+    stacked: Dict[tuple, list] = {}
+    for path, leaf in leaves_with_paths(params_tree):
+        names = R.path_names(path)
+        pattern = path[0] == "pattern"
+        if "mlp" in names and any(n in ("wi", "wg", "wo") for n in names) \
+                and leaf.ndim + pattern >= 3:
+            # one reference leaf: the pattern position and the path in
+            # the block, the repeat index dropped
+            key = (path[:2] + path[3:]) if pattern else path
+            stacked.setdefault(key, []).append(leaf.numel())
+    return total - sum(int(float(sum(n)) * frac) for n in stacked.values())
+
+
+def _spec_axes(spec):
+    return [a for entry in spec for a in R._axes(entry)]
+
+
+def _plan_add(plan, op, nbytes, count=1):
+    rec = plan[op]
+    rec["count"] += count
+    rec["bytes"] += nbytes * count
+
+
+def gather_plan(plan, leaf, spec, mesh, times=1, keep=()):
+    """A leaf's gather into its full tensor (or, over the mesh dims in
+    ``keep``, its shard): one all-gather a sharded mesh dim, the last
+    mesh dim first, each result the leaf's shard times the dims gathered
+    so far."""
+    sizes = R.mesh_shape(mesh)
+    size = R.shard_bytes(leaf, spec, mesh)
+    for a in reversed([a for a in sizes if a in _spec_axes(spec)
+                       and a not in keep]):
+        if sizes[a] > 1:
+            size *= sizes[a]
+            _plan_add(plan, "all-gather", size, times)
+
+
+def grad_plan(plan, leaf, spec, mesh, batch, times=1, keep=()):
+    """A leaf's gradient summed over the batch axes and cut to its
+    placement: a reduce-scatter on a batch dim the leaf is sharded on
+    (its result the shard over that dim and those in ``keep``), an
+    all-reduce on one it is replicated on."""
+    sizes = R.mesh_shape(mesh)
+    nbytes = leaf.numel() * leaf.element_size()
+    for a in keep:
+        if a in _spec_axes(spec):
+            nbytes //= sizes[a]
+    for a in batch:
+        if sizes[a] == 1:
+            continue
+        if a in _spec_axes(spec):
+            nbytes //= sizes[a]
+            _plan_add(plan, "reduce-scatter", nbytes, times)
+        else:
+            _plan_add(plan, "all-reduce", nbytes, times)
+
+
+def collective_plan(cfg, kind, mesh, params, specs, batch_specs, seq,
+                    microbatches=1) -> dict:
+    """The collectives of one step of the port's sharded path, per
+    device: the parameters' gathers (each microbatch; the expert-parallel
+    MoE's expert matrices over the mesh dims but "model" only), in
+    training the gradients' reductions and AdamW's norm, the loss's
+    mean, the MoE layers' load-balancing sums and expert-parallel
+    all-reduces, and the logits' gather at prefill and decode.
+    ``tests/test_torch_sharding.py`` counts what the step issues on a
+    (2, 2) mesh of gloo ranks against it."""
+    sizes = R.mesh_shape(mesh)
+    ba = R.batch_axes(mesh) or ()
+    rows = next(iter(batch_specs.values())).shape[0]
+    split = rows % R.batch_size(mesh, ba) == 0
+    shards = R.batch_size(mesh, ba) if split else 1
+    axes = ba if split and shards > 1 else ()
+    local_rows = rows // shards
+    plan = {op: {"count": 0, "bytes": 0} for op in COLLECTIVES}
+    m = sizes.get("model", 1)
+    mc = cfg.moe
+    ep = (mc is not None and mc.use_shard_map and kind != "decode"
+          and seq > 1 and split and bool(ba) and "model" in sizes
+          and mc.num_experts % m == 0)
+    flat = [(t, spec, ("model",) if ep and path[-2] == "mlp"
+             and path[-1] in EXPERT_LEAVES else ())
+            for (path, t), spec in zip(leaves_with_paths(params),
+                                       R.spec_leaves(specs))]
+    times = microbatches if kind == "train" else 1
+    for leaf, spec, keep in flat:
+        gather_plan(plan, leaf, spec, mesh, times, keep)
+    if kind == "train":
+        for leaf, spec, keep in flat:
+            grad_plan(plan, leaf, spec, mesh, axes, times, keep)
+        for a in sizes:   # AdamW's global norm
+            if sizes[a] > 1 and any(a in _spec_axes(s) for _, s, _ in flat):
+                _plan_add(plan, "all-reduce", 4 * len(flat))
+        if axes:   # the loss, ce and aux's means
+            _plan_add(plan, "all-reduce", 12 * len(axes), times)
+    moe_blocks = sum(s.mlp == "moe" for s in cfg.all_blocks())
+    if moe_blocks:
+        s = 1 if kind == "decode" else seq
+        chunks = mc.seq_chunks if s > 1 and mc.seq_chunks > 1 \
+            and s % mc.seq_chunks == 0 else 1
+        e4 = mc.num_experts * 4
+        if kind == "decode" and axes:
+            for a in axes:   # the batch's rows gathered for one dispatch
+                _plan_add(plan, "all-gather", rows * cfg.d_model * 2,
+                          moe_blocks)
+        elif axes:
+            # the aux: the mean probabilities and the counts (and the
+            # probabilities' cotangent in training), each chunk
+            n = (3 if kind == "train" else 2) * chunks * moe_blocks * times
+            for a in axes:
+                _plan_add(plan, "all-reduce", e4, n)
+        if ep and m > 1:
+            act = local_rows // (microbatches if kind == "train" else 1) \
+                * s * cfg.d_model * 2
+            _plan_add(plan, "all-reduce", act, moe_blocks * times)
+            if kind == "train":   # x's and the router's cotangents
+                _plan_add(plan, "all-reduce", act, moe_blocks * times)
+                _plan_add(plan, "all-reduce", cfg.d_model * e4,
+                          moe_blocks * times)
+    if kind != "train" and axes:
+        positions = 1 if cfg.causal else seq
+        for a in reversed(axes):
+            _plan_add(plan, "all-gather",
+                      rows * positions * cfg.padded_vocab * 2)
+    return plan
+
+
+def state_bytes(cfg, mesh) -> int:
+    """Per-device bytes of the train state (parameters, m, v, count and
+    step) placed by ``state_shardings`` on ``mesh``."""
+    from repro_torch.launch.steps import state_shapes
+    from repro_torch.optim.adamw import AdamWConfig
+    st = state_shapes(cfg, AdamWConfig())
+    return R.tree_shard_bytes(st, R.state_shardings(st, mesh), mesh)
+
+
+def _config(arch, approx, vocab_pad, moe_shardmap):
+    """The cell's config with the options that change its record: the
+    vocabulary's padding (the embedding's and head's shapes) and the
+    expert-parallel MoE (its collectives).  The reference's options that
+    change only its HLO (``seq_shard``, ``fast_emul``, ``attn_kv_chunk``,
+    MLA's absorbed decode) have no counterpart here."""
+    from repro_torch.configs import get_config
+    from repro_torch.numerics.approx_ops import make_numerics
+    cfg = get_config(arch)
+    if approx != "off":
+        cfg = cfg.with_approx(make_numerics(approx, "residual",
+                                            backend="torch", device="cpu"))
+    if vocab_pad > 1:
+        cfg = dataclasses.replace(cfg, vocab_pad_multiple=vocab_pad)
+    if moe_shardmap and cfg.moe is not None:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, use_shard_map=True))
+    return cfg
+
+
+def run_cell(arch: str, shape: str, mesh_kind: str, approx: str,
+             out_dir: str, variant: str = "", vocab_pad: int = 1,
+             microbatches: int = 1, moe_shardmap: bool = False) -> dict:
+    import torch
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.input_specs import batch_specs
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import (cache_shapes, params_shapes,
+                                          state_shapes)
+    from repro_torch.optim.adamw import AdamWConfig
+
+    t0 = time.time()
+    cfg = _config(arch, approx, vocab_pad, moe_shardmap)
+    mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
+    kind, specs, seq = batch_specs(cfg, shape)
+    p_shapes = params_shapes(cfg)
+    p_specs = R.tree_shardings(p_shapes, mesh, R.PARAM_RULES)
+    b_bytes = R.tree_shard_bytes(specs, R.data_sharding(specs, mesh), mesh)
+    mem = {"params_bytes": R.tree_shard_bytes(p_shapes, p_specs, mesh),
+           "opt_bytes": 0, "cache_bytes": 0, "batch_bytes": b_bytes}
+    if kind == "train":
+        st = state_shapes(cfg, AdamWConfig())
+        mem["opt_bytes"] = R.tree_shard_bytes(
+            st["opt"], R.state_shardings(st, mesh)["opt"], mesh)
+        mem["state_bytes"] = state_bytes(cfg, mesh)
+        mem["argument_size_in_bytes"] = mem["state_bytes"] + b_bytes
+    else:
+        args = mem["params_bytes"] + b_bytes
+        if kind == "decode":
+            rows = specs["tokens"].shape[0]
+            c_shapes = cache_shapes(cfg, rows, seq)
+            mem["cache_bytes"] = R.tree_shard_bytes(
+                c_shapes, R.cache_shardings(c_shapes, mesh), mesh)
+            pos = torch.empty((), dtype=torch.int32, device="meta")
+            args += mem["cache_bytes"] + pos.element_size()
+        mem["argument_size_in_bytes"] = args
+    plan = collective_plan(cfg, kind, mesh, p_shapes, p_specs, specs, seq,
+                           microbatches)
+
+    n_total = count_params(p_shapes)
+    n_active = active_param_count(cfg, p_shapes)
+    seqlen, gbatch, _ = SHAPES[shape]
+    tokens = gbatch * (1 if kind == "decode" else seqlen)
+    model_flops = (6 if kind == "train" else 2) * n_active * tokens
+    rec = {
+        "arch": arch, "shape": shape, "mesh": mesh_kind, "kind": kind,
+        "approx": approx, "variant": variant,
+        "devices": int(math.prod(R.mesh_shape(mesh).values())),
+        "seq": seq, "tokens": tokens,
+        "params_total": n_total, "params_active": n_active,
+        "model_flops": float(model_flops),
+        "memory": mem, "collectives": plan,
+        "dryrun_s": time.time() - t0,
+    }
+    os.makedirs(out_dir, exist_ok=True)
+    tag = f"{arch}__{shape}__{mesh_kind}__{approx}" + (
+        f"__{variant}" if variant else "")
+    with open(os.path.join(out_dir, tag + ".json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    print(json.dumps({k: rec[k] for k in ("arch", "shape", "mesh")}
+                     | {"argument_size_in_bytes":
+                        mem["argument_size_in_bytes"]}))
+    return rec
+
+
+def orchestrate(args) -> int:
+    """Every cell of ``configs.cells()`` (filtered by ``--archs``/
+    ``--shapes``) on every mesh of ``--meshes``, in this process; a
+    failing cell writes ``<tag>.ERROR.json`` and the sweep goes on."""
+    from repro_torch.configs import cells
+    todo = [(a, s) for a, s in cells()
+            if (not args.archs or a in args.archs.split(","))
+            and (not args.shapes or s in args.shapes.split(","))]
+    results = []
+    for mesh_kind in args.meshes.split(","):
+        for arch, shape in todo:
+            tag = f"{arch}__{shape}__{mesh_kind}__{args.approx}"
+            path = os.path.join(args.out, tag + ".json")
+            if args.resume and os.path.exists(path):
+                print(f"[skip existing] {tag}")
+                continue
+            t0 = time.time()
+            try:
+                run_cell(arch, shape, mesh_kind, args.approx, args.out)
+                ok = True
+            except Exception:
+                ok = False
+                err = {"arch": arch, "shape": shape, "mesh": mesh_kind,
+                       "approx": args.approx,
+                       "error": traceback.format_exc()[-4000:]}
+                with open(os.path.join(args.out, tag + ".ERROR.json"),
+                          "w") as f:
+                    json.dump(err, f, indent=1)
+                print(err["error"], flush=True)
+            results.append((tag, ok))
+            print(f"[{'ok' if ok else 'FAIL'}] {tag} "
+                  f"({time.time() - t0:.2f}s)", flush=True)
+    good = sum(1 for _, ok in results if ok)
+    print(f"dry-run sweep: {good}/{len(results)} cells succeeded")
+    return 0 if good == len(results) else 1
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch")
+    ap.add_argument("--shape")
+    ap.add_argument("--mesh", default="single", choices=("single", "multi"))
+    ap.add_argument("--approx", default="haloc_axa")
+    ap.add_argument("--out", default="experiments/artifacts_torch")
+    ap.add_argument("--variant", default="", help="artifact tag suffix")
+    ap.add_argument("--vocab-pad", type=int, default=1)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--moe-shardmap", action="store_true")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--archs", default="")
+    ap.add_argument("--shapes", default="")
+    ap.add_argument("--meshes", default="single,multi")
+    ap.add_argument("--resume", action="store_true")
+    args = ap.parse_args(argv)
+    if args.all:
+        return orchestrate(args)
+    try:
+        run_cell(args.arch, args.shape, args.mesh, args.approx, args.out,
+                 variant=args.variant, vocab_pad=args.vocab_pad,
+                 microbatches=args.microbatches,
+                 moe_shardmap=args.moe_shardmap)
+    except Exception:
+        traceback.print_exc()
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,6 +6,19 @@ eagerly (autograd for the gradient, no donation: the train step updates
 the state's tensors in place, :func:`repro_torch.optim.adamw.update`).
 ``state_shapes``, ``params_shapes`` and ``cache_shapes`` build the trees
 on the meta device: shapes and dtypes, no allocation.
+
+On a mesh (``mesh=``, a ``DeviceMesh``; ``batch_axes``, its batch axes)
+the steps are the sharded ones: the state's leaves are DTensors with the
+rules' placements (:func:`repro_torch.sharding.rules.place_state`), so
+each rank holds exactly the reference's shard; the batch (the whole
+global batch, the same on every rank) is cut to this rank's rows
+(:func:`split_batch`); each block's leaves are gathered into full
+tensors just before it runs and the unsharded code runs on the rank's
+rows; each gradient leaf is summed over the batch axes and cut back to
+its placement (a reduce-scatter); AdamW runs on the local shards.  Over
+"model" the compute is replicated, apart from the expert-parallel MoE.
+The prefill and decode steps return the whole batch's logits (gathered
+over the batch axes) and the rank's rows of the cache.
 """
 
 from __future__ import annotations
@@ -17,6 +30,7 @@ import torch
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
+from repro_torch.sharding import rules as R
 from repro_torch.tree import leaves, tree_map, unflatten
 
 State = Dict[str, Any]
@@ -32,21 +46,47 @@ def init_state(seed, cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def split_batch(batch, mesh, batch_axes):
+    """(this rank's rows of ``batch``, the batch axes they are split
+    over): every input's first dim cut by the batch axes
+    (:func:`repro_torch.sharding.rules.data_sharding`); the whole batch
+    and None when the axes do not divide it, or there are none."""
+    if mesh is None or not batch_axes:
+        return batch, None
+    specs = R.data_sharding(batch, mesh)
+    split = [k for k in batch if specs[k] and specs[k][0] is not None]
+    if len(split) != len(batch):
+        return batch, None
+    rows = R.row_slice(mesh, batch_axes, len(next(iter(batch.values()))))
+    return {k: v[rows] for k, v in batch.items()}, tuple(batch_axes)
+
+
 def value_and_grad(params, cfg: ModelConfig, batch, batch_axes=None,
                    mesh=None):
     """((loss, parts), grads): :func:`transformer.loss_fn` and its
     gradient with respect to every leaf of ``params`` (fp32, a tree of
     the same structure; zeros for a leaf the loss does not reach), as
     ``jax.value_and_grad(..., has_aux=True)`` gives them.  ``params``
-    itself is left as it is."""
+    itself is left as it is.
+
+    On a mesh ``batch`` is this rank's rows of a batch split over
+    ``batch_axes`` (None: not split): the loss and parts are the whole
+    batch's mean (all-reduced) and the gradients DTensors placed as
+    ``params``."""
     flat = [p.detach().requires_grad_(True) for p in leaves(params)]
     loss, parts = T.loss_fn(unflatten(params, flat), cfg, batch,
                             batch_axes=batch_axes, mesh=mesh)
-    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    shards = R.batch_size(mesh, batch_axes) if mesh is not None else 1
+    grads = torch.autograd.grad(loss / shards if shards > 1 else loss, flat,
+                                allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, grads)]
-    return ((loss.detach(), {k: v.detach() for k, v in parts.items()}),
-            unflatten(params, grads))
+    loss, parts = loss.detach(), {k: v.detach() for k, v in parts.items()}
+    if shards > 1:   # the whole batch's means: one all-reduce
+        vals = R.sum_over(torch.stack([loss, *parts.values()]), mesh,
+                          batch_axes) / shards
+        loss, parts = vals[0], dict(zip(parts, vals[1:].unbind()))
+    return (loss, parts), unflatten(params, grads)
 
 
 def _microbatch(batch, i: int, n: int):
@@ -65,18 +105,27 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     summed from zero in that order and divided by the count, as the
     reference's ``lax.scan`` does.  ``grad_transform`` (e.g.
     :func:`repro_torch.optim.compression.make_grad_transform`'s) maps the
-    gradients before the update.  A mesh raises (ROADMAP Queue A item
-    5)."""
-    T._no_sharding(batch_axes, mesh)
+    gradients before the update.
+
+    With ``mesh`` the step is the sharded one (the module docstring): the
+    state as :func:`repro_torch.sharding.rules.place_state` holds it, the
+    whole batch on every rank (each takes its rows; the microbatches cut
+    those)."""
+    if mesh is not None:
+        R.device_mesh(mesh)
 
     def train_step(state: State, batch):
+        batch, axes = split_batch(batch, mesh, batch_axes)
+
+        def vg(b):
+            return value_and_grad(state["params"], cfg, b, axes, mesh)
+
         if microbatches == 1:
-            (loss, parts), grads = value_and_grad(state["params"], cfg, batch)
+            (loss, parts), grads = vg(batch)
         else:
             acc = None
             for i in range(microbatches):
-                (l, pa), g = value_and_grad(
-                    state["params"], cfg, _microbatch(batch, i, microbatches))
+                (l, pa), g = vg(_microbatch(batch, i, microbatches))
                 acc = (g, l, pa) if acc is None else (
                     tree_map(torch.add, acc[0], g), acc[1] + l,
                     {k: acc[2][k] + pa[k] for k in pa})
@@ -94,35 +143,44 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, ctx_len: int, batch_axes=None):
+def _whole(logits, mesh, axes):
+    return logits if axes is None else R.gather_rows(logits, mesh, axes)
+
+
+def make_prefill_step(cfg: ModelConfig, ctx_len: int, batch_axes=None,
+                      mesh=None):
     """``prefill_step(params, batch) -> (last logits, cache)``: a fresh
     cache of ``ctx_len`` positions on the parameters' device, filled
     (batch: ``tokens`` or an audio model's ``frames``, and a vision
     model's ``vision``; a non-causal model returns every position's
-    logits)."""
-    T._no_sharding(batch_axes, None)
+    logits).  On a mesh: the rank's rows of the cache, the whole batch's
+    logits."""
 
     def prefill_step(params, batch):
+        batch, axes = split_batch(batch, mesh, batch_axes)
         b = len(batch["tokens"] if "tokens" in batch else batch["frames"])
         cache = T.init_cache(cfg, b, ctx_len,
                              device=T.params_device(params))
         logits, cache, _ = T.forward(params, cfg, batch, mode="prefill",
-                                     cache=cache)
-        return logits, cache
+                                     cache=cache, batch_axes=axes,
+                                     mesh=mesh)
+        return _whole(logits, mesh, axes), cache
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, batch_axes=None):
+def make_decode_step(cfg: ModelConfig, batch_axes=None, mesh=None):
     """``decode_step(params, batch, pos, cache) -> (logits, cache)``: one
     token per sequence at absolute position ``pos``; the cache is updated
-    in place."""
-    T._no_sharding(batch_axes, None)
+    in place.  On a mesh ``batch`` is the whole batch's tokens and
+    ``cache`` the rank's rows (:func:`make_prefill_step`'s)."""
 
     def decode_step(params, batch, pos, cache):
+        batch, axes = split_batch(batch, mesh, batch_axes)
         logits, cache, _ = T.forward(params, cfg, batch, mode="decode",
-                                     cache=cache, pos=pos)
-        return logits, cache
+                                     cache=cache, pos=pos, batch_axes=axes,
+                                     mesh=mesh)
+        return _whole(logits, mesh, axes), cache
 
     return decode_step
 

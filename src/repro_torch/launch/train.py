@@ -7,22 +7,51 @@ unless ``--device cpu``.
         --arch granite-moe-1b-a400m --adder haloc_axa --steps 4 \
         --batch 4 --seq 128
 
-Full-size configs run at their published widths on one card; several
-cards (``--model-parallel``, a mesh) are not ported yet (ROADMAP Queue A
-item 5).  On the card the residual adds run in the ``approx_add`` kernel
-(``--adder``), on the CPU in its plain version.
+Full-size configs run at their published widths.  Several cards, or
+CPU ranks, train sharded on a mesh: start the launcher under
+``torch.distributed.run`` (NCCL on the card, gloo with ``--device cpu``)
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 \
+        -m repro_torch.launch.train --arch qwen3-4b --smoke --steps 4 \
+        --device cpu --model-parallel 2
+
+A mesh is built (:func:`repro_torch.runtime.elastic.make_elastic_mesh`)
+when the process group has more than one rank or ``--model-parallel``
+is above 1, as the reference's ``len(jax.devices()) > 1`` does.  On the
+card the residual adds run in the ``approx_add`` kernel (``--adder``),
+on the CPU in its plain version.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs import arch_names, get_config, get_smoke_config
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.models import transformer as T
 from repro_torch.numerics.approx_ops import make_numerics
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.runtime.elastic import make_elastic_mesh
 from repro_torch.runtime.train_loop import TrainLoopConfig, run
+from repro_torch.sharding import rules as R
+
+
+def join_process_group(dev: torch.device) -> bool:
+    """Joins the process group ``torch.distributed.run`` describes in the
+    environment (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, the master's
+    address): NCCL on the card (this rank's card ``LOCAL_RANK``), gloo on
+    the CPU.  False when the launcher was not started so."""
+    if "WORLD_SIZE" not in os.environ:
+        return False
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return True
 
 
 def main(argv=None):
@@ -42,13 +71,17 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel} needs a mesh, which is "
-            f"not ported to repro_torch yet: ROADMAP.md Queue A item "
-            f"{T._UNPORTED['sharding']}")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     dev = T.resolve_device(args.device)
+    grouped = join_process_group(dev)
+    mesh = None
+    if args.model_parallel > 1 or (grouped and dist.get_world_size() > 1):
+        if not grouped:
+            ap.error(f"--model-parallel {args.model_parallel} needs ranks: "
+                     f"start the launcher under python -m "
+                     f"torch.distributed.run")
+        mesh = make_elastic_mesh(args.model_parallel)
+        dev = R.mesh_device(mesh)
     backend = "cuda" if dev.type == "cuda" else "torch"
     if args.adder != "off":
         cfg = cfg.with_approx(make_numerics(args.adder, "residual",
@@ -61,10 +94,16 @@ def main(argv=None):
                            ckpt_every=max(20, args.steps // 4),
                            ckpt_dir=args.ckpt_dir or None,
                            log_every=max(1, args.steps // 20))
-    out = run(cfg, opt, data, loop, device=dev)
+    try:
+        out = run(cfg, opt, data, loop, mesh=mesh, device=dev)
+    finally:
+        if grouped:
+            dist.destroy_process_group()
     h = out["history"]
+    where = "" if mesh is None else \
+        f" on a {dict(R.mesh_shape(mesh))} mesh"
     print(f"\n{cfg.name}: loss {h[0]['loss']:.3f} -> {h[-1]['loss']:.3f} "
-          f"over {args.steps} steps; stragglers flagged: "
+          f"over {args.steps} steps{where}; stragglers flagged: "
           f"{len(out['stragglers'])}; failures recovered: {out['failures']}")
 
 

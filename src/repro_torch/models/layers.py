@@ -403,17 +403,61 @@ def xla_rsqrt32(x: Tensor) -> Tensor:
     return torch.where((x > 0) & (e < 255) & (e > 0), y, torch.rsqrt(x))
 
 
+#: The fp32 lanes of the vector XLA:CPU's LLVM reduces a norm scale's
+#: gradient in (AVX).
+XLA_LANES = 8
+
+
+def _lane_sum_of_products(a: Tensor, b: Tensor) -> Tensor:
+    """The fp32 sum of a * b (B, S, ..., D) over its leading dims as the
+    loop LLVM vectorizes over S: for each b in turn, a vector of
+    XLA_LANES lanes holding the running sum in lane 0 (-0 in the others)
+    takes one FMA for each XLA_LANES consecutive S rows, the dims after
+    S innermost; then its lanes are summed (the upper half onto the
+    lower, then the upper quarter, then lane 1 onto lane 0), and the
+    last S % XLA_LANES rows follow one FMA a row."""
+    n, s, d = a.shape[0], a.shape[1], a.shape[-1]
+    a, b = a.reshape(n, s, -1, d), b.reshape(n, s, -1, d)
+    full = s - s % XLA_LANES
+    acc = torch.zeros(d, dtype=torch.float32, device=a.device)
+    for i in range(n):
+        v = torch.full((XLA_LANES, d), -0.0, dtype=torch.float32,
+                       device=a.device)
+        v[0] = acc
+        for k in range(0, full, XLA_LANES):
+            for h in range(a.shape[2]):
+                v = fma32(a[i, k:k + XLA_LANES, h], b[i, k:k + XLA_LANES, h],
+                          v)
+        while v.shape[0] > 1:
+            v = v[:v.shape[0] // 2] + v[v.shape[0] // 2:]
+        acc = v[0]
+        for k in range(full, s):
+            for h in range(a.shape[2]):
+                acc = fma32(a[i, k, h], b[i, k, h], acc)
+    return acc
+
+
 def _sum_leading_of_products(a: Tensor, b: Tensor) -> Tensor:
     """The fp32 sum of a * b (..., D) over every leading dim, as XLA:CPU
-    reduces it: with every leading dim at most XLA_REDUCE_WINDOW long it
-    fuses the product into the reduction, one FMA a row in row-major
-    order; past that it rounds the products, sums each window of
-    XLA_REDUCE_WINDOW rows (the shorter dims whole) in row-major order and
-    then the windows' sums, again in windows until no dim is longer.
-    (Read for (rows, D) and (B, S, D) with B, S <= 32; XLA orders the
-    (B, S, H, D) reduction of the q/k norms otherwise.)"""
+    reduces a norm scale's gradient inside the compiled step (its inputs
+    runtime values): for (B, S, D) and (B, S, H, D) with 24 <= S <= 32
+    (and every leading dim at most XLA_REDUCE_WINDOW) LLVM vectorizes the
+    loop over S (:func:`_lane_sum_of_products`; read from the machine
+    code of the qwen3-4b smoke step's final, block and q/k norms at S =
+    32, and matched at every S from 24 to 32 with H from 1 to 8); with
+    every other leading dim at most XLA_REDUCE_WINDOW long it fuses the
+    product into the reduction, one FMA a row in row-major order; past
+    that it rounds the products, sums each window of XLA_REDUCE_WINDOW
+    rows (the shorter dims whole) in row-major order and then the
+    windows' sums, again in windows until no dim is longer.  (Matched for
+    (rows, D), for (B, S, D) with S <= 22 or 24 <= S, and for (B, S, H,
+    D) with 24 <= S; not followed: S = 23, and S < 24 with a heads dim,
+    where LLVM vectorizes some shapes and not others.)"""
     if a.dim() == 1:
         a, b = a[None], b[None]
+    if a.dim() >= 3 and 3 * XLA_LANES <= a.shape[1] \
+            and max(a.shape[:-1]) <= XLA_REDUCE_WINDOW:
+        return _lane_sum_of_products(a, b)
     if max(a.shape[:-1]) <= XLA_REDUCE_WINDOW:
         a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
         acc = torch.zeros(a.shape[-1], dtype=torch.float32)

@@ -13,9 +13,14 @@ wide expert counts (DeepSeek-V2: 160 experts).  Decode (S == 1) merges
 the batch into one dispatch group, so expert capacity stays ~B*k/E
 instead of one slot per (row, expert).
 
-The reference's expert-parallel ``shard_map`` dispatch needs a mesh;
-without one it runs :func:`moe_apply`, and so does the port's
-:func:`moe_apply_shard_map`.
+On a mesh (``launch.steps``' sharded steps) x holds this rank's rows of
+a batch split over ``batch_axes``; the load-balancing loss is the whole
+batch's (its sums all-reduced over the batch axes), and a decode step
+dispatches every row of the batch as one group, as the reference's
+global arrays do.  :func:`moe_apply_shard_map` is the reference's
+expert-parallel dispatch over the mesh's "model" axis: each model rank
+runs its own experts on the slots routed to them and the partial
+outputs are summed with one all-reduce.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import rules as R
 
 
 def moe_init(init, cfg: ModelConfig):
@@ -122,19 +128,35 @@ def route(p, cfg: ModelConfig, x):
     return gate(L.dense(p["router"], x), cfg.moe.experts_per_token)
 
 
-def aux_loss(probs, ids, num_experts: int):
+def split_axes(mesh, batch_axes):
+    """The batch axes x's rows are split over, or None when there is one
+    batch shard."""
+    if mesh is None or not batch_axes \
+            or R.batch_size(mesh, batch_axes) == 1:
+        return None
+    return tuple(batch_axes)
+
+
+def aux_loss(probs, ids, num_experts: int, mesh=None, axes=None):
     """The Switch-style load-balancing loss: E * sum(mean prob * share of
-    routed (token, k) pairs), per expert."""
-    me = probs.mean(dim=(0, 1))
+    routed (token, k) pairs), per expert; over the whole batch when the
+    rows are split over ``axes`` of ``mesh`` (both sums all-reduced)."""
     n = ids.numel()
-    ce = torch.zeros_like(me).index_add_(
+    counts = torch.zeros_like(probs[0, 0]).index_add_(
         0, ids.reshape(-1), torch.ones(n, dtype=torch.float32,
-                                       device=ids.device)) / n
+                                       device=ids.device))
+    if axes is None:
+        return num_experts * torch.sum(probs.mean(dim=(0, 1)) * (counts / n))
+    shards = R.batch_size(mesh, axes)
+    rows = probs.shape[0] * probs.shape[1] * shards
+    me = R.sum_over_batch(probs.sum(dim=(0, 1)), mesh, axes) / rows
+    ce = R.sum_over(counts, mesh, axes) / (n * shards)
     return num_experts * torch.sum(me * ce)
 
 
-def _moe_chunk(p, cfg: ModelConfig, x):
-    """x: (B, T, D) one sequence chunk -> (out (B, T, D), aux)."""
+def _moe_chunk(p, cfg: ModelConfig, x, mesh=None, axes=None):
+    """x: (B, T, D) one sequence chunk -> (out (B, T, D), aux; the whole
+    batch's when the rows are split over ``axes``)."""
     mc = cfg.moe
     b, t, d = x.shape
     probs, gates, ids = route(p, cfg, x)
@@ -155,27 +177,11 @@ def _moe_chunk(p, cfg: ModelConfig, x):
     out = terms[:, :, 0]
     for j in range(1, mc.experts_per_token):   # XLA's reduce: in k order
         out = out + terms[:, :, j]
-    return out.to(x.dtype), aux_loss(probs, ids, mc.num_experts)
+    return out.to(x.dtype), aux_loss(probs, ids, mc.num_experts, mesh,
+                                     axes)
 
 
-def moe_apply(p, cfg: ModelConfig, x):
-    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar).  With shared
-    experts under an approximate adder ``out`` is the fp32 sum of the
-    routed and shared outputs (each rounded to x's dtype), for the
-    residual add to round; with exact adds it is that sum rounded."""
-    mc = cfg.moe
-    b, s, d = x.shape
-    if s == 1:
-        out, aux = _moe_chunk(p, cfg, x.reshape(1, b, d))
-        out = out.reshape(b, 1, d)
-    elif mc.seq_chunks > 1 and s % mc.seq_chunks == 0:
-        t = s // mc.seq_chunks
-        outs, auxs = zip(*(_moe_chunk(p, cfg, x[:, i * t:(i + 1) * t])
-                           for i in range(mc.seq_chunks)))
-        out = torch.cat(outs, dim=1)
-        aux = torch.stack(auxs).mean()
-    else:
-        out, aux = _moe_chunk(p, cfg, x)
+def _with_shared(p, cfg: ModelConfig, out, x):
     if "shared" in p:
         # XLA adds the two bf16 outputs in fp32; an approximate residual
         # add's quantize reads that sum unrounded (its fusion keeps it),
@@ -183,15 +189,124 @@ def moe_apply(p, cfg: ModelConfig, x):
         out = out.float() + L.swiglu(p["shared"], x).float()
         if not cfg.approx.enabled:
             out = out.to(x.dtype)
-    return out, aux
+    return out
+
+
+def moe_apply(p, cfg: ModelConfig, x, batch_axes=None, mesh=None):
+    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar).  With shared
+    experts under an approximate adder ``out`` is the fp32 sum of the
+    routed and shared outputs (each rounded to x's dtype), for the
+    residual add to round; with exact adds it is that sum rounded.  On a
+    mesh, x is this rank's rows of a batch split over ``batch_axes``."""
+    mc = cfg.moe
+    b, s, d = x.shape
+    axes = split_axes(mesh, batch_axes)
+    if s == 1:
+        # decode: the whole batch is one dispatch group
+        xs = x if axes is None else R.gather_rows(x, mesh, axes)
+        out, aux = _moe_chunk(p, cfg, xs.reshape(1, -1, d))
+        out = out.reshape(-1, 1, d)
+        if axes is not None:
+            out = out[R.row_slice(mesh, axes, out.shape[0])]
+    elif mc.seq_chunks > 1 and s % mc.seq_chunks == 0:
+        t = s // mc.seq_chunks
+        outs, auxs = zip(*(_moe_chunk(p, cfg, x[:, i * t:(i + 1) * t], mesh,
+                                      axes)
+                           for i in range(mc.seq_chunks)))
+        out = torch.cat(outs, dim=1)
+        aux = torch.stack(auxs).mean()
+    else:
+        out, aux = _moe_chunk(p, cfg, x, mesh, axes)
+    return _with_shared(p, cfg, out, x), aux
+
+
+def _local_experts_chunk(cfg: ModelConfig, xc, router, w, rank: int,
+                         e_local: int):
+    """One sequence chunk (B, T, D) through this model rank's experts
+    ``w`` (``wg``/``wi``/``wo``, E / model of them): the reference's
+    ``shard_map`` body.  Every rank routes every (token, k) pair; it
+    gathers only its own experts' slots and combines only the pairs
+    routed to them (the others' gates masked to 0)."""
+    mc = cfg.moe
+    b, t, d = xc.shape
+    _, gates, ids = gate(L.dense({"w": router}, xc),
+                         mc.experts_per_token)
+    cap = _capacity(t, mc)
+    src_tok, (_, dest, keep) = _dispatch_indices(ids, gates,
+                                                 mc.num_experts, cap)
+    lo = rank * e_local
+    src_loc = src_tok[:, lo:lo + e_local]
+    xpad = torch.cat([xc, xc.new_zeros((b, 1, d))], dim=1)
+    xin = xpad[torch.arange(b, device=xc.device)[:, None, None], src_loc]
+    ybuf = _expert_ffn(w, xin).reshape(b, e_local * cap, d)
+    flat_ids = ids.reshape(b, -1).to(torch.int64)
+    is_local = (flat_ids // e_local) == rank
+    lin = (flat_ids - lo) * cap + torch.clamp(dest, max=cap - 1)
+    lin = torch.clamp(lin, 0, e_local * cap - 1)
+    gathered = torch.take_along_dim(ybuf, lin[:, :, None], dim=1)
+    weight = (gates.reshape(b, -1) * keep.to(gates.dtype)
+          * is_local.to(gates.dtype))[:, :, None]
+    terms = (gathered.to(torch.float32) * weight).reshape(
+        b, t, mc.experts_per_token, d)
+    part = terms[:, :, 0]
+    for j in range(1, mc.experts_per_token):   # XLA's reduce: in k order
+        part = part + terms[:, :, j]
+    return part.to(xc.dtype)
+
+
+#: The expert matrices, (E, ...) leaves sharded over "model" along E.
+EXPERT_LEAVES = ("wg", "wi", "wo")
+
+
+def expert_parallel(cfg: ModelConfig, s: int, batch_axes, mesh) -> bool:
+    """Whether :func:`moe_apply_shard_map` dispatches over "model" for a
+    sequence of ``s`` (else it falls back to :func:`moe_apply`)."""
+    sizes = R.mesh_shape(mesh) if mesh is not None else {}
+    return (mesh is not None and batch_axes is not None
+            and "model" in sizes and s != 1
+            and cfg.moe.num_experts % sizes["model"] == 0)
 
 
 def moe_apply_shard_map(p, cfg: ModelConfig, x, batch_axes=None, mesh=None):
-    """The reference's expert-parallel dispatch over a mesh's "model"
-    axis.  Without a mesh it is :func:`moe_apply`, as in the reference;
-    the mesh path belongs to the sharding slice."""
-    if mesh is None or batch_axes is None:
-        return moe_apply(p, cfg, x)
-    raise NotImplementedError(
-        "moe_apply_shard_map over a mesh is not ported to repro_torch yet: "
-        "ROADMAP.md Queue A item 5 (sharding on a DeviceMesh)")
+    """The reference's expert-parallel dispatch over the mesh's "model"
+    axis.  Activations are replicated over "model", so each model rank
+    gathers ITS OWN experts' (B, E / model, C, D) buffer with no
+    communication, runs their FFNs, combines partially (the other ranks'
+    gates masked) and the partial outputs are summed with ONE all-reduce
+    over "model" (in x's dtype, as the reference's ``psum``).  The
+    load-balancing loss is recomputed from the router over the whole
+    batch, as the reference's.
+
+    Falls back to :func:`moe_apply` where the reference does
+    (:func:`expert_parallel`): no mesh, no batch axes, no "model" axis,
+    at decode (S == 1), or when the experts do not divide over "model".
+    The expert matrices are sharded over "model" along E
+    (``PARAM_RULES``); given as DTensors (the sharded step's blocks) they
+    are gathered over the other mesh dims only and each rank reads its
+    own experts (:func:`repro_torch.sharding.rules.model_shard`), so its
+    expert gradients are its own shard's; full tensors are sliced.  The
+    router's and x's gradients are summed over "model"
+    (:func:`repro_torch.sharding.rules.replica_input`)."""
+    mc = cfg.moe
+    s = x.shape[1]
+    if not expert_parallel(cfg, s, batch_axes, mesh):
+        return moe_apply(p, cfg, x, batch_axes, mesh)
+    model = ("model",)
+    e_local = mc.num_experts // R.mesh_shape(mesh)["model"]
+    rank = mesh.get_local_rank("model")
+    lo = rank * e_local
+    w = {n: R.model_shard(p[n], batch_axes) if R.is_dtensor(p[n])
+         else p[n][lo:lo + e_local] for n in EXPERT_LEAVES}
+    xr = R.replica_input(x, mesh, model)
+    router = R.replica_input(p["router"]["w"], mesh, model)
+    chunks = mc.seq_chunks if s % max(1, mc.seq_chunks) == 0 else 1
+    t = s // chunks
+    part = torch.cat([_local_experts_chunk(cfg, xr[:, i * t:(i + 1) * t],
+                                           router, w, rank, e_local)
+                      for i in range(chunks)], dim=1)
+    out = R.sum_over_replicas(part, mesh, model)   # THE one collective
+    # router aux loss (a global recompute, for logging parity)
+    probs, _, ids = route(p, cfg, x)
+    aux = aux_loss(probs, ids, mc.num_experts, mesh,
+                   split_axes(mesh, batch_axes))
+    return _with_shared(p, cfg, out, x), aux

@@ -32,9 +32,17 @@ DeepSeek's latent attention (MLA), RecurrentGemma's RG-LRU and Mamba-2's
 SSD, with a SwiGLU, GELU or MoE MLP or none, are ported, and so is the
 loss (:func:`loss_fn`), which autograd differentiates as ``jax.grad``
 differentiates the reference's (``models.layers``' emulations carry
-jax's derivative rules).  Sharding (``batch_axes``/``mesh``) belongs to
-a later slice and raises ``NotImplementedError`` naming its ROADMAP
-entry.
+jax's derivative rules).
+
+On a mesh (``batch_axes``/``mesh``: ``launch.steps``' sharded steps) the
+batch holds this rank's rows of a batch split over ``batch_axes``, and a
+parameter leaf may be a DTensor holding this rank's shard: each block's
+leaves (and the embedding's, the final norm's and the head's) are
+gathered into full tensors just before they are used
+(:func:`repro_torch.sharding.rules.gather`), their gradients summed over
+the batch axes and cut back to each leaf's placement.  Compute over the
+"model" axis is replicated, apart from the expert-parallel MoE
+(``moe.use_shard_map``).
 """
 
 from __future__ import annotations
@@ -56,15 +64,10 @@ from repro_torch.models.config import (
     ATTN, CROSS, MLA, MOE, NONE, RGLRU, SSD, SWIGLU,
     BlockSpec, ModelConfig,
 )
+from repro_torch.sharding import rules as R
 
 Params = Dict[str, Any]
 Device = Union[str, torch.device, None]
-
-#: Where each unported part of a model config is planned (ROADMAP.md,
-#: Queue A).
-_UNPORTED = {
-    "sharding": "5 (sharding on a DeviceMesh)",
-}
 
 
 #: The ported mixers: (init, full, prefill, decode).  The attention
@@ -81,16 +84,32 @@ _RECURRENT = (RGLRU, SSD)
 
 def check_ported(cfg: ModelConfig) -> ModelConfig:
     """``cfg`` validated: every mixer (``BlockSpec`` admits no other) and
-    input of the registry is ported; only sharding is not
-    (:func:`_no_sharding`)."""
+    input of the registry is ported."""
     return cfg.validate()
 
 
-def _no_sharding(batch_axes, mesh):
-    if batch_axes is not None or mesh is not None:
-        raise NotImplementedError(
-            f"batch_axes/mesh is not ported to repro_torch yet: ROADMAP.md "
-            f"Queue A item {_UNPORTED['sharding']}")
+def _gathered(tree, batch_axes, mesh):
+    """``tree``'s DTensor leaves as full tensors on a mesh
+    (:func:`repro_torch.sharding.rules.gather`); ``tree`` off one."""
+    return tree if mesh is None else R.gather(tree, batch_axes or ())
+
+
+def _block_gathered(p, cfg, spec, s, mode, batch_axes, mesh):
+    """A block's leaves for :func:`block_apply` on a mesh: gathered
+    (:func:`_gathered`), but for the expert-parallel MoE the expert
+    matrices, which stay DTensors sharded over "model": each rank reads
+    only its own experts
+    (:func:`repro_torch.models.moe.moe_apply_shard_map`)."""
+    if mesh is None or spec.mlp != MOE or not cfg.moe.use_shard_map \
+            or mode == "decode" \
+            or not MOEm.expert_parallel(cfg, s, batch_axes, mesh):
+        return _gathered(p, batch_axes, mesh)
+    mlp = p["mlp"]
+    out = _gathered({**p, "mlp": {k: v for k, v in mlp.items()
+                                  if k not in MOEm.EXPERT_LEAVES}},
+                    batch_axes, mesh)
+    out["mlp"].update({k: mlp[k] for k in MOEm.EXPERT_LEAVES})
+    return out
 
 
 def resolve_device(device: Device = None) -> torch.device:
@@ -325,8 +344,9 @@ def block_apply(p: Params, cfg: ModelConfig, spec: BlockSpec, x, ctx,
     ``carry``: the previous block's sum32, which the first norm reads in
     place of x (:func:`forward` hands it on inside a pattern repeat).
     ``tanh_gates``: a cross block's two gates' bf16 tanh
-    (:func:`cross_tanh_gates`)."""
-    _no_sharding(batch_axes, mesh)
+    (:func:`cross_tanh_gates`).  On a mesh the MoE MLP takes
+    ``batch_axes`` and ``mesh`` (its load-balancing loss over the whole
+    batch; the expert-parallel dispatch)."""
     h = L.rms_norm(p["ln1"], x if carry is None else carry,
                    cfg.norm_eps).to(x.dtype)
     new_cache = cache
@@ -376,9 +396,11 @@ def block_apply(p: Params, cfg: ModelConfig, spec: BlockSpec, x, ctx,
         h2 = L.rms_norm(p["ln2"], norm_in, cfg.norm_eps).to(x.dtype)
         if spec.mlp == MOE:
             if cfg.moe.use_shard_map and mode != "decode":
-                out, aux = MOEm.moe_apply_shard_map(p["mlp"], cfg, h2)
+                out, aux = MOEm.moe_apply_shard_map(
+                    p["mlp"], cfg, h2, batch_axes=batch_axes, mesh=mesh)
             else:
-                out, aux = MOEm.moe_apply(p["mlp"], cfg, h2)
+                out, aux = MOEm.moe_apply(p["mlp"], cfg, h2,
+                                          batch_axes=batch_axes, mesh=mesh)
         elif spec.mlp == SWIGLU:
             out = L.swiglu(p["mlp"], h2)
         else:
@@ -394,6 +416,17 @@ def block_apply(p: Params, cfg: ModelConfig, spec: BlockSpec, x, ctx,
 
 
 # --------------------------------------------------------------- forward --
+
+def _reads_carry(cfg: ModelConfig, i: int) -> bool:
+    """Whether block ``i``'s first norm (the final norm for i = the
+    number of blocks) reads the previous block's exact residual sum
+    unrounded, as XLA fuses it: everywhere but across the boundaries of
+    the pattern's layer scan, whose carry is the rounded stream (the
+    first block of each repeat, and the first block after the scan)."""
+    n0, n1 = len(cfg.prefix), len(cfg.pattern)
+    scan_step = n1 and n0 <= i <= n0 + n1 * cfg.repeats and (i - n0) % n1 == 0
+    return i > 0 and not scan_step
+
 
 def embed_input(params, cfg: ModelConfig, batch, need_vision: bool = True):
     """batch: {"tokens": (B, S) ints} or {"frames": (B, S, feat_dim)}
@@ -435,13 +468,21 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "full",
     prefill returns every position's).  ``aux_sum`` is the fp32
     sum of the MoE layers' load-balancing losses in block order (0 without
     MoE layers).  ``return_prelogits``: the final norm's output in place
-    of the logits (what :func:`loss_fn` hands to the head)."""
-    _no_sharding(batch_axes, mesh)
+    of the logits (what :func:`loss_fn` hands to the head).
+
+    On a mesh the batch is this rank's rows of a batch split over
+    ``batch_axes`` (the module docstring): the reference's sharding
+    constraints on the activations (``_shard_act``, with ``seq_shard``
+    their sequence dim over "model") change no value and have no
+    counterpart."""
     if mode not in ("full", "prefill", "decode"):
         raise ValueError(f"bad forward mode {mode!r}")
     if mode != "full" and cache is None:
         raise ValueError(f"mode {mode!r} needs a cache (init_cache)")
-    x, ctx = embed_input(params, cfg, batch, need_vision=mode != "decode")
+    inputs = _gathered({k: params[k] for k in ("embed", "frontend",
+                                               "vis_adapter") if k in params},
+                       batch_axes, mesh)
+    x, ctx = embed_input(inputs, cfg, batch, need_vision=mode != "decode")
     b, s = x.shape[:2]
     if mode == "decode":
         ctx["pos"] = int(pos)
@@ -461,31 +502,35 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "full",
     caches = blocks_in_order(cfg, cache) if cache is not None \
         else [None] * len(specs)
     blocks = blocks_in_order(cfg, params)
-    gates = cross_tanh_gates(cfg, blocks)
+    gates = cross_tanh_gates(cfg, [
+        _gathered({"mixer": {"gate": p["mixer"]["gate"]},
+                   "gate_mlp": p["gate_mlp"]}, batch_axes, mesh)
+        if spec.mixer == CROSS else None
+        for p, spec in zip(blocks, specs)])
     new = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    n0, n1 = len(cfg.prefix), len(cfg.pattern)
-    pattern = range(n0, n0 + n1 * cfg.repeats)
     sum32 = None
     for i, (p, spec, c, g) in enumerate(zip(blocks, specs, caches, gates,
                                             strict=True)):
-        # inside one repeat of the pattern (one step of XLA's layer scan)
-        # a block's first norm reads the previous block's exact residual
-        # sum unrounded; across steps the carried stream is rounded
-        carry = sum32 if i in pattern and (i - n0) % n1 else None
-        x, nc, a, sum32 = block_apply(p, cfg, spec, x, ctx, c, mode,
-                                      carry=carry, tanh_gates=g)
+        carry = sum32 if _reads_carry(cfg, i) else None
+        x, nc, a, sum32 = block_apply(
+            _block_gathered(p, cfg, spec, x.shape[1], mode, batch_axes,
+                            mesh), cfg, spec, x, ctx, c, mode, batch_axes,
+            mesh, carry=carry, tanh_gates=g)
         new.append(nc)
         if a is not None:
             aux = aux + a
 
-    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    last = x if sum32 is None or not _reads_carry(cfg, len(specs)) else sum32
+    x = L.rms_norm(_gathered(params["final_norm"], batch_axes, mesh), last,
+                   cfg.norm_eps).to(x.dtype)
     if mode in ("prefill", "decode") and cfg.causal:
         x = x[:, -1:]  # only the last position's logits are needed
     new_cache = blocks_layout(cfg, new) if cache is not None else None
     if return_prelogits:
         return x, new_cache, aux
-    return L.dense(params["lm_head"], x), new_cache, aux
+    return L.dense(_gathered(params["lm_head"], batch_axes, mesh), x), \
+        new_cache, aux
 
 
 # ------------------------------------------------------------------ loss --
@@ -533,7 +578,8 @@ def loss_fn(params, cfg: ModelConfig, batch, batch_axes=None, mesh=None):
                         batch_axes=batch_axes, mesh=mesh,
                         return_prelogits=True)
     labels = torch.as_tensor(batch["labels"], device=x.device)
-    ce = checkpoint(_head_loss, cfg, params["lm_head"], x, labels,
+    ce = checkpoint(_head_loss, cfg,
+                    _gathered(params["lm_head"], batch_axes, mesh), x, labels,
                     use_reentrant=False)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 

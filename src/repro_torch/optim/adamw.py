@@ -24,6 +24,13 @@ squares is XLA's vectorized reduction, which the port does not follow
 (the norm agrees to a few ulps; a clipped step's scale with it).  On the
 card the same expressions run as torch kernels (``fma32`` is
 ``addcmul`` there).
+
+On a mesh (``launch.steps``' sharded step) the parameters, gradients,
+``m`` and ``v`` are DTensors with one placement each: the update runs
+elementwise on each rank's local shards, and the global norm sums each
+leaf's local squares, then all-reduces them over the mesh dims the leaf
+is sharded on, so the clip scale is the same on every rank (its order of
+summation differs from the unsharded norm's by a few ulps).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import rules as R
 from repro_torch.tree import leaves, leaves_with_paths, tree_map
 
 
@@ -95,17 +103,39 @@ def init(params) -> Dict[str, Any]:
     """Zero fp32 ``m`` and ``v`` beside ``params``, and an int32 count."""
     zeros = functools.partial(tree_map, lambda p: torch.zeros_like(
         p, dtype=torch.float32))
-    dev = leaves(params)[0].device
+    dev = R.local(leaves(params)[0]).device
     return {"m": zeros(params), "v": zeros(params),
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def _sum_sharded(flat, sqs):
+    """Each DTensor leaf's local sum of squares summed over the mesh dims
+    it is sharded on: one all-reduce of the stacked sums a mesh dim."""
+    from torch.distributed.tensor import Shard
+    sharded = [g for g in flat if R.is_dtensor(g)]
+    if not sharded:
+        return sqs
+    mesh = sharded[0].device_mesh
+    stacked = torch.stack(sqs)
+    for i, name in enumerate(mesh.mesh_dim_names):
+        mask = torch.tensor([R.is_dtensor(g) and isinstance(
+            g.placements[i], Shard) for g in flat], device=stacked.device)
+        if mesh.size(i) > 1 and bool(mask.any()):
+            summed = R.sum_over(stacked.clone(), mesh, (name,))
+            stacked = torch.where(mask, summed, stacked)
+    return list(stacked.unbind())
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum, over the leaves in order, of each leaf's fp32 sum
-    of squares."""
+    of squares (a sharded leaf's summed over its shards)."""
+    flat = leaves(tree)
+    sqs = []
+    for g in flat:
+        g = R.local(g).float()
+        sqs.append(torch.sum(g * g))
     total = None
-    for g in leaves(tree):
-        sq = torch.sum(g.float() * g.float())
+    for sq in _sum_sharded(flat, sqs):
         total = sq if total is None else total + sq
     return L.sqrt32(total)
 
@@ -132,19 +162,21 @@ def update(cfg: AdamWConfig, grads, opt_state, params):
                         (cfg.b1, cfg.b2, 1 - cfg.b1, 1 - cfg.b2))
     wd, neg_lr = const(cfg.weight_decay), const(-lr)
 
-    def upd(path, p, g, m, v):
+    def upd(path, ndim, p, g, m, v):
         gs = g.float() * scale
         m.copy_(L.fma32(m, b1, gs * b1r))
         v.copy_(L.fma32(v, b2, (gs * b2r) * gs))
         step = m / (b1c * (L.sqrt32(v / b2c) + _f32(cfg.eps)))
-        if p.ndim + (path[:1] == ("pattern",)) >= 2:
+        if ndim + (path[:1] == ("pattern",)) >= 2:
             step = L.fma32(p, wd, step)
         p.copy_(L.fma32(neg_lr, step, p))
 
     for (path, p), g, m, v in zip(
             leaves_with_paths(params), leaves(grads), leaves(opt_state["m"]),
             leaves(opt_state["v"]), strict=True):
-        upd(path, p, g, m, v)
+        ndim = p.ndim    # the full leaf's, as the reference decays by it
+        p, g, m, v = (R.local(t) for t in (p, g, m, v))
+        upd(path, ndim, p, g, m, v)
     new_opt = {"m": opt_state["m"], "v": opt_state["v"],
                "count": torch.tensor(count, dtype=torch.int32, device=dev)}
     return params, new_opt, {"grad_norm": gnorm,

@@ -10,7 +10,12 @@
   checkpoint (nothing else is caught: a CUDA error propagates);
 - deterministic resumable data (the step-indexed synthetic stream).
 
-A mesh (several cards) is not ported yet: ROADMAP Queue A item 5.
+With a mesh (a ``DeviceMesh`` over the process group; every rank runs
+the loop) the state is sharded (``state_shardings``' placements,
+:func:`repro_torch.sharding.rules.place_state`), each rank takes its
+rows of the step's batch (``data_sharding``) and runs the sharded step;
+checkpoints hold full leaves (rank 0 writes) and are restored onto the
+mesh's placements.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.straggler import StragglerMonitor
+from repro_torch.sharding import rules as R
 
 
 @dataclasses.dataclass
@@ -51,20 +57,32 @@ def run(model_cfg: ModelConfig, opt_cfg: AdamWConfig, data_cfg: DataConfig,
         fault_hook: Optional[Callable[[int], None]] = None,
         device=None) -> Dict[str, Any]:
     """Returns {"state", "history": [metrics...], "stragglers",
-    "failures"}; the state on ``device`` (``None``: the card)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"a mesh is not ported to repro_torch yet: ROADMAP.md Queue A "
-            f"item {T._UNPORTED['sharding']}")
-    dev = T.resolve_device(device)
-    step_fn = make_train_step(model_cfg, opt_cfg)
+    "failures"}; the state on ``device`` (``None``: the card), or
+    sharded on ``mesh`` (its ranks' device)."""
+    if mesh is None:
+        dev = T.resolve_device(device)
+        step_fn = make_train_step(model_cfg, opt_cfg)
+    else:
+        dev = R.mesh_device(R.device_mesh(mesh))
+        step_fn = make_train_step(model_cfg, opt_cfg,
+                                  batch_axes=R.batch_axes(mesh), mesh=mesh)
     ckpt = Checkpointer(loop_cfg.ckpt_dir) if loop_cfg.ckpt_dir else None
 
+    def latest():
+        if mesh is not None:   # rank 0's saves are published to every rank
+            ckpt.wait()
+            R.barrier(mesh)
+        return ckpt.latest_step()
+
     def restore_or_init():
-        if ckpt is not None and ckpt.latest_step() is not None:
-            return ckpt.restore(state_shapes(model_cfg, opt_cfg,
-                                             seed=loop_cfg.seed), device=dev)
-        return init_state(loop_cfg.seed, model_cfg, opt_cfg, device=dev)
+        if ckpt is not None and latest() is not None:
+            like = state_shapes(model_cfg, opt_cfg, seed=loop_cfg.seed)
+            if mesh is None:
+                return ckpt.restore(like, device=dev)
+            return ckpt.restore(like, shardings=R.placed_state_specs(
+                like, mesh), mesh=mesh)
+        state = init_state(loop_cfg.seed, model_cfg, opt_cfg, device=dev)
+        return state if mesh is None else R.place_state(state, mesh)
 
     state = restore_or_init()
     step = int(state["step"])

@@ -14,14 +14,18 @@ from typing import Any, Callable, Iterator, List, Tuple
 Path = Tuple[Any, ...]
 
 
-def leaves_with_paths(tree, path: Path = ()) -> Iterator[Tuple[Path, Any]]:
-    """(path, leaf) of every leaf, dict keys sorted, lists in order."""
-    if isinstance(tree, dict):
+def leaves_with_paths(tree, path: Path = (), is_leaf=None
+                      ) -> Iterator[Tuple[Path, Any]]:
+    """(path, leaf) of every leaf, dict keys sorted, lists in order;
+    ``is_leaf(node)`` true stops the walk at a node (a spec tuple)."""
+    if is_leaf is not None and is_leaf(tree):
+        yield path, tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
-            yield from leaves_with_paths(tree[k], path + (k,))
+            yield from leaves_with_paths(tree[k], path + (k,), is_leaf)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from leaves_with_paths(v, path + (i,))
+            yield from leaves_with_paths(v, path + (i,), is_leaf)
     else:
         yield path, tree
 

@@ -9,8 +9,9 @@
   numerics config, a windowed smoke model generating under haloc_axa,
   an MLA + MoE smoke model, an RG-LRU and an SSD one generating)
   and no source file under ``src/repro_torch`` (``obs``, ``resilience``,
-  ``runtime``, ``integrity``, ``serving``, ``models``, ``launch`` and
-  ``configs`` included) names them;
+  ``runtime``, ``integrity``, ``serving``, ``models``, ``launch``,
+  ``configs`` and ``sharding`` included, which import
+  ``torch.distributed``) names them;
 - a default engine asks for the card and raises without one, naming the
   explicit CPU spelling;
 - ``quantize`` and the container conversions equal ``repro``'s on the
@@ -119,7 +120,15 @@ def test_import_and_cpu_pipeline_load_no_jax():
         "lp = T.init_params(0, lm, device='cpu')\n"
         "toks = generate(lp, lm, {'tokens': np.zeros((1, 20), np.int32)}, 2)\n"
         "assert tuple(toks.shape) == (1, 22), toks.shape\n"
-        "params_shapes(get_smoke_config('qwen3-4b'))\n"
+        "ps = params_shapes(get_smoke_config('qwen3-4b'))\n"
+        "import torch.distributed\n"
+        "from repro_torch.sharding import rules as R\n"
+        "from repro_torch.launch.mesh import make_production_mesh\n"
+        "from repro_torch.launch.input_specs import batch_specs\n"
+        "from repro_torch.launch.dryrun import active_param_count\n"
+        "from repro_torch.runtime.elastic import choose_mesh_shape\n"
+        "R.tree_shardings(ps, make_production_mesh(), R.PARAM_RULES)\n"
+        "assert choose_mesh_shape(240, 16) == (15, 16)\n"
         "ds = get_smoke_config('deepseek-v2-236b')\n"
         "dp = T.init_params(0, ds, device='cpu')\n"
         "toks = generate(dp, ds, {'tokens': np.zeros((2, 8), np.int32)}, 2)\n"
@@ -148,7 +157,7 @@ def test_sources_name_neither_jax_nor_repro():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     for sub in ("obs", "resilience", "runtime", "integrity", "serving",
-                "models", "launch", "configs"):
+                "models", "launch", "configs", "sharding"):
         scanned = [f for f in files if f.parent == PKG / sub]
         assert len(scanned) >= 2, sub
     assert PKG / "ioutil.py" in files
@@ -164,8 +173,8 @@ def test_sources_name_neither_jax_nor_repro():
 def test_check_ported_names_each_family_s_roadmap_item():
     """Every family is ported (dense, MoE, MLA, RG-LRU, SSD, and the
     vision and audio ones with cross attention): ``check_ported`` accepts
-    all ten archs; the one part left, sharding, raises naming its current
-    ROADMAP Queue A item."""
+    all ten archs; the part that was left, sharding, is ported too: no
+    ROADMAP item is named any more."""
     from repro_torch.configs import arch_names, get_config, get_smoke_config
     from repro_torch.models import transformer as T
     names = arch_names()
@@ -173,11 +182,10 @@ def test_check_ported_names_each_family_s_roadmap_item():
     for name in names:
         for cfg in (get_config(name), get_smoke_config(name)):
             assert T.check_ported(cfg) is cfg
-    assert set(T._UNPORTED) == {"sharding"}
-    with pytest.raises(NotImplementedError) as err:
-        T._no_sharding("data", None)
-    assert "ROADMAP.md Queue A item 5 (sharding on a DeviceMesh)" in str(
-        err.value)
+    assert not hasattr(T, "_UNPORTED") and not hasattr(T, "_no_sharding")
+    for name in ("sharding/rules.py", "launch/mesh.py", "launch/dryrun.py",
+                 "launch/input_specs.py", "runtime/elastic.py"):
+        assert "Queue A item" not in (PKG / name).read_text(), name
 
 
 def test_default_engine_needs_the_card(monkeypatch):

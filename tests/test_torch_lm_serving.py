@@ -227,6 +227,25 @@ def test_haloc_axa_logits_equal_reference(name, seed):
     np.testing.assert_array_equal(f32(tf), ref_steps_)
 
 
+@pytest.mark.parametrize("name,seed", [(n, s) for n in (
+    "gemma3-27b", "recurrentgemma-9b") for s in (1, 2, 3, 4)])
+def test_exact_add_logits_equal_reference_with_a_suffix(name, seed):
+    """With exact adds a suffix block's last residual sum reaches the
+    final norm unrounded (XLA fuses them; the pattern's scan carry is
+    rounded), and so does each suffix block's into the next one's first
+    norm: full-mode and teacher-forced logits equal, bit for bit (ROADMAP
+    Queue C 2, closed)."""
+    tree, toks, ref_steps_, _, ref_full, _ = (
+        reference_run(name, "off") if seed == 1
+        else reference_run(name, "off", seed))
+    cfg = port_cfg(name, "off")
+    params = W.from_reference(tree, cfg, device=CPU)
+    full, _, _ = T.forward(params, cfg, {"tokens": toks[:, :-1]})
+    np.testing.assert_array_equal(f32(full), ref_full)
+    tf = teacher_forced_logits(params, cfg, toks, PROMPT)
+    np.testing.assert_array_equal(f32(tf), ref_steps_)
+
+
 @pytest.mark.parametrize("adder", ("off", "haloc_axa"))
 @pytest.mark.parametrize("name", ARCHS)
 def test_prefill_decode_parity_on_the_port(name, adder):

@@ -183,8 +183,13 @@ def test_moe_shard_map_falls_back_without_a_mesh():
     a, aux_a = MOE.moe_apply_shard_map(p, cfg, x)
     b, aux_b = MOE.moe_apply(p, cfg, x)
     assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        MOE.moe_apply_shard_map(p, cfg, x, batch_axes="data", mesh=object())
+    # a "model" axis that does not divide the experts: the reference's
+    # fallback too
+    from repro_torch.sharding.rules import MeshShape
+    c, aux_c = MOE.moe_apply_shard_map(
+        p, cfg, x, batch_axes=("data",),
+        mesh=MeshShape(("data", "model"), (1, 3)))
+    assert torch.equal(c, b) and torch.equal(aux_c, aux_b)
 
 
 def test_deepseek_exact_add_logits_equal_reference_at_seed_3():

@@ -223,13 +223,18 @@ def test_launch_train_main_on_the_cpu(capsys):
         in line
 
 
-def test_mesh_and_model_parallel_raise():
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+def test_mesh_and_model_parallel_raise(capsys):
+    """Without ranks a mesh cannot run: the launcher's
+    ``--model-parallel 2`` outside ``torch.distributed.run`` is a usage
+    error naming it, and the loop refuses an abstract mesh."""
+    from repro_torch.sharding.rules import MeshShape
+    with pytest.raises(SystemExit):
         train_launcher.main(["--smoke", "--model-parallel", "2",
                              "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        run(CFG, OPT, DATA, TrainLoopConfig(total_steps=1), mesh=object(),
-            device=CPU)
+    assert "torch.distributed.run" in capsys.readouterr().err
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        run(CFG, OPT, DATA, TrainLoopConfig(total_steps=1),
+            mesh=MeshShape(("data", "model"), (2, 1)), device=CPU)
 
 
 def test_defaults_raise_without_a_card(monkeypatch, tmp_path):

@@ -1,0 +1,469 @@
+"""The port's ranks for ``test_torch_sharding.py``: gloo process groups
+of CPU ranks spawned with ``torch.multiprocessing``, each running the
+jobs named at its start and saving what it found to ``OUT/<job>.<rank>.pt``
+(``torch.save``), which the test reads.  Nothing here imports jax or
+``repro``: the reference's inputs come in as a pickle of numpy arrays
+(``torch_mesh_reference.py``'s ``.inputs``).
+"""
+
+import dataclasses
+import os
+import pickle
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+#: qwen3-4b-smoke's three-step cases on the (1, 2) mesh: (adder, clip).
+STEP_CASES = (("off", 1e9), ("haloc_axa", 1e9), ("off", 1.0),
+              ("haloc_axa", 1.0))
+STEPS = 3
+#: The prefill/decode case: prompt length, decode steps, context.
+PROMPT, NEW, CTX = 12, 4, 16
+
+
+def start(jobs, world, out_dir, ref_path):
+    """The ranks of ``jobs`` (a tuple of names), started and not joined:
+    ``torch.multiprocessing``'s context (``join()`` it)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    import torch.multiprocessing as mp
+    return mp.start_processes(_rank_main, args=(world, port, jobs, out_dir,
+                                                ref_path),
+                              nprocs=world, join=False,
+                              start_method="spawn")
+
+
+def _rank_main(rank, world, port, jobs, out_dir, ref_path):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    ref = None
+    try:
+        for job in jobs:
+            t0 = time.perf_counter()
+            if job in NEEDS_REF and ref is None:
+                with open(ref_path, "rb") as f:
+                    ref = pickle.load(f)
+            out = JOBS[job](ref) if job in NEEDS_REF else JOBS[job]()
+            out["seconds"] = time.perf_counter() - t0
+            torch.save(out, os.path.join(out_dir, f"{job}.{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+# ------------------------------------------------------------- helpers --
+
+def cfg_of(arch, adder="off", shard_map=False):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.numerics.approx_ops import make_numerics
+    cfg = get_smoke_config(arch)
+    if adder != "off":
+        cfg = cfg.with_approx(make_numerics(adder, "residual",
+                                            backend="torch", device="cpu"))
+    if shard_map:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, use_shard_map=True))
+    return cfg
+
+
+def mesh_of(shape, axes=("data", "model")):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
+
+
+def full_leaves(tree):
+    from repro_torch.sharding import rules as R
+    from repro_torch.tree import leaves
+    return [R.full_tensor(t).detach().clone() for t in leaves(tree)]
+
+
+def ref_key(path):
+    """The reference's ``keystr`` of a port state path (the repeat index
+    of a pattern leaf dropped) and that index (None elsewhere)."""
+    keys, rep = [], None
+    skip = None
+    for i, k in enumerate(path):
+        if k == "pattern":
+            skip = i + 2
+        if i == skip:
+            rep = k
+            continue
+        keys.append(f"[{k}]" if isinstance(k, int) else f"['{k}']")
+    return "".join(keys), rep
+
+
+def case_batch(vocab, b=4, s=32, seed=7):
+    """``torch_mesh_reference.case_batch``'s inputs."""
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, vocab, (b, s)).astype(np.int32),
+            "labels": rng.integers(0, vocab, (b, s)).astype(np.int32)}
+
+
+def first_moe_mlp(params, cfg):
+    """``torch_mesh_reference.first_moe_mlp``: the first MoE block's MLP
+    (repeat 0) of the reference's stacked tree."""
+    def first(tree):
+        if isinstance(tree, dict):
+            return {k: first(v) for k, v in tree.items()}
+        return tree[0]
+
+    i = next(j for j, s in enumerate(cfg.pattern) if s.mlp == "moe")
+    return first(params["pattern"][i]["mlp"])
+
+
+def port_params(ref_params, cfg):
+    from repro_torch.models import weights as W
+    return W.from_reference(ref_params, cfg, device="cpu")
+
+
+# ---------------------------------------------------------------- jobs --
+
+def job_placements(ref):
+    """Each rank's local shard of every state leaf on the (2, 2) and
+    (2, 2, 1) meshes against the reference's shard at the same mesh
+    coordinate: {(arch, mesh): (leaves equal, leaves, first differing)}."""
+    from repro_torch.models import weights as W
+    from repro_torch.sharding import rules as R
+    from repro_torch.tree import leaves_with_paths
+    meshes = {"2x2": ((2, 2), ("data", "model")),
+              "2x2x1": ((2, 2, 1), ("pod", "data", "model"))}
+    out = {}
+    for arch in ("qwen3-4b", "granite-moe-1b-a400m"):
+        cfg = cfg_of(arch)
+        full = W.state_from_reference(ref["shards"][(arch, "full")], cfg,
+                                      device="cpu")
+        for name, (shape, axes) in meshes.items():
+            mesh = mesh_of(shape, axes)
+            placed = R.place_state(full, mesh)
+            want = ref["shards"][(arch, name)]
+            c = tuple(mesh.get_coordinate())
+            equal, total, first = 0, 0, None
+            for path, t in leaves_with_paths(placed):
+                key, rep = ref_key(path)
+                shard = np.asarray(want[key][c])
+                if rep is not None:
+                    shard = shard[rep]
+                got = R.local(t).numpy()
+                ok = got.shape == shard.shape and got.dtype == shard.dtype \
+                    and got.tobytes() == shard.tobytes()
+                equal += ok
+                total += 1
+                if not ok and first is None:
+                    first = (key, rep, got.shape, shard.shape)
+            out[(arch, name)] = (equal, total, first)
+    return out
+
+
+def job_moe(ref):
+    """``moe_apply_shard_map`` on the (2, 2) mesh for both MoE smoke
+    configs: this rank's rows of the output and the aux."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import weights as W
+    from repro_torch.tree import tree_map
+    mesh = mesh_of((2, 2))
+    out = {}
+    for arch in ("granite-moe-1b-a400m", "deepseek-v2-236b"):
+        cfg = cfg_of(arch, shard_map=True)
+        p = tree_map(lambda a: W.to_tensor(a, "cpu"),
+                     first_moe_mlp(ref["params"][arch], cfg))
+        x = torch.from_numpy(np.array(ref["moe_x"][arch])).to(torch.bfloat16)
+        rows = x.shape[0] // 2
+        r = mesh.get_local_rank("data")
+        with torch.no_grad():
+            y, aux = MOE.moe_apply_shard_map(
+                p, cfg, x[r * rows:(r + 1) * rows], batch_axes=("data",),
+                mesh=mesh)
+        out[arch] = (r, y.float().numpy(), float(aux))
+    return out
+
+
+def _grads(ref, arch, shape, shard_map=False):
+    from repro_torch.launch import steps
+    from repro_torch.sharding import rules as R
+    cfg = cfg_of(arch, shard_map=shard_map)
+    mesh = mesh_of(shape)
+    params = port_params(ref["params"][arch], cfg)
+    placed = R.place(params, R.tree_shardings(params, mesh, R.PARAM_RULES),
+                     mesh)
+    batch, axes = steps.split_batch(case_batch(cfg.vocab_size), mesh,
+                                    R.batch_axes(mesh))
+    (loss, parts), grads = steps.value_and_grad(placed, cfg, batch, axes,
+                                                mesh)
+    return float(loss), float(parts["aux"]), \
+        [g.numpy() for g in full_leaves(grads)]
+
+
+def job_grads4(ref):
+    """Losses and gradients on the (2, 2) mesh: both configs, granite
+    also with the expert-parallel MoE."""
+    return {("qwen3-4b", "2x2", False): _grads(ref, "qwen3-4b", (2, 2)),
+            ("granite-moe-1b-a400m", "2x2", False):
+                _grads(ref, "granite-moe-1b-a400m", (2, 2)),
+            ("granite-moe-1b-a400m", "2x2", True):
+                _grads(ref, "granite-moe-1b-a400m", (2, 2), True)}
+
+
+def job_grads2(ref):
+    """Losses and gradients on the (2, 1) mesh, both configs."""
+    return {(arch, "2x1", False): _grads(ref, arch, (2, 1))
+            for arch in ("qwen3-4b", "granite-moe-1b-a400m")}
+
+
+def train_steps(cfg, opt, mesh, batches, seed=1):
+    """``init_state(seed)``, placed on ``mesh`` when there is one, and
+    one train step a batch: ([(loss, grad_norm)], final full leaves,
+    step 1's (loss, full gradients))."""
+    from repro_torch.launch import steps
+    from repro_torch.sharding import rules as R
+    state = steps.init_state(seed, cfg, opt, device="cpu")
+    ba = None
+    if mesh is not None:
+        state = R.place_state(state, mesh)
+        ba = R.batch_axes(mesh)
+    b0, axes = steps.split_batch(batches[0], mesh, ba)
+    (loss0, _), g0 = steps.value_and_grad(state["params"], cfg, b0, axes,
+                                          mesh)
+    first = (float(loss0), full_leaves(g0))
+    fn = steps.make_train_step(cfg, opt, batch_axes=ba, mesh=mesh)
+    rows = []
+    for b in batches:
+        state, met = fn(state, b)
+        rows.append((float(met["loss"]), float(met["grad_norm"])))
+    return rows, full_leaves(state), first
+
+
+def step_batches(cfg):
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    data = DataConfig(seq_len=32, global_batch=2, seed=5)
+    return [synthetic_batch(cfg, data, s) for s in range(STEPS)]
+
+
+def job_steps12():
+    """qwen3-4b-smoke's STEP_CASES on the (1, 2) mesh."""
+    from repro_torch.optim.adamw import AdamWConfig
+    mesh = mesh_of((1, 2))
+    out = {}
+    for adder, clip in STEP_CASES:
+        cfg = cfg_of("qwen3-4b", adder)
+        opt = AdamWConfig(warmup_steps=2, total_steps=10, clip_norm=clip)
+        out[(adder, clip)] = train_steps(cfg, opt, mesh, step_batches(cfg))
+    return out
+
+
+def job_serve21():
+    """Greedy tokens of the prefill and decode steps on the (2, 1) mesh
+    (qwen3-4b-smoke, haloc_axa, seed-1 parameters placed by the rules)."""
+    return {"tokens": serve_tokens(mesh_of((2, 1)))}
+
+
+def serve_tokens(mesh):
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules as R
+    cfg = cfg_of("qwen3-4b", "haloc_axa")
+    params = T.init_params(1, cfg, device="cpu", dtype=torch.bfloat16)
+    ba = None
+    if mesh is not None:
+        params = R.place(params, R.tree_shardings(params, mesh,
+                                                  R.PARAM_RULES), mesh)
+        ba = R.batch_axes(mesh)
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, cfg.vocab_size, (4, PROMPT)).astype(np.int64)
+    prefill = steps.make_prefill_step(cfg, CTX, batch_axes=ba, mesh=mesh)
+    decode = steps.make_decode_step(cfg, batch_axes=ba, mesh=mesh)
+    toks = []
+    with torch.no_grad():
+        logits, cache = prefill(params, {"tokens": torch.from_numpy(prompt)})
+        for i in range(NEW):
+            nxt = logits[:, -1].float().argmax(-1)[:, None]
+            toks.append(nxt)
+            logits, cache = decode(params, {"tokens": nxt}, PROMPT + i,
+                                   cache)
+    return torch.cat(toks, dim=1).numpy()
+
+
+#: The collectives counted against the dry run's plan, on (2, 2): (arch,
+#: expert-parallel MoE, step kind); the batch is ``case_batch``'s 4 x 32.
+COLLECTIVE_CASES = (("qwen3-4b", False, "train"),
+                    ("qwen3-4b", False, "prefill"),
+                    ("qwen3-4b", False, "decode"),
+                    ("granite-moe-1b-a400m", True, "train"),
+                    ("granite-moe-1b-a400m", True, "prefill"))
+#: The context of the counted prefill and decode steps.
+COLLECTIVE_CTX = 48
+#: torch's collective ops (the functional ones DTensor issues and the
+#: c10d ones of ``torch.distributed``'s calls) by the dry run's names.
+COLLECTIVE_OPS = {"all_gather_into_tensor": "all-gather",
+                  "_allgather_base_": "all-gather",
+                  "allgather_": "all-gather",
+                  "reduce_scatter_tensor": "reduce-scatter",
+                  "_reduce_scatter_base_": "reduce-scatter",
+                  "reduce_scatter_": "reduce-scatter",
+                  "all_reduce": "all-reduce", "allreduce_": "all-reduce"}
+
+
+def counting_mode():
+    """A dispatch mode that counts every collective op run under it, with
+    the bytes of its result, as the dry run's plan does; other c10d ops
+    but the waits and autograd wrappers are kept by name."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.plan = {op: {"count": 0, "bytes": 0}
+                         for op in ("all-gather", "reduce-scatter",
+                                    "all-reduce")}
+            self.other = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.namespace in ("_c10d_functional", "c10d"):
+                name = func._schema.name.split("::")[1]
+                if name in COLLECTIVE_OPS:
+                    res = out
+                    while isinstance(res, (list, tuple)):
+                        res = res[0]
+                    rec = self.plan[COLLECTIVE_OPS[name]]
+                    rec["count"] += 1
+                    rec["bytes"] += res.numel() * res.element_size()
+                elif name not in ("wait_tensor", "_wrap_tensor_autograd"):
+                    self.other.append(name)
+            return out
+
+    return Count()
+
+
+def job_collectives():
+    """The collectives one train, prefill or decode step issues on the
+    (2, 2) mesh (COLLECTIVE_CASES; seed-1 fp32 parameters, the dry run's
+    dtype), counted on this rank: {case: (plan, other ops)}."""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import rules as R
+    mesh = mesh_of((2, 2))
+    ba = R.batch_axes(mesh)
+    out = {}
+    for arch, ep, kind in COLLECTIVE_CASES:
+        cfg = cfg_of(arch, shard_map=ep)
+        batch = case_batch(cfg.vocab_size)
+        count = counting_mode()
+        if kind == "train":
+            opt = AdamWConfig()
+            state = R.place_state(steps.init_state(1, cfg, opt,
+                                                   device="cpu"), mesh)
+            step = steps.make_train_step(cfg, opt, batch_axes=ba, mesh=mesh)
+            with count:
+                step(state, batch)
+        else:
+            p = T.init_params(1, cfg, device="cpu")
+            p = R.place(p, R.tree_shardings(p, mesh, R.PARAM_RULES), mesh)
+            tokens = torch.from_numpy(batch["tokens"]).long()
+            prefill = steps.make_prefill_step(cfg, COLLECTIVE_CTX,
+                                              batch_axes=ba, mesh=mesh)
+            with torch.no_grad():
+                if kind == "prefill":
+                    with count:
+                        prefill(p, {"tokens": tokens})
+                else:
+                    _, cache = prefill(p, {"tokens": tokens})
+                    decode = steps.make_decode_step(cfg, batch_axes=ba,
+                                                    mesh=mesh)
+                    with count:
+                        decode(p, {"tokens": tokens[:, :1]},
+                               tokens.shape[1], cache)
+        out[(arch, ep, kind)] = (count.plan, count.other)
+    return out
+
+
+def job_elastic():
+    """A placed qwen3-4b-smoke state saved on the (2, 1) mesh and
+    restored on (1, 2); ``reshard_state`` (2, 1) -> (1, 2) -> (2, 1)."""
+    import tempfile
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.launch import steps
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.sharding import rules as R
+    from repro_torch.tree import leaves
+    cfg = cfg_of("qwen3-4b")
+    opt = AdamWConfig()
+    full = steps.init_state(1, cfg, opt, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():   # m and v nonzero, so that a swap would show
+        for t in leaves(full["opt"]):
+            if t.is_floating_point():
+                t.copy_(torch.rand(t.shape, generator=gen))
+    want = full_leaves(full)
+    a, b = mesh_of((2, 1)), mesh_of((1, 2))
+    placed = R.place_state(full, a)
+    tmp = tempfile.mkdtemp() if dist.get_rank() == 0 else None
+    box = [tmp]
+    dist.broadcast_object_list(box, src=0)
+    ckpt = Checkpointer(box[0])
+    ckpt.save(5, placed)
+    R.barrier(a)
+    like = steps.state_shapes(cfg, opt)
+    restored = ckpt.restore(like, shardings=R.placed_state_specs(like, b),
+                            mesh=b)
+    got = full_leaves(restored)
+    back = reshard_state(reshard_state(placed, b), a)
+    return {"restore_equal": [torch.equal(x, y) for x, y in zip(got, want)],
+            "restore_on": [tuple(t.device_mesh.shape)
+                           for t in leaves(restored) if R.is_dtensor(t)][:1],
+            "reshard_equal": [torch.equal(x, y) for x, y in
+                              zip(full_leaves(back), want)],
+            "reshard_local": [torch.equal(R.local(x), R.local(y)) for x, y in
+                              zip(leaves(back), leaves(placed))]}
+
+
+def job_fault():
+    """The train loop on the (2, 1) mesh: 4 steps with a checkpoint
+    every 2 and a ``SimulatedFault`` at step 3, against the same loop
+    uninterrupted."""
+    import tempfile
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train_loop import (SimulatedFault,
+                                                TrainLoopConfig, run)
+    cfg = cfg_of("qwen3-4b", "haloc_axa")
+    opt = AdamWConfig(lr=5e-3, warmup_steps=2, total_steps=4)
+    data = DataConfig(seq_len=32, global_batch=2, seed=3)
+    mesh = mesh_of((2, 1))
+    box = [tempfile.mkdtemp() if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    fired = []
+
+    def hook(step):
+        if step == 3 and not fired:
+            fired.append(step)
+            raise SimulatedFault("lost a host")
+
+    def loop(ckpt_dir, fault_hook=None):
+        return run(cfg, opt, data, TrainLoopConfig(
+            total_steps=4, ckpt_every=2, log_every=1, ckpt_dir=ckpt_dir),
+            mesh=mesh, fault_hook=fault_hook)
+
+    whole = loop(None)
+    faulted = loop(box[0], hook)
+    return {"whole": [h["loss"] for h in whole["history"]],
+            "faulted": [(h["step"], h["loss"]) for h in faulted["history"]],
+            "failures": faulted["failures"],
+            "step": int(faulted["state"]["step"]),
+            "equal": [torch.equal(x, y) for x, y in
+                      zip(full_leaves(whole["state"]),
+                          full_leaves(faulted["state"]))]}
+
+
+JOBS = {"placements": job_placements, "moe": job_moe, "grads4": job_grads4,
+        "grads2": job_grads2, "steps12": job_steps12,
+        "serve21": job_serve21, "elastic": job_elastic, "fault": job_fault,
+        "collectives": job_collectives}
+NEEDS_REF = ("placements", "moe", "grads4", "grads2")
