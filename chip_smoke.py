@@ -27,8 +27,9 @@ Phases (any failure exits non-zero before the result line):
    ``compile_tiled`` at (256, 256), and ``run_corpus(backend="cuda")``.
    The kernels' launch counters are set to 0 just before and read just
    after; every kernel must have launched.  Every uint8 output must
-   equal the port's CPU path on the same batch, and tiled must equal
-   untiled.  The corpus table of the four images is range-checked;
+   equal the port's CPU path on the batch's first image (its two-input
+   operators given the card's partner, the last image), and tiled must
+   equal untiled.  The corpus table of the four images is range-checked;
    ``run_corpus`` on the first image must give every (kind, workload)
    row of the CPU path's ``run_corpus`` on it, PSNR and SSIM equal;
    ``scaled_add`` and ``accumulate_signed`` must run one kernel each
@@ -375,6 +376,25 @@ one NCCL rank (a ``HashStore``), under deterministic algorithms:
    qwen3-4b --smoke --steps 2`` exits 0 and prints its line (started after the
    build, beside phases 3-4c, with phase 4k's (g)).
 
+The entry-point slice adds phase 4m, its counts set to 0 just before each
+counted run and read just after (their launches join the ``kernels``
+line):
+
+4m. the six examples through their ``main`` on the card: quickstart (its
+   residual add's ``approx_add``), adder_design_space, image_reconstruction
+   at 512 (``fft_axis``), approx_mac at 256 (``conv2d_mac``), serve_decode
+   (``--arch qwen3-4b --temperature 0 --new-tokens 4``, ``approx_add``)
+   and train_approx_lm at its full default width for 10 steps, both
+   adders (``approx_add``), and the three deprecated shims of
+   ``kernels.ops`` (``approx_add``, ``approx_matmul``, ``butterfly``).
+   The same calls with ``--backend torch`` on the card equal them bit for
+   bit (quickstart's figures, the PSNR/SSIM, the MAC outputs, the greedy
+   tokens, the shims' outputs, and under deterministic algorithms the
+   train example's first 3 losses); image_reconstruction and approx_mac
+   at 128 and quickstart equal the CPU path; each example's wall seconds
+   and the train example's step ms, tokens/s and losses at steps 1 and 10
+   are printed beside the card's name and power limit.
+
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 run from a directory without ``src/repro_torch``, it exits non-zero and
@@ -382,6 +402,7 @@ prints no result.
 """
 
 import contextlib
+import io
 import json
 import os
 import pathlib
@@ -1295,10 +1316,13 @@ def check_mac_kernels(torch, np, dev, errs):
 
 # ------------------------------------------------------------- phase 4 --
 
-def run_main_path(torch, np, batch, backend=None, device=None, corpus=True):
+def run_main_path(torch, np, batch, backend=None, device=None, corpus=True,
+                  pair=None):
     """The slice through the entry points a user calls; returns the
     outputs (tensors on the engine's device) and the corpus rows (None
-    without ``corpus``)."""
+    without ``corpus``).  The two-input operators take each image with
+    the batch's previous one (``pair``: those second inputs, when
+    ``batch`` is a head of the batch)."""
     from repro_torch.core.specs import TABLE1_KINDS
     from repro_torch.imgproc import (OPERATORS, PIPELINES, compile_pipeline,
                                      compile_tiled, make_image_engine,
@@ -1316,7 +1340,7 @@ def run_main_path(torch, np, batch, backend=None, device=None, corpus=True):
                 outs[("pipe", pname, requant, kind)] = pipe(batch)
     ax = make_image_engine("haloc_axa", **where)
     x = ax.tensor(batch)
-    pair = torch.roll(x, 1, dims=0)
+    pair = torch.roll(x, 1, dims=0) if pair is None else ax.tensor(pair)
     for name, op in sorted(OPERATORS.items()):
         args = (x, pair) if op.n_inputs == 2 else (x,)
         outs[("op", name)] = op.fn(*args, ax)
@@ -1421,9 +1445,10 @@ def check_outputs(torch, np, outs, cpu_outs, rows, size):
     exact operators."""
     for key, got in outs.items():
         want = cpu_outs[key]
+        n = want.shape[0]           # the CPU path runs the batch's head
         check(got.device.type == "cuda", f"{key} did not run on the card")
-        check(tuple(got.shape) == tuple(want.shape)
-              and torch.equal(got.cpu(), want),
+        check(tuple(got.shape[1:]) == tuple(want.shape[1:])
+              and torch.equal(got[:n].cpu(), want),
               f"{key}: the card's output differs from the CPU path")
     check(torch.equal(outs[("tiled",)],
                       outs[("pipe", "pipe_blur_sharpen_down", "fused",
@@ -4991,6 +5016,214 @@ def sharding_phase(torch, np, dev, counts, card):
     return total
 
 
+# ------------------------------------------------------------ phase 4m --
+
+#: Phase 4m's cells: the six examples through their ``main`` (the
+#: documented entry points), on the card; the image and MAC examples also
+#: at ENTRY_CPU_SIZE, against the CPU path; the train example at its full
+#: default width (d_model 512, 8 layers, vocab 32768, batch 8 x 256) for
+#: ENTRY_TRAIN_STEPS steps, its first ENTRY_TRAIN_CHECK against the plain
+#: path; the three deprecated shims at ENTRY_SHIM_* shapes.
+ENTRY_PATH_KERNELS = ("approx_add", "fft_axis", "conv2d_mac",
+                      "approx_matmul", "butterfly")
+ENTRY_IMAGE_SIZE, ENTRY_MAC_SIZE, ENTRY_CPU_SIZE = 512, 256, 128
+ENTRY_TRAIN_STEPS, ENTRY_TRAIN_CHECK = 10, 3
+ENTRY_TRAIN_TOKENS = 8 * 256
+ENTRY_SERVE = ["--arch", "qwen3-4b", "--temperature", "0",
+               "--new-tokens", "4"]
+ENTRY_SHIM_ROWS, ENTRY_SHIM_HALF = 64, 512
+ENTRY_SHIM_GEMM = 512
+
+
+def same_quickstart(np, a, b):
+    """Every figure of two quickstart runs equal."""
+    fields = ("n_samples", "med", "mred", "nmed", "error_rate", "wce")
+    return (a["add_full"] == b["add_full"] and a["hw"] == b["hw"]
+            and a["error_distances"] == b["error_distances"]
+            and all(tuple(getattr(x, f) for f in fields)
+                    == tuple(getattr(y, f) for f in fields)
+                    for x, y in zip(a["reports"], b["reports"], strict=True))
+            and np.array_equal(a["residual_add"], b["residual_add"]))
+
+
+def same_mac(np, a, b):
+    return a["rows"] == b["rows"] and all(
+        np.array_equal(a["outputs"][k], b["outputs"][k]) for k in a["outputs"])
+
+
+def shim_operands(torch, np, dev):
+    rng = np.random.default_rng(26)
+    n16 = [torch.as_tensor(rng.integers(0, 1 << 16, (4, 256, 256)),
+                           dtype=torch.int32, device=dev) for _ in range(2)]
+    a8, b8 = (torch.as_tensor(rng.integers(-128, 128, (ENTRY_SHIM_GEMM,) * 2),
+                              dtype=torch.int8, device=dev) for _ in range(2))
+    planes = [torch.as_tensor(rng.integers(-(1 << 20), 1 << 20, (
+        ENTRY_SHIM_ROWS, ENTRY_SHIM_HALF)), dtype=torch.int32, device=dev)
+        for _ in range(4)]
+    tw = [torch.as_tensor(rng.integers(-(1 << 14), 1 << 14, ENTRY_SHIM_HALF),
+                          dtype=torch.int32, device=dev) for _ in range(2)]
+    return n16, (a8, b8), planes + tw
+
+
+def run_shims(torch, ops, operands, **where):
+    import warnings
+    from repro_torch.core.specs import paper_spec
+    n16, (a8, b8), bf = operands
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        return (ops.approx_add(*n16, paper_spec("haloc_axa", 16, 8, 4),
+                               **where),
+                ops.approx_matmul(a8, b8, paper_spec("haloc_axa"), **where),
+                ops.butterfly(*bf, paper_spec("haloc_axa"), **where))
+
+
+def train_figures(np, hist):
+    """Step ms (median of the steps after the first), tokens/s and the
+    losses at steps 1 and ENTRY_TRAIN_STEPS of one adder's history."""
+    ms = float(np.median([h["dt"] for h in hist[1:]])) * 1e3
+    return ms, ENTRY_TRAIN_TOKENS / (ms / 1e3), hist[0]["loss"], \
+        hist[-1]["loss"]
+
+
+def entry_points_phase(torch, np, dev, counts, card):
+    """Phase 4m: the six examples and the three deprecated shims through
+    their entry points on the card, each kernel path against its plain
+    path on the card bit for bit, the image, MAC and quickstart figures
+    against the CPU path; returns the counted launches."""
+    import shutil
+    from repro_torch.examples import (adder_design_space, approx_mac,
+                                      image_reconstruction, quickstart,
+                                      serve_decode, train_approx_lm)
+    from repro_torch.kernels import ops
+    total = {name: 0 for name in ENTRY_PATH_KERNELS}
+    secs = {}
+    plain = ["--backend", "torch"]
+    cpu = ["--device", "cpu"]
+
+    def quiet(module, argv):
+        """``module.main(argv)`` with its printout dropped (the runs that
+        a counted run is compared with)."""
+        with contextlib.redirect_stdout(io.StringIO()):
+            return module.main(argv)
+
+    def counted(module, kernels, argv):
+        name = module.__name__.rsplit(".", 1)[-1]
+        t0 = time.perf_counter()
+        out, launches = run_counted(torch, counts, kernels,
+                                    lambda: module.main(argv),
+                                    f"entry point {name}")
+        secs[name] = time.perf_counter() - t0
+        for k in total:
+            total[k] += launches[k]
+        return out
+
+    # quickstart: the residual add's approx_add
+    q = counted(quickstart, ("approx_add",), [])
+    check(same_quickstart(np, q, quiet(quickstart, plain)),
+          "quickstart: the kernel path's figures differ from the plain "
+          "path's on the card")
+    check(same_quickstart(np, q, quiet(quickstart, cpu)),
+          "quickstart: the card's figures differ from the CPU path's")
+    log("  quickstart: every figure equal on the plain path and the CPU")
+    # the design space (exact analytics on the card: no kernel)
+    t0 = time.perf_counter()
+    ds = adder_design_space.main([])
+    secs["adder_design_space"] = time.perf_counter() - t0
+    n_rows = sum(k <= m - 2 for m in adder_design_space.LSM_BITS
+                 for k in (0, m // 4, m // 2))
+    check(len(ds["rows"]) == n_rows and ds["frontier"] and all(
+        np.isfinite(v) for r in ds["rows"] for v in r[2:]),
+        f"adder_design_space rows: {ds['rows']}")
+    # Fig 5: fft_axis
+    out_dir = str(ROOT / "build" / "images_torch")
+    img = counted(image_reconstruction, ("fft_axis",),
+                  ["--size", str(ENTRY_IMAGE_SIZE), "--out", out_dir])
+    check(img["scores"] == quiet(image_reconstruction,
+        plain + ["--size", str(ENTRY_IMAGE_SIZE), "--out", out_dir])[
+        "scores"], "image_reconstruction: the kernel path's PSNR/SSIM "
+        "differ from the plain path's on the card")
+    small = ["--size", str(ENTRY_CPU_SIZE), "--out", out_dir]
+    check(quiet(image_reconstruction, small)["scores"]
+          == quiet(image_reconstruction, cpu + small)["scores"],
+          f"image_reconstruction at {ENTRY_CPU_SIZE}: the card differs "
+          f"from the CPU path")
+    log(f"  image_reconstruction: PSNR/SSIM equal on the plain path at "
+        f"{ENTRY_IMAGE_SIZE} and the CPU at {ENTRY_CPU_SIZE}")
+    # the MAC engine: conv2d_mac
+    mac = counted(approx_mac, ("conv2d_mac",), ["--size", str(ENTRY_MAC_SIZE)])
+    check(same_mac(np, mac, quiet(approx_mac,
+        plain + ["--size", str(ENTRY_MAC_SIZE)])),
+        "approx_mac: the kernel path's outputs differ from the plain path's")
+    msmall = ["--size", str(ENTRY_CPU_SIZE)]
+    check(same_mac(np, quiet(approx_mac, msmall),
+                   quiet(approx_mac, cpu + msmall)),
+          f"approx_mac at {ENTRY_CPU_SIZE}: the card differs from the CPU")
+    log(f"  approx_mac: outputs equal on the plain path at {ENTRY_MAC_SIZE}"
+        f" and the CPU at {ENTRY_CPU_SIZE}")
+    # serving: approx_add in the residual stream, greedy
+    srv = counted(serve_decode, ("approx_add",), ENTRY_SERVE)
+    check(torch.equal(srv["tokens"], quiet(serve_decode,
+        plain + ENTRY_SERVE)["tokens"]),
+        "serve_decode: the kernel path's greedy tokens differ from the "
+        "plain path's")
+    log(f"  serve_decode: greedy tokens {tuple(srv['tokens'].shape)} equal "
+        f"on the plain path")
+    # training at full width, both adders
+    ck = ROOT / "build" / "entry_train"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {}
+        for tag, extra, steps in (("kernel", [], ENTRY_TRAIN_STEPS),
+                                  ("plain", plain, ENTRY_TRAIN_CHECK)):
+            d = f"{ck}_{tag}"
+            for adder in ("haloc_axa", "off"):
+                shutil.rmtree(f"{d}_{adder}", ignore_errors=True)
+            argv = extra + ["--steps", str(steps), "--log-every", "1",
+                            "--ckpt-dir", d]
+            runs[tag] = counted(train_approx_lm, ("approx_add",), argv) \
+                if tag == "kernel" else quiet(train_approx_lm, argv)
+            for adder in ("haloc_axa", "off"):
+                shutil.rmtree(f"{d}_{adder}", ignore_errors=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for adder in ("haloc_axa", "off"):
+        k = [h["loss"] for h in runs["kernel"][adder]["history"]]
+        p = [h["loss"] for h in runs["plain"][adder]["history"]]
+        check(len(k) == ENTRY_TRAIN_STEPS and k[:ENTRY_TRAIN_CHECK] == p,
+              f"train_approx_lm {adder}: the kernel path's first "
+              f"{ENTRY_TRAIN_CHECK} losses {k[:ENTRY_TRAIN_CHECK]} differ "
+              f"from the plain path's {p}")
+        ms, tok_s, l1, l10 = train_figures(
+            np, runs["kernel"][adder]["history"])
+        log(f"  train_approx_lm adder={adder} "
+            f"({runs['kernel'][adder]['n_params']:,} parameters, batch "
+            f"8 x 256): {ms:.3f} ms a step (median of steps 2-"
+            f"{ENTRY_TRAIN_STEPS}), {tok_s:,.0f} tokens/s, loss "
+            f"{l1:.6f} at step 1, {l10:.6f} at step {ENTRY_TRAIN_STEPS}; "
+            f"first {ENTRY_TRAIN_CHECK} losses equal the plain path's "
+            f"[{card}]")
+    # the deprecated shims: approx_add, approx_matmul, butterfly
+    operands = shim_operands(torch, np, dev)
+    t0 = time.perf_counter()
+    got, launches = run_counted(
+        torch, counts, ("approx_add", "approx_matmul", "butterfly"),
+        lambda: run_shims(torch, ops, operands), "deprecated shims")
+    secs["kernels.ops shims"] = time.perf_counter() - t0
+    for k in total:
+        total[k] += launches[k]
+    want = run_shims(torch, ops, operands, backend="torch", device=dev)
+    flat = lambda r: [r[0], r[1], *r[2]]                      # noqa: E731
+    check(all(torch.equal(a, b) for a, b in zip(flat(got), flat(want),
+                                                 strict=True)),
+          "kernels.ops shims: the kernels differ from the plain path")
+    log("  kernels.ops approx_add (4, 256, 256) n16, approx_matmul "
+        f"{ENTRY_SHIM_GEMM}^3 int8, butterfly ({ENTRY_SHIM_ROWS}, "
+        f"{ENTRY_SHIM_HALF}) n32: equal to the plain path")
+    log("  wall seconds, each example's counted run: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()))
+    return total
+
+
 # ------------------------------------------------------------- phase 5 --
 
 def fold_ops(weights):
@@ -5746,6 +5979,7 @@ def main():
     log(f"phase 1: device {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"  nvidia-smi name, power.limit: {card}")
+    log(f"  phase 1 took {time.perf_counter() - t_start:.1f} s")
 
     from repro_torch.kernels import _build
     secs = _build.build_all()
@@ -5766,6 +6000,7 @@ def main():
     check_mac_kernels(torch, np, dev, errs)
 
     log("phase 4: the slice at full size")
+    t_phase = time.perf_counter()
     from repro_torch.imgproc import (PIPELINES, compile_pipeline,
                                      format_table, synthetic_batch)
     batch = synthetic_batch(N_IMAGES, FULL_SIZE)
@@ -5775,12 +6010,13 @@ def main():
         torch, counts, MAIN_PATH_KERNELS,
         lambda: run_main_path(torch, np, gbatch), "main path")
     t0 = time.perf_counter()
-    cpu_outs, _ = run_main_path(torch, np, torch.as_tensor(batch),
+    cpu_outs, _ = run_main_path(torch, np, torch.as_tensor(batch[:1]),
                                 backend="torch", device="cpu",
-                                corpus=False)
-    log(f"  CPU path: {time.perf_counter() - t0:.1f} s")
+                                corpus=False, pair=batch[-1:])
+    log(f"  CPU path (image 0): {time.perf_counter() - t0:.1f} s")
     check_outputs(torch, np, outs, cpu_outs, rows, FULL_SIZE)
-    log(f"  {len(outs)} outputs equal the CPU path; tiled == untiled")
+    log(f"  {len(outs)} outputs equal the CPU path on image 0; tiled == "
+        f"untiled")
     t0 = time.perf_counter()
     check_corpus(np, batch[:1])
     log(f"  run_corpus on image 0: every (kind, workload) PSNR and SSIM "
@@ -5797,8 +6033,10 @@ def main():
     per_call = {name: fn.launches for name, fn in counts.items()}
     log(f"  launches per stage-mode megapixel chain call: {per_call}")
     check_one_launch(torch, gbatch)
+    log(f"  phase 4 took {time.perf_counter() - t_phase:.1f} s")
 
     log("phase 4b: the Fig-5 FFT and lut path at full size")
+    t_phase = time.perf_counter()
     from repro_torch.core.specs import TABLE1_KINDS, paper_spec
     from repro_torch.image.pipeline import reconstruct, synthetic_image
     img = synthetic_image(FFT_SIZE)
@@ -5839,7 +6077,10 @@ def main():
     for line in format_table(f_rows).splitlines():
         log("    " + line)
 
+    log(f"  phase 4b took {time.perf_counter() - t_phase:.1f} s")
+
     log("phase 4c: the MAC path at full size")
+    t_phase = time.perf_counter()
     a8, b8 = gemm_operands(torch, np)
     (m_outs, m_rows), m_launches = run_counted(
         torch, counts, MAC_PATH_KERNELS,
@@ -5864,6 +6105,7 @@ def main():
     for line in format_table(m_rows).splitlines():
         log("    " + line)
 
+    log(f"  phase 4c took {time.perf_counter() - t_phase:.1f} s")
     finish_train_background(torch, dev, train_bg)
 
     log("phase 4d: Table 1, the Fig-6 design space and the Monte-Carlo "
@@ -5937,7 +6179,16 @@ def main():
         launches[name] += s_launches[name]
     log(f"  phase 4l took {time.perf_counter() - t0:.1f} s")
 
+    log("phase 4m: the entry points (the six examples and the deprecated "
+        "kernel shims; train_approx_lm at its full width)")
+    t0 = time.perf_counter()
+    m_launches = entry_points_phase(torch, np, dev, counts, card)
+    for name in ENTRY_PATH_KERNELS:
+        launches[name] += m_launches[name]
+    log(f"  phase 4m took {time.perf_counter() - t0:.1f} s")
+
     log("phase 5: times (CUDA events, median)")
+    t_phase = time.perf_counter()
     int32_ops_per_s = int32_rate(torch, dev)
     entries = measure(torch, np, dev, launches, errs, int32_ops_per_s)
     chain = time_chain(torch, gbatch)
@@ -5950,6 +6201,7 @@ def main():
     log("phase 5c: the MAC kernels' times")
     entries += measure_mac(torch, np, dev, launches, errs, int32_ops_per_s)
     time_conv3x3(torch, batch)
+    log(f"  phases 5-5c took {time.perf_counter() - t_phase:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

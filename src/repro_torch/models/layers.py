@@ -149,9 +149,12 @@ def xla_cpu_dot_order(m: int, k: int, n: int, *, lhs_t: bool = False,
     return 1, max(1, 32768 // n)
 
 
-def _chains(a: Tensor, b: Tensor, lo: int, hi: int, c: int) -> Tensor:
+def _chains(a: Tensor, b: Tensor, lo: int, hi: int, c: int,
+            fused: bool = False) -> Tensor:
     """sum_k a[..., :, k] b[..., k, :] over [lo, hi) in ``c`` chains (in
-    place: the same roundings, without a new tensor a product)."""
+    place: the same roundings, without a new tensor a product); ``fused``:
+    each product and add one FMA rounding (operands whose products fp32
+    does not hold exactly)."""
     body = hi - (hi - lo) % c
     shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-2] + (1,)) + (
         b.shape[-1],)
@@ -160,6 +163,10 @@ def _chains(a: Tensor, b: Tensor, lo: int, hi: int, c: int) -> Tensor:
     def chain(start, stop, step):
         acc = torch.zeros(shape, dtype=torch.float32, device=a.device)
         for j in range(start, stop, step):
+            if fused:
+                acc = _fma32(a[..., :, j:j + 1].expand(shape),
+                             b[..., j:j + 1, :].expand(shape), acc)
+                continue
             torch.mul(a[..., :, j:j + 1], b[..., j:j + 1, :], out=prod)
             acc.add_(prod)
         return acc
@@ -170,31 +177,35 @@ def _chains(a: Tensor, b: Tensor, lo: int, hi: int, c: int) -> Tensor:
     return accs[0].add_(chain(body, hi, 1)) if body < hi else accs[0]
 
 
-def _ordered_dot(a: Tensor, b: Tensor, lhs_t: bool, rhs_t: bool) -> Tensor:
+def _ordered_dot(a: Tensor, b: Tensor, lhs_t: bool, rhs_t: bool, *,
+                 fused: bool = False, order=None) -> Tensor:
+    """``a @ b`` in fp32 in XLA:CPU's order (``order``, else
+    :func:`xla_cpu_dot_order`'s); ``fused``: FMA chains (:func:`_chains`)."""
     a, b = a.float(), b.float()
     m, k = a.shape[-2:]
     n = b.shape[-1]
-    order = xla_cpu_dot_order(m, k, n, lhs_t=lhs_t, rhs_t=rhs_t)
+    if order is None:
+        order = xla_cpu_dot_order(m, k, n, lhs_t=lhs_t, rhs_t=rhs_t)
     if order is None:
         return a @ b
     lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
     per = max(1, CPU_CHUNK // (m * n))
     if math.prod(lead) <= per:
-        return _ordered_slices(a, b, order)
+        return _ordered_slices(a, b, order, fused)
     # a few slices at a time, so that their accumulators stay in the cache
     # (each output is its own sum: the same roundings in any grouping)
     a = a.expand(*lead, m, k).reshape(-1, m, k)
     b = b.expand(*lead, k, n).reshape(-1, k, n)
-    return torch.cat([_ordered_slices(x, y, order) for x, y in
+    return torch.cat([_ordered_slices(x, y, order, fused) for x, y in
                       zip(a.split(per), b.split(per))]).reshape(*lead, m, n)
 
 
-def _ordered_slices(a: Tensor, b: Tensor, order) -> Tensor:
+def _ordered_slices(a: Tensor, b: Tensor, order, fused: bool) -> Tensor:
     chains, block = order
     k = a.shape[-1]
     out = None
     for lo in range(0, k, block):
-        part = _chains(a, b, lo, min(k, lo + block), chains)
+        part = _chains(a, b, lo, min(k, lo + block), chains, fused)
         out = part if out is None else out + part
     return out
 
@@ -654,7 +665,7 @@ def _flash_fwd(q, k, v, qpos, kvpos, causal, window, chunk):
     """Online-softmax forward over KV chunks (a loop in place of the
     reference's scan), its exps, sums and the two running updates (FMAs)
     as XLA:CPU computes them.  Returns (out (b,h,sq,dv) fp32, lse
-    (b,h,sq); the lse's log is torch's)."""
+    (b,h,sq); on the CPU the lse's log is XLA's, :func:`xla_log32`)."""
     b, sq, h, d = q.shape
     dv = v.shape[-1]
     skv = k.shape[1]
@@ -672,11 +683,16 @@ def _flash_fwd(q, k, v, qpos, kvpos, causal, window, chunk):
         corr = exp32(m - m_new)
         l = fma32(l, corr, row_sum(p))
         # this product XLA takes as written: p [q, k] @ v [k, d]
-        pv = matmul(p.to(vci.dtype), vci.transpose(1, 2))
+        if q.device.type == "cpu" and q.dtype == torch.bfloat16:
+            pv = _flash_dot(p.to(vci.dtype), vci.transpose(1, 2),
+                            fused=False).to(vci.dtype)
+        else:
+            pv = matmul(p.to(vci.dtype), vci.transpose(1, 2))
         acc = fma32(acc, corr[..., None], pv.to(torch.float32))
         m = m_new
     l_safe = torch.clamp(l, min=1e-30)
-    return acc / l_safe[..., None], m + torch.log(l_safe)
+    log = xla_log32 if q.device.type == "cpu" else torch.log
+    return acc / l_safe[..., None], m + log(l_safe)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -701,8 +717,12 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, qpos, kvpos, out, lse = ctx.saved_tensors
         causal, window, chunk = ctx.args
         scale = q.shape[-1] ** -0.5
+        cpu = q.device.type == "cpu"
         g = g.float().transpose(1, 2)                   # (b, h, sq, dv)
-        delta = (g * out.float().transpose(1, 2)).sum(dim=-1)   # (b,h,sq)
+        go = g * out.float().transpose(1, 2)
+        # delta = rowsum(dO * O): on the CPU XLA's dot of one chain (the
+        # bf16-valued products are exact in fp32)
+        delta = _sequential_sum(go) if cpu else go.sum(dim=-1)  # (b,h,sq)
         qf = q.float().transpose(1, 2)                  # (b, h, sq, d)
         dq = torch.zeros_like(qf)
         dks, dvs = [], []
@@ -713,15 +733,62 @@ class _FlashAttention(torch.autograd.Function):
                                window=window)[:, None]
             p = exp32(s - lse[..., None])                # (b, h, sq, c)
             kf = kci.float().transpose(1, 2)             # (b, h, c, d)
-            dvs.append(p.transpose(2, 3) @ g)            # (b, h, c, dv)
-            dp = g @ vci.float().permute(0, 2, 3, 1)     # (b, h, sq, c)
+            vt = vci.float().permute(0, 2, 3, 1)         # (b, h, dv, c)
+            if not cpu:
+                dvs.append(p.transpose(2, 3) @ g)        # (b, h, c, dv)
+                dp = g @ vt                              # (b, h, sq, c)
+                ds = p * (dp - delta[..., None]) * scale
+                dq = dq + ds @ kf
+                dks.append(ds.transpose(2, 3) @ qf)      # (b, h, c, d)
+                continue
+            # the products as the reference's compiled VJP holds them:
+            # dv^T = g^T p, dp = g v^T, dq^T = k^T ds^T (ds held as [q, c]),
+            # dk^T = q^T ds; those with an fp32 operand as FMA chains
+            dvs.append(_t(_flash_dot(_t(g), p)))
+            dp = _ordered_dot(g, vt, False, False)
             ds = p * (dp - delta[..., None]) * scale
-            dq = dq + ds @ kf
-            dks.append(ds.transpose(2, 3) @ qf)          # (b, h, c, d)
+            # (ds^T materialized as [c, q] past XLA_ORDER_MAX_K rows)
+            dq = dq + _t(_flash_dot(_t(kf), _t(ds),
+                                    rhs_t=chunk <= XLA_ORDER_MAX_K))
+            dks.append(_t(_flash_dot(_t(qf), ds)))
         dk = torch.cat(dks, dim=2).transpose(1, 2)
         dv = torch.cat(dvs, dim=2).transpose(1, 2)
         return (dq.transpose(1, 2).to(q.dtype), dk.to(k.dtype),
                 dv.to(v.dtype), None, None, None, None, None)
+
+
+def _flash_dot(a: Tensor, b: Tensor, *, rhs_t: bool = False,
+               fused: bool = True) -> Tensor:
+    """A flash product on the CPU in XLA:CPU's order (``fused``: each
+    product fused into its add, for an fp32 operand).  Past the swept grid
+    (K > XLA_ORDER_MAX_K, or M > XLA_ORDER_WIDE_MN: a long sequence's
+    chunks) the orders read from the jitted VJP of a 1040-token sequence
+    (chunk 1024, 8 XLA threads): M > 50, the chains by width over the
+    whole K ((1040, 1024) @ (1024, 16)); 1 < M <= 50, N > 508 and K >=
+    128, one chain over each K block of the largest power of two at most
+    K / 2 (at most 512: the library splits K between threads), the
+    blocks' sums added in turn, and the last N % 64 columns one chain over
+    K ((16, 1040) @ (1040, 1024), (16, 1024) @ (1024, 1040); 200, 256, 600
+    and 2100 deep too).  Elsewhere torch's GEMM."""
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    order = xla_cpu_dot_order(m, k, n, rhs_t=rhs_t)
+    if order is None and m > 50 and not rhs_t:
+        chains = _chains_by_width(n, k)
+        order = None if chains is None else (chains, k)
+    elif order is None and 1 < m <= 50 and n > 508 and k >= 128 \
+            and not rhs_t:
+        # the last N % 64 columns one chain over the whole K
+        tail = n % 64
+        block = 1, min(512, 1 << ((k // 2).bit_length() - 1))
+        head = _ordered_dot(a, b[..., :n - tail], False, False, fused=fused,
+                            order=block)
+        if not tail:
+            return head
+        return torch.cat([head, _ordered_dot(
+            a, b[..., n - tail:], False, False, fused=fused, order=(1, k))],
+            dim=-1)
+    return _ordered_dot(a, b, False, rhs_t, fused=fused, order=order)
 
 
 def chunked_attention(q, k, v, qpos, kvpos, *, causal=True, window=0,
@@ -1014,7 +1081,7 @@ def _fma32_exact(a, b, c) -> Tensor:
 
 def _fma32_host(a: float, b: float, c: float) -> np.float32:
     """:func:`_fma32` of three host scalars."""
-    return np.float32(_fma32(*(torch.tensor(float(np.float32(t)),
+    return np.float32(_fma32(*(torch.tensor([float(np.float32(t))],
                                             dtype=torch.float32)
                                for t in (a, b, c))).item())
 
@@ -1089,6 +1156,43 @@ def _xla_log1p32(x: Tensor) -> Tensor:
 xla_log1p32 = _with_vjp(_xla_log1p32, lambda g, x, out: g / (x + 1))
 
 
+#: XLA:CPU's fp32 ``log`` (Cephes' ``logf``; the constants read from its
+#: machine code, jax 0.9.0, x86-64): x = m 2^e, m in [sqrt(1/2),
+#: sqrt(2)), and log(x) = t - t^2 / 2 + t^3 P(t) + e (LOG_HI + LOG_LO)
+#: with t = m - 1.
+LOG_SQRTHF = float.fromhex("0x1.6a09e6p-1")
+LOG_P = _hex("0x1.204376p-4", "-0x1.d7a37p-4", "0x1.de4a34p-4",
+             "-0x1.fcba9ep-4", "0x1.23d37ep-3", "-0x1.555cap-3",
+             "0x1.999d5ap-3", "-0x1.fffff8p-3", "0x1.555554p-2")
+LOG_HI, LOG_LO = 0.693359375, float.fromhex("-0x1.bd0106p-13")
+
+
+def xla_log32(x: Tensor) -> Tensor:
+    """XLA:CPU's fp32 ``log`` of a positive normal input (the flash
+    forward's log-sum-exp): the mantissa's bits, its polynomial in three
+    interleaved Horner chains, every multiply that feeds one add an FMA
+    (LLVM contracts them); elsewhere (0, subnormal, inf, nan) torch's.
+    Equal to the flash forward's fused ``log``; a lone jitted ``jnp.log``
+    differs from it in the last bit of about 3 inputs in 10^4.  Not
+    differentiable (the log-sum-exp is saved, not differentiated)."""
+    x = x.float()
+    b = x.view(torch.int32)
+    mant = ((b & 0x807FFFFF) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    e = ((b >> 23) - 127).float() + 1.0
+    low = mant < LOG_SQRTHF
+    e = e - low.float()
+    t = (mant - 1.0) + torch.where(low, mant, torch.zeros_like(mant))
+    z = t * t
+    t3 = z * t
+    y1 = fma32(fma32(t, LOG_P[0], LOG_P[1]), t, LOG_P[2])
+    y2 = fma32(fma32(t, LOG_P[3], LOG_P[4]), t, LOG_P[5])
+    y3 = fma32(fma32(t, LOG_P[6], LOG_P[7]), t, LOG_P[8])
+    y = fma32(fma32(fma32(y1, t3, y2), t3, y3), t3, e * LOG_LO)
+    out = fma32(LOG_HI, e, fma32(-0.5, z, t) + y)
+    ok = (x >= MIN_NORMAL) & (b < 0x7F800000)
+    return torch.where(ok, out, torch.log(x))
+
+
 #: XLA:CPU's fp32 ``tanh`` (Eigen's rational form): the argument clamped
 #: to +-TANH_CLAMP, x P(x^2) / Q(x^2); x itself below TANH_SMALL in
 #: magnitude, +-1 from TANH_ONE on.
@@ -1151,10 +1255,29 @@ def sqrt32(x: Tensor) -> Tensor:
     return torch.sqrt(x.float())
 
 
+def _lane_fma_row_sum(a: Tensor, b: Tensor) -> Tensor:
+    """sum(a * b) over the last axis as LLVM vectorizes XLA:CPU's row
+    reduction of a fused product (rows of XLA_REDUCE_WINDOW): lane i takes
+    an FMA of each element i mod XLA_LANES in turn, from 0 in lane 0 (-0
+    in the others); then the upper half of the lanes onto the lower, the
+    upper quarter, lane 1 onto lane 0."""
+    v = torch.full((*a.shape[:-1], XLA_LANES), -0.0, dtype=torch.float32)
+    v[..., 0] = 0.0
+    for j in range(0, a.shape[-1], XLA_LANES):
+        v = fma32(a[..., j:j + XLA_LANES], b[..., j:j + XLA_LANES], v)
+    while v.shape[-1] > 1:
+        half = v.shape[-1] // 2
+        v = v[..., :half] + v[..., half:]
+    return v[..., 0]
+
+
 class _SoftmaxCPU(torch.autograd.Function):
     """``e / sum(e)``, e = exp(x - max), and its backward as XLA:CPU
     computes the reference's (jax differentiates the composition): with
-    s = sum(e), ``(g / s - sum(g (1 / s^2) e)) e``."""
+    s = sum(e), ``(g / s - sum(g (1 / s^2) e)) e``; at 32 keys the sum's
+    product fused into it (:func:`_lane_fma_row_sum`, read from the
+    machine code of the qwen3-4b smoke attention's VJP); other row
+    lengths round the products and take :func:`row_sum` (not read)."""
 
     @staticmethod
     def forward(ctx, x):
@@ -1166,7 +1289,12 @@ class _SoftmaxCPU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         e, s = ctx.saved_tensors
-        r = row_sum((g * (1 / (s * s))) * e)[..., None]
+        gs = g * (1 / (s * s))
+        n = e.shape[-1]
+        if n == XLA_REDUCE_WINDOW:
+            r = _lane_fma_row_sum(gs, e)[..., None]
+        else:
+            r = row_sum(gs * e)[..., None]
         return (g / s + -r) * e
 
 

@@ -18,12 +18,11 @@ x86-64): divisions by constants taken as products with their fp32
 reciprocals, ``mh / (sqrt(vh) + eps)`` taken as ``m / (b1c * (sqrt(v /
 b2c) + eps))``, the C library's ``cosf`` and ``powf``, and the
 multiply-adds LLVM contracts done as one rounding (``layers.fma32``).
-Given the same gradients and states the update then equals the
-reference's bit for bit, except through the global norm: its sum of
-squares is XLA's vectorized reduction, which the port does not follow
-(the norm agrees to a few ulps; a clipped step's scale with it).  On the
-card the same expressions run as torch kernels (``fma32`` is
-``addcmul`` there).
+The global norm's sums of squares follow XLA:CPU's reductions
+(:func:`xla_sum_of_squares`), so given the same gradients and states the
+update equals the reference's bit for bit, clipped or not.  On the card
+the same expressions run as torch kernels (``fma32`` is ``addcmul``
+there) and each leaf's sum of squares is one ``torch.sum``.
 
 On a mesh (``launch.steps``' sharded step) the parameters, gradients,
 ``m`` and ``v`` are DTensors with one placement each: the update runs
@@ -126,9 +125,90 @@ def _sum_sharded(flat, sqs):
     return list(stacked.unbind())
 
 
+def _fma_square_chain(x: np.ndarray) -> np.float32:
+    """sum of x[i]^2 over x (fp32, row-major) from zero, each square and
+    add one FMA rounding: the fp64 sum rounded to fp32, and where that
+    double rounding can miss (an fp64 sum halfway between two fp32
+    values, or a result below the smallest normal) the exact
+    :func:`layers._fma32`."""
+    acc = np.float32(0)
+    for v in x.astype(np.float32):
+        s = np.float64(v) * np.float64(v) + np.float64(acc)
+        r = np.float32(s)
+        if (int(s.view(np.int64)) & 0x1FFFFFFF) == 0x10000000 or (
+                abs(r) < L.MIN_NORMAL and s != 0):
+            r = L._fma32_host(v, v, acc)
+        acc = r
+    return acc
+
+
+def xla_sum_of_squares(g: torch.Tensor) -> torch.Tensor:
+    """The fp32 ``jnp.sum(g.astype(f32) ** 2)`` of one leaf as XLA:CPU
+    computes it inside the reference's jitted update (jax 0.9.0, x86-64,
+    read from its optimized HLO and machine code; ``python
+    tools/xla_reduce_order.py`` holds this against XLA).  A leaf with
+    every dim at most XLA_REDUCE_WINDOW long is one fusion: each square an
+    FMA into one running sum from zero, row-major.  A longer leaf is
+    squared and rounded first, then reduced in windows of
+    XLA_REDUCE_WINDOW along each longer dim (the shorter dims whole), each
+    window one sequential sum in row-major order, again until no dim is
+    longer, and the windows' sums last in row-major order.  (Not followed:
+    LLVM vectorizes a window pass, the last reduction or a short leaf's
+    chain over its next-to-last dim when the last is 2-8 long and the
+    next 2, 4, 8 or 16-32; ROADMAP Queue C 20.)"""
+    x = g.detach().float().reshape(g.shape or (1,))
+    if max(x.shape) <= L.XLA_REDUCE_WINDOW:
+        return torch.tensor(_fma_square_chain(x.reshape(-1).numpy()))
+    x = (x * x)[..., None]
+    while max(x.shape[:-1]) > L.XLA_REDUCE_WINDOW:
+        x = L._sequential_sum(L._windows(x).transpose(-1, -2))
+    return L._sequential_sum(x.reshape(-1))
+
+
+def _reference_leaves(tree):
+    """The leaves in the reference's order and shapes: a pattern
+    position's blocks stacked along a leading dim, as ``repro`` holds
+    them (the port keeps them unstacked, ``params["pattern"][i][r]``)."""
+    if not (isinstance(tree, dict) and isinstance(tree.get("pattern"), list)):
+        return leaves(tree)
+    out = []
+    for k in sorted(tree):
+        if k != "pattern":
+            out += leaves(tree[k])
+            continue
+        for reps in tree[k]:
+            for path, _ in leaves_with_paths(reps[0]):
+                out.append(torch.stack([_at(r, path) for r in reps]))
+    return out
+
+
+def _at(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum, over the leaves in order, of each leaf's fp32 sum
-    of squares (a sharded leaf's summed over its shards)."""
+    of squares.  A tree on the CPU, unsharded, in the reference's order:
+    its leaves (:func:`_reference_leaves`), each sum XLA:CPU's
+    (:func:`xla_sum_of_squares`), added left to right as Python's
+    ``sum``.  On the card, or sharded, one ``torch.sum`` a leaf, a
+    sharded leaf's summed over its shards (:func:`_sum_sharded`)."""
+    flat = leaves(tree)
+    if not any(R.is_dtensor(g) for g in flat) \
+            and all(g.device.type == "cpu" for g in flat):
+        total = None
+        for g in _reference_leaves(tree):
+            sq = xla_sum_of_squares(g)
+            total = sq if total is None else total + sq
+        return L.sqrt32(total)
+    return torch_global_norm(tree)
+
+
+def torch_global_norm(tree) -> torch.Tensor:
+    """:func:`global_norm` as the card and a sharded tree take it (one
+    ``torch.sum`` a leaf, in the port's leaf order), on any device."""
     flat = leaves(tree)
     sqs = []
     for g in flat:

@@ -7,10 +7,11 @@
   salt, a scrub, a canary, ABFT, the detection campaign's helpers and a
   served plan; and the LM path: the launcher, the transformer, the
   numerics config, a windowed smoke model generating under haloc_axa,
-  an MLA + MoE smoke model, an RG-LRU and an SSD one generating)
+  an MLA + MoE smoke model, an RG-LRU and an SSD one generating; the
+  deprecated kernel shims and the examples, one of them run)
   and no source file under ``src/repro_torch`` (``obs``, ``resilience``,
   ``runtime``, ``integrity``, ``serving``, ``models``, ``launch``,
-  ``configs`` and ``sharding`` included, which import
+  ``configs``, ``sharding`` and ``examples`` included, which import
   ``torch.distributed``) names them;
 - a default engine asks for the card and raises without one, naming the
   explicit CPU spelling;
@@ -138,6 +139,10 @@ def test_import_and_cpu_pipeline_load_no_jax():
         "    rcp = T.init_params(0, rc, device='cpu')\n"
         "    toks = generate(rcp, rc, {'tokens': np.zeros((2, 9), np.int32)}, 2)\n"
         "    assert tuple(toks.shape) == (2, 11), toks.shape\n"
+        "import repro_torch.kernels.ops\n"
+        "from repro_torch.examples import (adder_design_space, approx_mac, "
+        "image_reconstruction, quickstart, serve_decode, train_approx_lm)\n"
+        "approx_mac.main(['--device', 'cpu', '--size', '16'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('LOADED', bad)\n"
@@ -157,13 +162,18 @@ def test_sources_name_neither_jax_nor_repro():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     for sub in ("obs", "resilience", "runtime", "integrity", "serving",
-                "models", "launch", "configs", "sharding"):
+                "models", "launch", "configs", "sharding", "examples"):
         scanned = [f for f in files if f.parent == PKG / sub]
         assert len(scanned) >= 2, sub
     assert PKG / "ioutil.py" in files
     for name in ("moe.py", "mla.py", "rglru.py", "ssd.py", "layers.py",
                  "transformer.py"):
         assert PKG / "models" / name in files
+    for name in ("quickstart.py", "adder_design_space.py",
+                 "image_reconstruction.py", "approx_mac.py",
+                 "serve_decode.py", "train_approx_lm.py"):
+        assert PKG / "examples" / name in files
+    assert PKG / "kernels" / "ops.py" in files
     for path in files:
         text = path.read_text()
         assert not pattern.search(text), path

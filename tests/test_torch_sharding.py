@@ -23,7 +23,8 @@ with ``XLA_FLAGS=--xla_force_host_platform_device_count=4``
 - the (1, 2) train steps (qwen3-4b-smoke, exact and haloc_axa): step 1's
   loss and gradients and, without clipping, every leaf, m and v after
   three steps equal the unsharded port's bit for bit; with the default
-  clip within ``CLIP_ULPS`` fp32 ulps (the sharded norm's order; 0
+  clip within ``CLIP_ULPS`` fp32 ulps of the unsharded port's steps
+  taking the sharded path's norm (``adamw.torch_global_norm``; 0
   measured);
 - data parallel, (2, 1) and (2, 2): losses within 1e-6 of the unsharded
   port's and of the reference's jitted with the same shardings (on
@@ -47,6 +48,7 @@ import pickle
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import jax
 import numpy as np
@@ -58,6 +60,7 @@ from repro.configs import get_config as ref_config
 from repro.configs import get_smoke_config as ref_smoke
 from repro.launch import steps as ref_steps
 from repro.optim.adamw import AdamWConfig as RefAdamWConfig
+from repro_torch.optim import adamw as port_adamw
 from repro.runtime.elastic import choose_mesh_shape as ref_choose
 from repro.sharding import rules as RR
 from repro_torch.configs import get_config, get_smoke_config
@@ -265,8 +268,15 @@ def runs(tmp_path_factory):
             cfg = TW.cfg_of("qwen3-4b", adder)
             opt = AdamWConfig(warmup_steps=2, total_steps=10,
                               clip_norm=clip)
-            cpu["steps"][(adder, clip)] = TW.train_steps(
-                cfg, opt, None, TW.step_batches(cfg))
+            # clipped, with the sharded path's global norm (one torch.sum
+            # a leaf): the unsharded CPU norm follows XLA:CPU's order,
+            # which no sum over shards reproduces
+            with mock.patch.object(
+                    port_adamw, "global_norm",
+                    port_adamw.torch_global_norm if clip < 1e9 else
+                    port_adamw.global_norm):
+                cpu["steps"][(adder, clip)] = TW.train_steps(
+                    cfg, opt, None, TW.step_batches(cfg))
         cpu["tokens"] = TW.serve_tokens(None)
         _wait_for(inputs, ref_proc)
         four = TW.start(("placements", "moe", "grads4", "collectives"), 4,

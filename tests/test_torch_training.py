@@ -15,9 +15,12 @@ on the CPU at the smoke sizes, on the same numpy-seeded inputs.
   ``rms_norm``'s and ``silu``'s VJPs the reference's, bit for bit; ``bf16_sum`` is
   XLA:CPU's bf16 reduction, bit for bit, and the gated product's
   gradients are jax's (the gate's within one ulp);
+- the attention mixer's VJP (qwen3-4b-smoke, 32 keys) equal to the
+  jitted reference's bit for bit;
 - the flash VJP against ``jax.vjp`` of the reference's
   ``chunked_attention`` (chunk 16, causal, windows 0 and 8): within 0.02
-  relative Frobenius error;
+  relative Frobenius error of the eager one, and bit for bit the jitted
+  one (and at 1040 tokens, two chunks of 1024);
 - (the ten archs' losses and gradients: ``test_torch_train_grads.py``)
 - one ``make_train_step`` from ``state_from_reference`` against the
   reference's jitted step (loss, ce, aux within the loss tolerance,
@@ -336,6 +339,71 @@ def test_flash_vjp_matches_reference(window):
     assert rel_fro(out.detach().float().numpy(), as_f32(want)) < 0.02
     for got, ref in zip((tq.grad, tk.grad, tv.grad), grads):
         assert rel_fro(got.float().numpy(), as_f32(ref)) < 0.02
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,chunk,window,seed", [
+    (2, 40, 4, 2, 16, 16, 0, 0), (2, 40, 4, 2, 16, 16, 8, 8),
+    (1, 1040, 2, 1, 16, 1024, 0, 1040)])
+def test_flash_vjp_equals_jitted_reference(b, s, h, hkv, d, chunk, window,
+                                           seed):
+    """dq, dk and dv equal the jitted reference VJP's bit for bit: the
+    backward's products in XLA:CPU's order and layouts (those with an fp32
+    operand as FMA chains), delta one chain, the log-sum-exp's log XLA's;
+    the last case is hubert-like, sq * skv > 1024^2 (two chunks of 1024,
+    the products past the swept grid)."""
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (jnp.asarray(rng.standard_normal(shape), jnp.bfloat16)
+                  for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d),
+                                (b, s, h, d)))
+    pos = jnp.arange(s, dtype=jnp.int32)
+
+    def vjp(q, k, v, g):
+        return jax.vjp(lambda q, k, v: RL.chunked_attention(
+            q, k, v, pos, pos, causal=True, window=window, chunk=chunk),
+            q, k, v)[1](g)
+
+    grads = jax.jit(vjp)(q, k, v, g)
+    tq, tk, tv = (W.to_tensor(np.asarray(t), CPU).requires_grad_()
+                  for t in (q, k, v))
+    tpos = torch.arange(s, dtype=torch.int32)
+    out = L.chunked_attention(tq, tk, tv, tpos, tpos, causal=True,
+                              window=window, chunk=chunk)
+    out.backward(W.to_tensor(np.asarray(g), CPU))
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), grads):
+        np.testing.assert_array_equal(got.float().numpy(), as_f32(ref))
+
+
+def test_attention_mixer_vjp_equals_jitted_reference():
+    """The attention mixer (``attn_apply``: q/k/v products, q/k norms,
+    RoPE, plain attention at 32 keys, the output product) of
+    qwen3-4b-smoke: the port's input and parameter gradients equal the
+    jitted reference VJP's bit for bit (the softmax backward's row sum as
+    XLA's vectorized FMA reduction, ``layers._lane_fma_row_sum``)."""
+    from repro.models import attention as RATT
+    rcfg, cfg = configs("qwen3-4b", "off")
+    spec, rspec = cfg.pattern[0], rcfg.pattern[0]
+    rp = RATT.attn_init(jax.random.key(1), rcfg, rspec)
+    b, s = 2, 32
+    rng = np.random.default_rng(0)
+    x, g = (jnp.asarray(rng.standard_normal((b, s, cfg.d_model)),
+                        jnp.bfloat16) for _ in range(2))
+    pos = jnp.arange(s, dtype=jnp.int32)
+
+    def vjp(p, x, g):
+        return jax.vjp(lambda p, x: RATT.attn_apply(p, rcfg, rspec, x, pos),
+                       p, x)[1](g)
+
+    rgp, rgx = jax.jit(vjp)(rp, x, g)
+    tp = jax.tree.map(lambda a: W.to_tensor(np.asarray(a), CPU)
+                      .requires_grad_(), rp)
+    tx = W.to_tensor(np.asarray(x), CPU).requires_grad_()
+    ATT.attn_apply(tp, cfg, spec, tx, torch.arange(s, dtype=torch.int32)
+                   ).backward(W.to_tensor(np.asarray(g), CPU))
+    np.testing.assert_array_equal(tx.grad.float().numpy(), as_f32(rgx))
+    for name in rp:
+        for leaf in rp[name]:
+            np.testing.assert_array_equal(tp[name][leaf].grad.numpy(),
+                                          as_f32(rgp[name][leaf]))
 
 
 # ---------------------------------------------------------- train step --
