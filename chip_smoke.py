@@ -354,9 +354,10 @@ launches join the ``kernels`` line), under deterministic algorithms
    which time nothing; they are joined before phase 4d.
 
 The sharding slice adds phase 4l, its counts set to 0 just before each
-of its two paths and read just after (their ``approx_add`` launches join
-the ``kernels`` line), on a (1, 1) ("data", "model") ``DeviceMesh`` over
-one NCCL rank (a ``HashStore``), under deterministic algorithms:
+of its paths and read just after (their ``approx_add`` launches join
+the ``kernels`` line), (a) and (b) on a (1, 1) ("data", "model")
+``DeviceMesh`` over one NCCL rank (a ``HashStore``), (d) on a (1, 2)
+mesh of two gloo ranks on the card, under deterministic algorithms:
 
 4l. (a) Qwen3-4B at full width cut to 4 layers (1,181,638,144 fp32
    parameters): the placed state's bytes on the card against the dry
@@ -374,7 +375,22 @@ one NCCL rank (a ``HashStore``), under deterministic algorithms:
    CPU path (exact, 0.08); (c) ``python -m torch.distributed.run
    --standalone --nproc-per-node 1 -m repro_torch.launch.train --arch
    qwen3-4b --smoke --steps 2`` exits 0 and prints its line (started after the
-   build, beside phases 3-4c, with phase 4k's (g)).
+   build, beside phases 3-4c, with phase 4k's (g)); (d) (a)'s loop with
+   compute over "model" tensor-parallel, on a (1, 2) mesh of two ranks
+   sharing the card (NCCL refuses two ranks on one device: a gloo group,
+   each rank a process of its own, ``chip_smoke.py --tp-rank``, its
+   counts set to 0 and read around its loop there): each rank's placed
+   state's bytes against the dry run's on (1, 2); 8 ``approx_add``
+   launches a step a rank and no other kernel; the two ranks' losses
+   equal bit for bit; the kernel's loop equal to the plain version's,
+   every leaf each rank holds, bit for bit; with exact adds the losses
+   within 1e-3 of (a)'s unsharded loop's and step 1's gathered gradient
+   leaves within 0.05 of the unsharded step's (the haloc_axa losses
+   printed beside the unsharded loop's); the step's ms split forward /
+   backward / update, a profiled step's launches and idle share and the
+   peak memory a rank, printed beside a line saying that gloo stages the
+   collectives through the host and the ranks share one card.  A rank
+   that cannot join or fails fails the phase.
 
 The entry-point slice adds phase 4m, its counts set to 0 just before each
 counted run and read just after (their launches join the ``kernels``
@@ -4776,6 +4792,13 @@ ALLOC_ROUND = 2 << 20
 SHARD_LAUNCHER = ["-m", "torch.distributed.run", "--standalone",
                   "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
                   "--arch", "qwen3-4b", "--smoke", "--steps", "2"]
+#: (d): the tensor-parallel train loop on a TP_MESH ("data", "model")
+#: mesh of two ranks on the one card (a gloo group: NCCL takes one rank a
+#: device), each a process of its own (``chip_smoke.py --tp-rank``),
+#: given TP_TIMEOUT seconds; its figures in TP_DIR.
+TP_MESH = (1, 2)
+TP_TIMEOUT = 600
+TP_DIR = ROOT / "build" / "tp_ranks"
 
 
 def one_rank_mesh(torch):
@@ -4915,7 +4938,7 @@ def sharded_train_case(torch, np, dev, counts, card, mesh):
         log(f"  (a) {label} sharded step: {step_ms:.3f} ms (wall, median of "
             f"3; {card}); a profiled step: {line}")
         torch.cuda.empty_cache()
-    return launches
+    return launches, losses
 
 
 def ep_prefill(torch, cfg, params, prompt, mesh):
@@ -4994,18 +5017,324 @@ def ep_prefill_case(torch, dev, counts, card, mesh):
     return launches
 
 
+def tp_local_equal(torch, a, b):
+    """Whether every leaf of two train states as this rank holds them
+    (its shards) is equal, bit for bit; the first differing leaf's
+    index or None."""
+    from repro_torch.sharding import rules as R
+    from repro_torch.tree import leaves
+    for i, (x, y) in enumerate(zip(leaves(a), leaves(b), strict=True)):
+        if not torch.equal(R.local(x), R.local(y)):
+            return i
+    return None
+
+
+def tp_grads_against_unsharded(torch, cfg, mesh, dev):
+    """(d)'s step-1 gradients: the unsharded step's (the whole state on
+    this rank) against the tensor-parallel step's on the same seed-0
+    parameters and first batch; each leaf's squared difference and
+    squared norm summed over its "model" shards (one all-reduce), so that
+    each rank returns every leaf's relative error of the gathered
+    gradient.  Returns (unsharded loss, tensor-parallel loss, [relative
+    errors], seconds)."""
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules as R
+    from repro_torch.tree import leaves
+    t0 = time.perf_counter()
+    batch = synthetic_batch(cfg, DataConfig(seq_len=TRAIN_SEQ,
+                                            global_batch=TRAIN_BATCH), 0)
+    params = T.init_params(0, cfg, device=dev)
+    (u_loss, _), u_grads = steps.value_and_grad(params, cfg, batch)
+    placed = R.place(params, R.tree_shardings(params, mesh, R.PARAM_RULES),
+                     mesh)
+    del params
+    local, axes = steps.split_batch(batch, mesh, R.batch_axes(mesh))
+    (t_loss, _), t_grads = steps.value_and_grad(placed, cfg, local, axes,
+                                                mesh)
+    del placed
+    sums, sharded = [], []
+    for u, t in zip(leaves(u_grads), leaves(t_grads), strict=True):
+        mine = R.local(t).double()
+        want = (R.local_shard(u, mesh, t.placements) if R.is_dtensor(t)
+                else u).double()
+        sums.append(torch.stack([((mine - want) ** 2).sum(),
+                                 (want ** 2).sum()]))
+        sharded.append(R.model_dim(t) is not None)
+    del u_grads, t_grads
+    stacked = torch.stack(sums).float()
+    summed = R.sum_over(stacked.clone(), mesh, ("model",))
+    mask = torch.tensor(sharded, device=dev)[:, None]
+    stacked = torch.where(mask, summed, stacked)
+    rel = [float((d / n).sqrt()) if n > 0 else float(d.sqrt())
+           for d, n in stacked.unbind()]
+    return float(u_loss), float(t_loss), rel, time.perf_counter() - t0
+
+
+def tp_step_split(torch, cfg, opt, mesh, dev, reps=3):
+    """(d)'s times on this rank: the tensor-parallel train step split into
+    forward (``loss_fn``), backward and update, each ended by a
+    synchronize (median of ``reps`` after an untimed one), and rank 0's
+    profiled step (rank 1 runs the same step beside it)."""
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules as R
+    from repro_torch.tree import leaves, unflatten
+    state = R.place_state(steps.init_state(0, cfg, opt, device=dev), mesh)
+    whole = synthetic_batch(cfg, DataConfig(seq_len=TRAIN_SEQ,
+                                            global_batch=TRAIN_BATCH), 0)
+    batch, axes = steps.split_batch(whole, mesh, R.batch_axes(mesh))
+
+    def split():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flat = [p.detach().requires_grad_(True)
+                for p in leaves(state["params"])]
+        loss, _ = T.loss_fn(unflatten(state["params"], flat), cfg, batch,
+                            axes, mesh)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(flat, grads)]
+        del loss, flat
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        adamw.update(opt, unflatten(state["params"], grads), state["opt"],
+                     state["params"])
+        del grads
+        torch.cuda.synchronize()
+        return ((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                (time.perf_counter() - t2) * 1e3)
+
+    rows = [split() for _ in range(reps + 1)][1:]
+    fwd, bwd, upd = (statistics.median(c) for c in zip(*rows))
+    step_ms = statistics.median(sum(r) for r in rows)
+    step = steps.make_train_step(cfg, opt, batch_axes=R.batch_axes(mesh),
+                                 mesh=mesh)
+    if mesh.get_rank() == 0:
+        prof = kernel_classes(device_times(torch, lambda: step(state, whole),
+                                           1))
+        line = step_profile_line(prof, step_ms) if prof else \
+            "the profiler recorded no device time (not measured)"
+    else:
+        for _ in range(2):   # device_times' untimed call and its profiled one
+            step(state, whole)
+        torch.cuda.synchronize()
+        line = None
+    return {"fwd": fwd, "bwd": bwd, "upd": upd, "step": step_ms,
+            "profile": line}
+
+
+def tp_rank(rank, port, out):
+    """One rank of (d), ``chip_smoke.py --tp-rank RANK PORT OUT``: joins
+    the two-rank gloo group on the card, builds the TP_MESH mesh and runs
+    (d)'s cells; writes its figures to OUT as JSON (a rank that fails
+    writes none and exits non-zero)."""
+    import dataclasses
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import rules as R
+    from repro_torch.tree import leaves
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    res = {"rank": rank}
+    try:
+        mesh = init_device_mesh("cuda", TP_MESH,
+                                mesh_dim_names=("data", "model"))
+        cut = dataclasses.replace(get_config(TRAIN_ARCH),
+                                  repeats=SHARD_LAYERS)
+        opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100)
+        R.barrier(mesh)   # both ranks' card memory measured from here
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        placed = R.place_state(steps.init_state(0, cut, opt, device=dev),
+                               mesh)
+        torch.cuda.synchronize()
+        res["state_bytes"] = (torch.cuda.memory_allocated(dev) - base,
+                              dryrun.state_bytes(cut, mesh),
+                              len(leaves(placed)))
+        del placed
+        hal = cut.with_approx(lm_numerics("haloc_axa", "cuda", dev))
+        plain = cut.with_approx(lm_numerics("haloc_axa", "torch", dev))
+        counts = counters()
+        for f in counts.values():
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        h_state, h_loss = loop_run(torch, hal, opt, mesh, dev)
+        torch.cuda.synchronize()
+        res["launches"] = {name: f.launches for name, f in counts.items()}
+        res["loop_s"] = time.perf_counter() - t0
+        res["peak"] = torch.cuda.max_memory_allocated(dev)
+        res["haloc_axa"] = h_loss
+        p_state, p_loss = loop_run(torch, plain, opt, mesh, dev)
+        res["plain"] = p_loss
+        res["plain_differs"] = tp_local_equal(torch, h_state, p_state)
+        del h_state, p_state
+        torch.cuda.empty_cache()
+        e_state, res["exact"] = loop_run(torch, cut, opt, mesh, dev)
+        del e_state
+        torch.cuda.empty_cache()
+        res["grads"] = tp_grads_against_unsharded(torch, cut, mesh, dev)
+        torch.cuda.empty_cache()
+        res["times"] = {label: tp_step_split(torch, cfg, opt, mesh, dev)
+                        for label, cfg in (("haloc_axa", hal),
+                                           ("exact", cut))}
+    finally:
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def tensor_parallel_case(torch, np, dev, card, unsharded):
+    """(d): Qwen3-4B at full width cut to SHARD_LAYERS layers, the train
+    loop on a TP_MESH mesh of two gloo ranks on the card, compute over
+    "model" tensor-parallel; each rank a process of its own
+    (:func:`tp_rank`), its ``approx_add`` launches counted there.  Gates:
+    each rank's placed state's bytes against the dry run's; the ranks'
+    losses equal at every step; under haloc_axa the kernel's loop equal
+    to the plain version's, bit for bit (every leaf each rank holds);
+    with exact adds the losses within TRAIN_LOSS_TOL of (a)'s unsharded
+    loop's and step 1's gradient leaves within TRAIN_GRAD_TOL of the
+    unsharded step's (the haloc_axa losses printed beside the unsharded
+    loop's: the adder turns each rounding the sums over "model" move
+    into changes of up to 2^m units).  Returns the launches, both ranks'
+    summed."""
+    import shutil
+    import socket
+    torch.cuda.empty_cache()
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    for r in range(2):
+        logs.append(open(TP_DIR / f"rank{r}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank",
+             str(r), str(port), str(TP_DIR / f"rank{r}.json")], cwd=ROOT,
+            env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+    try:
+        codes = [p.wait(timeout=TP_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    seconds = time.perf_counter() - t0
+    for r, code in enumerate(codes):
+        if code != 0 or not (TP_DIR / f"rank{r}.json").exists():
+            tail = (TP_DIR / f"rank{r}.log").read_text()[-3000:]
+            fail(f"(d) rank {r} of the two-rank gloo group on the card "
+                 f"exited {code}:\n{tail}")
+    ranks = [json.loads((TP_DIR / f"rank{r}.json").read_text())
+             for r in range(2)]
+    for res in ranks:
+        got, want, n = res["state_bytes"]
+        check(0 <= got - want <= ALLOC_ROUND * n,
+              f"(d) rank {res['rank']}: the placed state holds {got} bytes "
+              f"on the card, the dry run says {want} on (1, 2)")
+        per_step = 2 * SHARD_LAYERS
+        launches = res["launches"]
+        check(launches["approx_add"] == per_step * SHARD_STEPS,
+              f"(d) rank {res['rank']}: the tensor-parallel loop launched "
+              f"approx_add {launches['approx_add']} times in {SHARD_STEPS} "
+              f"steps, not {per_step} a step")
+        check(all(c == 0 for k, c in launches.items() if k != "approx_add"),
+              f"(d) rank {res['rank']}: other kernels launched: {launches}")
+        check(all(np.isfinite(x) for x in res["haloc_axa"] + res["exact"]),
+              f"(d) rank {res['rank']}: losses {res['haloc_axa']} / "
+              f"{res['exact']}")
+        check(res["plain"] == res["haloc_axa"]
+              and res["plain_differs"] is None,
+              f"(d) rank {res['rank']}: the kernel's loop against the plain "
+              f"version's: losses {res['haloc_axa']} / {res['plain']}, "
+              f"first differing state leaf {res['plain_differs']}")
+        u_loss, t_loss, rel, _ = res["grads"]
+        check(abs(t_loss - u_loss) <= TRAIN_LOSS_TOL * abs(u_loss)
+              and max(rel) < TRAIN_GRAD_TOL,
+              f"(d) rank {res['rank']}: step 1, exact: loss {t_loss} "
+              f"against the unsharded step's {u_loss}, worst gradient leaf "
+              f"{max(rel):.4f} (rule {TRAIN_GRAD_TOL})")
+        worst = max(abs(a - b) / abs(b) for a, b in
+                    zip(res["exact"], unsharded["exact"], strict=True))
+        check(worst <= TRAIN_LOSS_TOL,
+              f"(d) rank {res['rank']}: exact losses {res['exact']} against "
+              f"the unsharded loop's {unsharded['exact']}")
+    for label in ("haloc_axa", "exact", "plain"):
+        check(ranks[0][label] == ranks[1][label],
+              f"(d) {label}: the two model ranks' losses differ: "
+              f"{ranks[0][label]} / {ranks[1][label]}")
+    r0 = ranks[0]
+    got, want, n = r0["state_bytes"]
+    h_rel = max(abs(a - b) / abs(b) for a, b in
+                zip(r0["haloc_axa"], unsharded["haloc_axa"]))
+    log(f"  (d) {TRAIN_ARCH} at full width cut to {SHARD_LAYERS} layers on a "
+        f"{TP_MESH} (\"data\", \"model\") mesh of two gloo ranks on the "
+        f"card, each a process ({seconds:.1f} s in all): each rank's placed "
+        f"state {got} bytes on the card, the dry run's {want} "
+        f"({got - want} fewer; {n} leaves)")
+    log(f"  (d) train_loop.run {SHARD_STEPS} steps on {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens, deterministic algorithms, compute over "
+        f"\"model\" tensor-parallel: {2 * SHARD_LAYERS} approx_add launches "
+        f"a step a rank; losses haloc_axa {r0['haloc_axa']} (the unsharded "
+        f"loop's {unsharded['haloc_axa']}, {h_rel:.2e} apart at most: "
+        f"printed, not gated), exact {r0['exact']} (the unsharded loop's "
+        f"{unsharded['exact']}, rule {TRAIN_LOSS_TOL}); the two ranks' "
+        f"losses equal bit for bit; the kernel's loop equals the plain "
+        f"version's (losses and every leaf each rank holds)")
+    u_loss, t_loss, rel, g_s = r0["grads"]
+    log(f"  (d) step 1, exact adds, the tensor-parallel step against the "
+        f"unsharded one on the same parameters ({g_s:.1f} s): loss "
+        f"{t_loss} / {u_loss}, worst gathered gradient leaf {max(rel):.5f} "
+        f"(rule {TRAIN_GRAD_TOL}), median {statistics.median(rel):.5f}")
+    for label, t in r0["times"].items():
+        log(f"  (d) {label} tensor-parallel step, rank 0: {t['step']:.3f} ms "
+            f"= forward {t['fwd']:.3f} + backward {t['bwd']:.3f} + update "
+            f"{t['upd']:.3f} ms (wall, median of 3; {card}); a profiled "
+            f"step: {t['profile']}")
+    log(f"  (d) peak memory a rank: {r0['peak'] / 2**30:.2f} GiB (rank 1 "
+        f"{ranks[1]['peak'] / 2**30:.2f} GiB) in the counted loop; the "
+        f"counted loop {r0['loop_s']:.1f} s")
+    log("  (d) the collectives go through the host (gloo stages each CUDA "
+        "tensor in host memory) and the two ranks share one card, so these "
+        "times say nothing of tensor-parallel speed")
+    return {k: sum(res["launches"][k] for res in ranks)
+            for k in ranks[0]["launches"]}
+
+
 def sharding_phase(torch, np, dev, counts, card):
     """Phase 4l: sharding on a one-rank DeviceMesh (the train loop on a
-    (1, 1) mesh, the expert-parallel MoE); returns the counted launches.
-    The process group is torn down at the end."""
+    (1, 1) mesh, the expert-parallel MoE), then the tensor-parallel train
+    loop on two ranks (:func:`tensor_parallel_case`); returns the counted
+    launches.  The one-rank process group is torn down before (d)."""
     import torch.distributed as dist
     mesh = one_rank_mesh(torch)
     total = {}
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         t0 = time.perf_counter()
-        for launches in (sharded_train_case(torch, np, dev, counts, card,
-                                            mesh),
+        a_launches, unsharded = sharded_train_case(torch, np, dev, counts,
+                                                   card, mesh)
+        for launches in (a_launches,
                          ep_prefill_case(torch, dev, counts, card, mesh)):
             for k, c in launches.items():
                 total[k] = total.get(k, 0) + c
@@ -5013,6 +5342,11 @@ def sharding_phase(torch, np, dev, counts, card):
     finally:
         torch.use_deterministic_algorithms(False)
         dist.destroy_process_group()
+    t0 = time.perf_counter()
+    for k, c in tensor_parallel_case(torch, np, dev, card,
+                                     unsharded).items():
+        total[k] = total.get(k, 0) + c
+    log(f"  phase 4l's (d) took {time.perf_counter() - t0:.1f} s")
     return total
 
 
@@ -6214,5 +6548,9 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--train-cpu-half"]:
         sys.path.insert(0, str(ROOT / "src"))
         train_cpu_half()
+    elif sys.argv[1:2] == ["--tp-rank"]:
+        sys.path.insert(0, str(ROOT / "src"))
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     else:
         main()

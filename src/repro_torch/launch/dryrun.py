@@ -117,16 +117,61 @@ def grad_plan(plan, leaf, spec, mesh, batch, times=1, keep=()):
             _plan_add(plan, "all-reduce", nbytes, times)
 
 
+def tensor_parallel_plan(cfg, params, specs, mesh, kind="train"):
+    """What a step of ``kind`` computes tensor-parallel over "model"
+    (none at model = 1, nor at prefill and decode): (each leaf's role in :func:`repro_torch.tree.leaves`
+    order -- "shard" for a leaf kept on its "model" shard, "partial" for
+    a replicated one whose gradient each "model" rank holds a part of
+    (the q/k norm scales of a tensor-parallel mixer), else None --, the
+    number of tensor-parallel mixers, of SwiGLU MLPs, of GELU MLPs,
+    whether the embedding and whether the head and CE are
+    vocabulary-parallel).  The step's choice:
+    :func:`repro_torch.models.transformer.tensor_parallel_parts`."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import SWIGLU
+    from repro_torch.tree import leaves, unflatten
+    m = R.mesh_shape(mesh).get("model", 1)
+    flat = R.spec_leaves(specs)
+    roles = unflatten(params, [None] * len(flat))
+    if m == 1 or kind != "train":
+        return leaves(roles), 0, 0, 0, False, False
+    sharded = unflatten(params, ["model" in _spec_axes(s) for s in flat])
+    n_attn = n_swiglu = n_gelu = 0
+    for spec, flags, role in zip(cfg.all_blocks(),
+                                 T.blocks_in_order(cfg, sharded),
+                                 T.blocks_in_order(cfg, roles)):
+        attn, mlp = T.tensor_parallel_parts(cfg, spec, flags, m)
+        parts = [("mixer", attn), ("mlp", mlp)]
+        for part, on in parts:
+            if not on:
+                continue
+            for name, sub in role[part].items():
+                for leaf in sub:
+                    sub[leaf] = "shard" if flags[part][name][leaf] else \
+                        "partial" if name in T.MODEL_PARTIAL_LEAVES else None
+        n_attn += attn
+        n_swiglu += mlp and spec.mlp == SWIGLU
+        n_gelu += mlp and spec.mlp != SWIGLU
+    vocab = {}
+    for name, leaf in (("embed", "table"), ("lm_head", "w")):
+        vocab[name] = name in sharded and sharded[name][leaf]
+        if vocab[name]:
+            roles[name][leaf] = "shard"
+    return (leaves(roles), n_attn, n_swiglu, n_gelu, vocab.get("embed"),
+            vocab.get("lm_head"))
+
+
 def collective_plan(cfg, kind, mesh, params, specs, batch_specs, seq,
                     microbatches=1) -> dict:
     """The collectives of one step of the port's sharded path, per
     device: the parameters' gathers (each microbatch; the expert-parallel
-    MoE's expert matrices over the mesh dims but "model" only), in
-    training the gradients' reductions and AdamW's norm, the loss's
-    mean, the MoE layers' load-balancing sums and expert-parallel
-    all-reduces, and the logits' gather at prefill and decode.
-    ``tests/test_torch_sharding.py`` counts what the step issues on a
-    (2, 2) mesh of gloo ranks against it."""
+    MoE's expert matrices and the tensor-parallel leaves over the mesh
+    dims but "model" only), in training the gradients' reductions and
+    AdamW's norm, the loss's mean, the MoE layers' load-balancing sums
+    and expert-parallel all-reduces, the tensor-parallel compute's sums
+    over "model" (:func:`tensor_parallel_plan`), and the logits' gather
+    at prefill and decode.  ``tests/test_torch_sharding.py`` counts what
+    the step issues on a (2, 2) mesh of gloo ranks against it."""
     sizes = R.mesh_shape(mesh)
     ba = R.batch_axes(mesh) or ()
     rows = next(iter(batch_specs.values())).shape[0]
@@ -140,18 +185,37 @@ def collective_plan(cfg, kind, mesh, params, specs, batch_specs, seq,
     ep = (mc is not None and mc.use_shard_map and kind != "decode"
           and seq > 1 and split and bool(ba) and "model" in sizes
           and mc.num_experts % m == 0)
-    flat = [(t, spec, ("model",) if ep and path[-2] == "mlp"
-             and path[-1] in EXPERT_LEAVES else ())
-            for (path, t), spec in zip(leaves_with_paths(params),
-                                       R.spec_leaves(specs))]
+    roles, n_attn, n_swiglu, n_gelu, tp_embed, tp_head = \
+        tensor_parallel_plan(cfg, params, specs, mesh, kind)
+    flat = [(t, spec, ("model",) if role == "shard" or (
+                 ep and path[-2] == "mlp" and path[-1] in EXPERT_LEAVES)
+             else (), role)
+            for (path, t), spec, role in zip(leaves_with_paths(params),
+                                             R.spec_leaves(specs), roles)]
     times = microbatches if kind == "train" else 1
-    for leaf, spec, keep in flat:
+    for leaf, spec, keep, _ in flat:
         gather_plan(plan, leaf, spec, mesh, times, keep)
     if kind == "train":
-        for leaf, spec, keep in flat:
+        for leaf, spec, keep, role in flat:
             grad_plan(plan, leaf, spec, mesh, axes, times, keep)
+            if role == "partial":   # each model rank's heads' part
+                _plan_add(plan, "all-reduce",
+                          leaf.numel() * leaf.element_size(), times)
+        # the tensor-parallel sums over "model", in fp32: each mixer's
+        # row-parallel output and its q, k and v inputs' cotangents; each
+        # MLP's output and its column-parallel inputs' cotangents; the
+        # embedding's lookup; the head's input cotangent and the CE's max
+        # and (sum of exponentials, gold logit), again in the head's
+        # recompute
+        rows_s = local_rows // microbatches * seq
+        act = rows_s * cfg.d_model * 4
+        n_act = 4 * n_attn + 3 * n_swiglu + 2 * n_gelu + tp_embed + tp_head
+        _plan_add(plan, "all-reduce", act, n_act * times)
+        if tp_head:
+            _plan_add(plan, "all-reduce", rows_s * 4, 2 * times)
+            _plan_add(plan, "all-reduce", 2 * rows_s * 4, 2 * times)
         for a in sizes:   # AdamW's global norm
-            if sizes[a] > 1 and any(a in _spec_axes(s) for _, s, _ in flat):
+            if sizes[a] > 1 and any(a in _spec_axes(f[1]) for f in flat):
                 _plan_add(plan, "all-reduce", 4 * len(flat))
         if axes:   # the loss, ce and aux's means
             _plan_add(plan, "all-reduce", 12 * len(axes), times)

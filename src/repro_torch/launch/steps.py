@@ -12,13 +12,19 @@ the steps are the sharded ones: the state's leaves are DTensors with the
 rules' placements (:func:`repro_torch.sharding.rules.place_state`), so
 each rank holds exactly the reference's shard; the batch (the whole
 global batch, the same on every rank) is cut to this rank's rows
-(:func:`split_batch`); each block's leaves are gathered into full
-tensors just before it runs and the unsharded code runs on the rank's
-rows; each gradient leaf is summed over the batch axes and cut back to
-its placement (a reduce-scatter); AdamW runs on the local shards.  Over
-"model" the compute is replicated, apart from the expert-parallel MoE.
-The prefill and decode steps return the whole batch's logits (gathered
-over the batch axes) and the rank's rows of the cache.
+(:func:`split_batch`); each block's leaves are gathered just before it
+runs; each gradient leaf is summed over the batch axes and cut back to
+its placement (a reduce-scatter); AdamW runs on the local shards.  In
+the train step, on a mesh with model > 1, the self-attention mixers,
+the dense MLPs, the embedding and the head and CE compute
+tensor-parallel over "model" where the rules shard their leaves there
+(``models.transformer``'s module docstring): such a leaf is gathered
+over the other mesh dims only, and its gradient stays on its "model"
+shard, reduced over the batch axes only; a replicated leaf gets the
+same full gradient on every "model" rank.  The prefill and decode steps
+gather every leaf (compute over "model" replicated, apart from the
+expert-parallel MoE) and return the whole batch's logits (gathered over
+the batch axes) and the rank's rows of the cache.
 """
 
 from __future__ import annotations
@@ -72,7 +78,8 @@ def value_and_grad(params, cfg: ModelConfig, batch, batch_axes=None,
     On a mesh ``batch`` is this rank's rows of a batch split over
     ``batch_axes`` (None: not split): the loss and parts are the whole
     batch's mean (all-reduced) and the gradients DTensors placed as
-    ``params``."""
+    ``params`` (a tensor-parallel leaf's each "model" rank's own
+    shard's)."""
     flat = [p.detach().requires_grad_(True) for p in leaves(params)]
     loss, parts = T.loss_fn(unflatten(params, flat), cfg, batch,
                             batch_axes=batch_axes, mesh=mesh)

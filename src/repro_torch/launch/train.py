@@ -18,7 +18,10 @@ CPU ranks, train sharded on a mesh: start the launcher under
 
 A mesh is built (:func:`repro_torch.runtime.elastic.make_elastic_mesh`)
 when the process group has more than one rank or ``--model-parallel``
-is above 1, as the reference's ``len(jax.devices()) > 1`` does.  On the
+is above 1, as the reference's ``len(jax.devices()) > 1`` does; with
+``--model-parallel`` above 1 the train step computes its attention
+mixers, dense MLPs, embedding, head and CE tensor-parallel over the
+mesh's "model" axis (``models.transformer``).  On the
 card the residual adds run in the ``approx_add`` kernel (``--adder``),
 on the CPU in its plain version.
 """
@@ -67,7 +70,9 @@ def main(argv=None):
                     help="off | haloc_axa | loa | ... (residual numerics)")
     ap.add_argument("--fast-emul", action="store_true")
     ap.add_argument("--ckpt-dir", default="")
-    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks of the mesh's \"model\" axis (tensor-"
+                         "parallel compute over it)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 

@@ -41,13 +41,17 @@ def attn_init(init, cfg: ModelConfig, spec: BlockSpec):
     return p
 
 
-def _qkv(p, cfg: ModelConfig, x, positions, spec: BlockSpec, rope=None):
+def _qkv(p, cfg: ModelConfig, x, positions, spec: BlockSpec, rope=None,
+         tp=None):
     """q, k, v of ``x``, RoPE applied; ``rope`` is the (cos, sin) tables of
-    ``positions`` when the caller has them already."""
+    ``positions`` when the caller has them already.  Under tensor
+    parallelism (``tp``) each projection is column-parallel
+    (:func:`layers.dense_column`): this rank's q and kv heads."""
     b, s, _ = x.shape
-    q = L.dense(p["wq"], x).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = L.dense(p["wk"], x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = L.dense(p["wv"], x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    dh = cfg.head_dim
+    q = L.dense_column(p["wq"], x, tp).reshape(b, s, -1, dh)
+    k = L.dense_column(p["wk"], x, tp).reshape(b, s, -1, dh)
+    v = L.dense_column(p["wv"], x, tp).reshape(b, s, -1, dh)
     if cfg.qk_norm:
         q = L.rms_norm(p["qn"], q, cfg.norm_eps)
         k = L.rms_norm(p["kn"], k, cfg.norm_eps)
@@ -59,14 +63,27 @@ def _qkv(p, cfg: ModelConfig, x, positions, spec: BlockSpec, rope=None):
 
 
 def attn_apply(p, cfg: ModelConfig, spec: BlockSpec, x, positions,
-               rope=None):
-    """Full-sequence self attention (scoring). positions: (S,)."""
-    q, k, v = _qkv(p, cfg, x, positions, spec, rope)
+               rope=None, tp=None):
+    """Full-sequence self attention (scoring). positions: (S,).
+
+    Under tensor parallelism (``tp``: ``p`` holds this rank's "model"
+    shards, :func:`repro_torch.sharding.rules.model_shard`) the rank
+    computes its H/m q heads and KV/m kv heads: ``layers._repeat_kv``
+    maps q head h to kv head h // (H/KV), so a contiguous q shard reads
+    exactly its contiguous kv shard when KV % m == 0.  The q/k norms and
+    RoPE act per head; ``wo`` is row-parallel (one sum over "model",
+    :func:`layers.dense_row`)."""
+    if tp is not None and (cfg.num_heads % tp.size
+                           or cfg.num_kv_heads % tp.size):
+        raise ValueError(
+            f"{cfg.name}: {cfg.num_heads} q / {cfg.num_kv_heads} kv heads "
+            f"do not split over {tp.size} model ranks")
+    q, k, v = _qkv(p, cfg, x, positions, spec, rope, tp)
     out = L.attention_any(
         q, k, v, positions, positions, causal=cfg.causal,
         window=spec.window, kv_chunk=cfg.attn_kv_chunk)
     b, s = x.shape[:2]
-    return L.dense(p["wo"], out.reshape(b, s, cfg.q_dim))
+    return L.dense_row(p["wo"], out.reshape(b, s, -1), tp)
 
 
 def attn_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,

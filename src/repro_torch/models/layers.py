@@ -299,6 +299,34 @@ def dense_sum32(p, x: Tensor) -> Tensor:
     return y.float() + p["b"].to(x.dtype).float() if "b" in p else y
 
 
+def dense_column(p, x: Tensor, tp=None) -> Tensor:
+    """A column-parallel :func:`dense` under tensor parallelism (``tp``,
+    a :class:`repro_torch.sharding.rules.TensorParallel`): ``p`` holds
+    this rank's shard of the output dim (w's columns, the bias's
+    entries), x is read whole by every rank (its cotangent summed over
+    "model"); without ``tp`` :func:`dense`."""
+    return dense(p, x if tp is None else tp.input(x))
+
+
+def dense_row(p, x: Tensor, tp=None, *, sum32: bool = False) -> Tensor:
+    """A row-parallel :func:`dense` under tensor parallelism: x is this
+    rank's shard of the input dim and ``p["w"]`` its rows; the partial
+    product, rounded to x's dtype, is summed over "model" in that dtype
+    (fp32, rounded once), then the bias, replicated, is added once.  The
+    reference's GSPMD-partitioned step sums the same bf16 partials
+    (``all-reduce`` of the dot's converted output).  ``sum32``: the bias
+    sum left in fp32 (:func:`dense_sum32`); without ``tp`` :func:`dense`
+    or :func:`dense_sum32`."""
+    if tp is None:
+        return dense_sum32(p, x) if sum32 else dense(p, x)
+    y = tp.sum(dense({"w": p["w"]}, x))
+    if "b" not in p:
+        return y
+    if sum32:
+        return y.float() + p["b"].to(x.dtype).float()
+    return y + p["b"].to(x.dtype)
+
+
 #: XLA:CPU sums a row longer than this in windows of this many, each
 #: window one sequential sum, then the windows' sums in turn (again in
 #: windows past this many); a row that is no multiple of it is padded
@@ -911,17 +939,21 @@ def gelu_tanh(x: Tensor) -> Tensor:
     return x * ((torch.tanh(inner) + 1) * 0.5)
 
 
-def swiglu(p, x: Tensor) -> Tensor:
-    h = silu(dense(p["wg"], x)) * dense(p["wi"], x)
-    return dense(p["wo"], h)
+def swiglu(p, x: Tensor, tp=None) -> Tensor:
+    """The SwiGLU MLP; under tensor parallelism (``tp``) ``wi``/``wg``
+    column-parallel and ``wo`` row-parallel (:func:`dense_column`,
+    :func:`dense_row`): each rank's d_ff shard, one sum over "model"."""
+    h = silu(dense_column(p["wg"], x, tp)) * dense_column(p["wi"], x, tp)
+    return dense_row(p["wo"], h, tp)
 
 
-def gelu_mlp(p, x: Tensor, *, sum32: bool = False) -> Tensor:
+def gelu_mlp(p, x: Tensor, *, sum32: bool = False, tp=None) -> Tensor:
     """The GELU MLP; ``sum32``: its output projection's bias sum kept in
     fp32 unrounded (:func:`dense_sum32`), as an approximate residual add
-    reads it."""
-    out = dense_sum32 if sum32 else dense
-    return out(p["wo"], gelu_tanh(dense(p["wi"], x)))
+    reads it; ``tp`` as :func:`swiglu`'s (``wo.b`` added once, after
+    the sum)."""
+    return dense_row(p["wo"], gelu_tanh(dense_column(p["wi"], x, tp)), tp,
+                     sum32=sum32)
 
 
 # ------------------------------------------------- fp32 elementwise math

@@ -38,11 +38,36 @@ On a mesh (``batch_axes``/``mesh``: ``launch.steps``' sharded steps) the
 batch holds this rank's rows of a batch split over ``batch_axes``, and a
 parameter leaf may be a DTensor holding this rank's shard: each block's
 leaves (and the embedding's, the final norm's and the head's) are
-gathered into full tensors just before they are used
-(:func:`repro_torch.sharding.rules.gather`), their gradients summed over
-the batch axes and cut back to each leaf's placement.  Compute over the
-"model" axis is replicated, apart from the expert-parallel MoE
-(``moe.use_shard_map``).
+gathered just before they are used (:func:`repro_torch.sharding.rules.gather`),
+their gradients summed over the batch axes and cut back to each leaf's
+placement.
+
+In a full-sequence pass (the training loss) on a mesh whose "model" axis
+has more than one rank, compute over "model" is tensor-parallel where
+the rules shard the leaves over it, as the reference's GSPMD-partitioned
+step computes: a self-attention mixer (its H/m q and KV/m kv heads) and
+a dense MLP (its d_ff/m shard) keep their "model" shards
+(:func:`repro_torch.sharding.rules.model_shard`, gathered over the other
+mesh dims only), the column-parallel products read the block's input
+whole and the row-parallel ones' bf16 partials are summed over "model"
+in fp32 and rounded once (``layers.dense_row``); the embedding looks up
+its vocabulary shard (other ids give 0, summed over "model"), and the
+head and CE compute on the rank's vocabulary shard, the max, the sum of
+exponentials and the gold logit combined over "model" (:func:`loss_fn`).
+Read from the reference's compiled (1, 2) and (2, 2) train steps: every
+"model" all-reduce there sums bf16-rounded partials of a product
+(promoted to fp32, rounded once), or fp32 sums of the CE and of the q/k
+norm scales' gradients.  In hubert-xlarge-smoke's (1, 2) step the GELU
+MLP's output bias is added after its sum, once: rounded to bf16 and
+added in fp32, the sum left unrounded for the approximate residual add
+that reads it (``layers.dense_row``'s ``sum32``); a column-parallel
+bias (``wi.b``, qwen1.5's ``wq.b``/``wk.b``/``wv.b``) is sliced with
+its matrix's columns.  A leaf the rules leave replicated over "model"
+(a vocabulary or width the axis does not divide) is computed whole on
+every rank, as the reference's is; so are the other mixers, the MoE's
+router and shared experts, and prefill and decode, whose leaves are
+gathered.  The expert-parallel MoE (``moe.use_shard_map``) reads its own
+experts (:func:`repro_torch.models.moe.moe_apply_shard_map`).
 """
 
 from __future__ import annotations
@@ -61,10 +86,11 @@ from repro_torch.models import moe as MOEm
 from repro_torch.models import rglru as RGm
 from repro_torch.models import ssd as SSDm
 from repro_torch.models.config import (
-    ATTN, CROSS, MLA, MOE, NONE, RGLRU, SSD, SWIGLU,
+    ATTN, CROSS, GELU, MLA, MOE, NONE, RGLRU, SSD, SWIGLU,
     BlockSpec, ModelConfig,
 )
 from repro_torch.sharding import rules as R
+from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
 Device = Union[str, torch.device, None]
@@ -94,21 +120,88 @@ def _gathered(tree, batch_axes, mesh):
     return tree if mesh is None else R.gather(tree, batch_axes or ())
 
 
-def _block_gathered(p, cfg, spec, s, mode, batch_axes, mesh):
+def _sharded(t) -> bool:
+    return R.model_dim(t) is not None
+
+
+def _local(tree, batch_axes, partial=()):
+    """``tree``'s leaves for tensor-parallel compute: a leaf sharded over
+    "model" as this rank's shard (:func:`repro_torch.sharding.rules.model_shard`),
+    the others gathered, their gradients summed over the batch axes and
+    ``partial`` too."""
+    if isinstance(tree, dict):
+        return {k: _local(v, batch_axes, partial) for k, v in tree.items()}
+    if _sharded(tree):
+        return R.model_shard(tree, batch_axes or ())
+    return R.gather(tree, batch_axes or (), partial)
+
+
+#: The leaves of a tensor-parallel attention mixer that stay whole on
+#: every "model" rank but whose gradients are partial there (summed over
+#: "model"): the q/k norm scales, which each rank applies to its own heads.
+MODEL_PARTIAL_LEAVES = frozenset({"qn", "kn"})
+
+
+def tensor_parallel_parts(cfg: ModelConfig, spec: BlockSpec, sharded,
+                          m: int):
+    """(mixer, MLP): whether a block's self-attention mixer and its dense
+    MLP compute tensor-parallel over m > 1 "model" ranks.  ``sharded``
+    is the block's tree with, for each leaf, whether it is sharded over
+    "model": the mixer when its q, k, v and o matrices are and its q and
+    kv heads split over m, a SwiGLU or GELU MLP when its matrices are."""
+    mix = sharded["mixer"]
+    attn = (spec.mixer == ATTN
+            and all(mix[k]["w"] for k in ("wq", "wk", "wv", "wo"))
+            and cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0)
+    mlp = spec.mlp in (SWIGLU, GELU) and all(
+        v["w"] for v in sharded["mlp"].values())
+    return attn, mlp
+
+
+def block_tensor_parallel(p, cfg: ModelConfig, spec: BlockSpec, mode: str,
+                          mesh):
+    """(the mixer's, the MLP's) :class:`repro_torch.sharding.rules.TensorParallel`
+    for a block on ``mesh``, or None each (:func:`tensor_parallel_parts`):
+    only in a full-sequence pass on a mesh with model > 1."""
+    tp = R.tensor_parallel(mesh) if mode == "full" else None
+    if tp is None:
+        return None, None
+    attn, mlp = tensor_parallel_parts(cfg, spec, tree_map(_sharded, p),
+                                      tp.size)
+    return (tp if attn else None), (tp if mlp else None)
+
+
+def _block_gathered(p, cfg, spec, s, mode, batch_axes, mesh, tp=(None, None)):
     """A block's leaves for :func:`block_apply` on a mesh: gathered
-    (:func:`_gathered`), but for the expert-parallel MoE the expert
-    matrices, which stay DTensors sharded over "model": each rank reads
-    only its own experts
+    (:func:`_gathered`), but the tensor-parallel mixer's and MLP's
+    (``tp``, :func:`block_tensor_parallel`) as this rank's "model" shards
+    (:func:`_local`; the q/k norm scales, which each rank applies to its
+    own heads, with their gradients summed over "model"), and for the
+    expert-parallel MoE the expert matrices, which stay DTensors sharded
+    over "model": each rank reads only its own experts
     (:func:`repro_torch.models.moe.moe_apply_shard_map`)."""
-    if mesh is None or spec.mlp != MOE or not cfg.moe.use_shard_map \
-            or mode == "decode" \
-            or not MOEm.expert_parallel(cfg, s, batch_axes, mesh):
+    if mesh is None:
+        return p
+    tp_mix, tp_mlp = tp
+    ep = spec.mlp == MOE and cfg.moe.use_shard_map and mode != "decode" \
+        and MOEm.expert_parallel(cfg, s, batch_axes, mesh)
+    if tp_mix is None and tp_mlp is None and not ep:
         return _gathered(p, batch_axes, mesh)
-    mlp = p["mlp"]
-    out = _gathered({**p, "mlp": {k: v for k, v in mlp.items()
-                                  if k not in MOEm.EXPERT_LEAVES}},
-                    batch_axes, mesh)
-    out["mlp"].update({k: mlp[k] for k in MOEm.EXPERT_LEAVES})
+    split = {k: v for k, v in p.items()
+             if not (k == "mixer" and tp_mix) and not (k == "mlp" and tp_mlp)}
+    if ep:
+        split["mlp"] = {k: v for k, v in p["mlp"].items()
+                        if k not in MOEm.EXPERT_LEAVES}
+    out = _gathered(split, batch_axes, mesh)
+    if ep:
+        out["mlp"].update({k: p["mlp"][k] for k in MOEm.EXPERT_LEAVES})
+    if tp_mix is not None:
+        mix = p["mixer"]
+        out["mixer"] = {k: _local(v, batch_axes, ("model",) if k in
+                                  MODEL_PARTIAL_LEAVES else ())
+                        for k, v in mix.items()}
+    if tp_mlp is not None:
+        out["mlp"] = _local(p["mlp"], batch_axes)
     return out
 
 
@@ -335,7 +428,7 @@ class _ExactResidual(torch.autograd.Function):
 
 def block_apply(p: Params, cfg: ModelConfig, spec: BlockSpec, x, ctx,
                 cache: Optional[Params], mode: str, batch_axes=None,
-                mesh=None, *, carry=None, tanh_gates=None):
+                mesh=None, *, carry=None, tanh_gates=None, tp=(None, None)):
     """mode: 'full' | 'prefill' | 'decode'. Returns (x, new_cache, aux,
     sum32); aux is the MoE MLP's load-balancing loss, None for the other
     MLPs; sum32 the block's last residual sum, unrounded fp32, with exact
@@ -346,7 +439,9 @@ def block_apply(p: Params, cfg: ModelConfig, spec: BlockSpec, x, ctx,
     ``tanh_gates``: a cross block's two gates' bf16 tanh
     (:func:`cross_tanh_gates`).  On a mesh the MoE MLP takes
     ``batch_axes`` and ``mesh`` (its load-balancing loss over the whole
-    batch; the expert-parallel dispatch)."""
+    batch; the expert-parallel dispatch); ``tp``: the mixer's and the
+    MLP's tensor parallelism (:func:`block_tensor_parallel`), ``p``
+    holding their "model" shards."""
     h = L.rms_norm(p["ln1"], x if carry is None else carry,
                    cfg.norm_eps).to(x.dtype)
     new_cache = cache
@@ -376,7 +471,9 @@ def block_apply(p: Params, cfg: ModelConfig, spec: BlockSpec, x, ctx,
         rope = ctx.get("rope", {}).get((spec.rope_base,
                                         _rope_dim(cfg, spec)))
         if mode == "full":
-            mix = apply(p["mixer"], cfg, spec, h, ctx["positions"], rope)
+            tp_mix = {} if tp[0] is None else {"tp": tp[0]}
+            mix = apply(p["mixer"], cfg, spec, h, ctx["positions"], rope,
+                        **tp_mix)
         elif mode == "prefill":
             mix, new_cache = prefill(p["mixer"], cfg, spec, h,
                                      ctx["positions"], cache, rope)
@@ -402,10 +499,11 @@ def block_apply(p: Params, cfg: ModelConfig, spec: BlockSpec, x, ctx,
                 out, aux = MOEm.moe_apply(p["mlp"], cfg, h2,
                                           batch_axes=batch_axes, mesh=mesh)
         elif spec.mlp == SWIGLU:
-            out = L.swiglu(p["mlp"], h2)
+            out = L.swiglu(p["mlp"], h2, tp[1])
         else:
             # an approximate add reads the output bias sum unrounded
-            out = L.gelu_mlp(p["mlp"], h2, sum32=cfg.approx.enabled)
+            out = L.gelu_mlp(p["mlp"], h2, sum32=cfg.approx.enabled,
+                             tp=tp[1])
         if spec.mixer == CROSS:
             out = ATT.gate(t_mlp, out, keep_fp32=cfg.approx.enabled)
         if cfg.approx.enabled:
@@ -428,14 +526,20 @@ def _reads_carry(cfg: ModelConfig, i: int) -> bool:
     return i > 0 and not scan_step
 
 
-def embed_input(params, cfg: ModelConfig, batch, need_vision: bool = True):
+def embed_input(params, cfg: ModelConfig, batch, need_vision: bool = True,
+                tp=None):
     """batch: {"tokens": (B, S) ints} or {"frames": (B, S, feat_dim)}
     (+ "vision": (B, Sv, embed_dim)) -> (bf16 activations, ctx).  Token
     ids outside the vocabulary are clamped into it (a negative id counts
     from the end first), as the reference's gather does; frames go
     through ``frontend`` and the vision embeddings through
     ``vis_adapter`` (into ``ctx["vis"]``), both cast to bf16 first.  A
-    decode step (``need_vision=False``) takes no vision input."""
+    decode step (``need_vision=False``) takes no vision input.
+
+    ``tp``: the table is this rank's vocabulary shard (its rows of the
+    padded vocabulary, in rank order); an id is clamped into the whole
+    vocabulary first, ids outside the shard give 0, and the rows are
+    summed over "model" (one rank holds each)."""
     check_ported(cfg)
 
     def input_on(name, w):
@@ -446,10 +550,18 @@ def embed_input(params, cfg: ModelConfig, batch, need_vision: bool = True):
         x = L.dense(params["frontend"], frames.to(torch.bfloat16))
     else:
         table = params["embed"]["table"]
-        n = table.shape[0]
+        rows = table.shape[0]
+        n = rows * (1 if tp is None else tp.size)
         tokens = input_on("tokens", table)
         ids = torch.where(tokens < 0, tokens + n, tokens).clamp(0, n - 1)
-        x = table[ids].to(torch.bfloat16)
+        if tp is None:
+            x = table[ids].to(torch.bfloat16)
+        else:
+            ids = ids - tp.rank * rows
+            inside = ((ids >= 0) & (ids < rows))[..., None]
+            x = table[ids.clamp(0, rows - 1)].to(torch.bfloat16)
+            x = tp.sum(torch.where(inside, x, torch.zeros(
+                (), dtype=x.dtype, device=x.device)))
     ctx = {}
     if cfg.vision is not None and need_vision:
         vis = input_on("vision", params["vis_adapter"]["w"])
@@ -479,10 +591,19 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "full",
         raise ValueError(f"bad forward mode {mode!r}")
     if mode != "full" and cache is None:
         raise ValueError(f"mode {mode!r} needs a cache (init_cache)")
-    inputs = _gathered({k: params[k] for k in ("embed", "frontend",
-                                               "vis_adapter") if k in params},
-                       batch_axes, mesh)
-    x, ctx = embed_input(inputs, cfg, batch, need_vision=mode != "decode")
+    tp = R.tensor_parallel(mesh) if mode == "full" else None
+    vocab_tp = tp if tp is not None and "embed" in params \
+        and _sharded(params["embed"]["table"]) else None
+    inputs = {k: params[k] for k in ("embed", "frontend", "vis_adapter")
+              if k in params}
+    if vocab_tp is not None:
+        inputs = dict(_gathered({k: v for k, v in inputs.items()
+                                 if k != "embed"}, batch_axes, mesh),
+                      embed=_local(inputs["embed"], batch_axes))
+    else:
+        inputs = _gathered(inputs, batch_axes, mesh)
+    x, ctx = embed_input(inputs, cfg, batch, need_vision=mode != "decode",
+                         tp=vocab_tp)
     b, s = x.shape[:2]
     if mode == "decode":
         ctx["pos"] = int(pos)
@@ -513,10 +634,11 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "full",
     for i, (p, spec, c, g) in enumerate(zip(blocks, specs, caches, gates,
                                             strict=True)):
         carry = sum32 if _reads_carry(cfg, i) else None
+        tps = block_tensor_parallel(p, cfg, spec, mode, mesh)
         x, nc, a, sum32 = block_apply(
             _block_gathered(p, cfg, spec, x.shape[1], mode, batch_axes,
-                            mesh), cfg, spec, x, ctx, c, mode, batch_axes,
-            mesh, carry=carry, tanh_gates=g)
+                            mesh, tps), cfg, spec, x, ctx, c, mode,
+            batch_axes, mesh, carry=carry, tanh_gates=g, tp=tps)
         new.append(nc)
         if a is not None:
             aux = aux + a
@@ -535,51 +657,88 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "full",
 
 # ------------------------------------------------------------------ loss --
 
+def _exp_sum(x, amax):
+    """(the sum over the last axis of ``exp(x - amax)``, amax squeezed):
+    ``amax`` x's maximum over that axis (keepdim), a non-finite one
+    taken as 0, as jax's ``logsumexp`` takes it; XLA:CPU's ``exp`` and
+    order of sums on the CPU (:func:`layers.exp32`,
+    :func:`layers.row_sum`), torch's on the card."""
+    amax = torch.where(torch.isfinite(amax), amax, torch.zeros_like(amax))
+    return L.row_sum(L.exp32(x - amax)), amax[..., 0]
+
+
 def logsumexp32(x):
     """``jax.nn.logsumexp`` over the last axis of fp32 ``x``: on the CPU
-    its max, XLA:CPU's ``exp`` and order of sums (:func:`layers.exp32`,
-    :func:`layers.row_sum`); on the card torch's one-kernel
-    ``logsumexp``.  The max carries no gradient, as jax's does not."""
+    its max, shift and sum (:func:`_exp_sum`); on the card torch's
+    one-kernel ``logsumexp``.  The max carries no gradient, as jax's
+    does not."""
     if x.device.type != "cpu":
         return torch.logsumexp(x, dim=-1)
-    amax = x.amax(dim=-1, keepdim=True).detach()
-    amax = torch.where(torch.isfinite(amax), amax, torch.zeros_like(amax))
-    return torch.log(L.row_sum(L.exp32(x - amax))) + amax[..., 0]
+    total, amax = _exp_sum(x, x.amax(dim=-1, keepdim=True).detach())
+    return torch.log(total) + amax
 
 
-def softmax_cross_entropy(logits, labels):
+def softmax_cross_entropy(logits, labels, tp=None):
     """Per-position CE of fp32 logits (..., V) against integer labels:
     logsumexp minus the gold logit (a gather: the same value as the
     reference's iota compare and masked sum, which adds only zeros to
-    it)."""
+    it).
+
+    ``tp``: ``logits`` are this rank's vocabulary shard (V/m columns, in
+    rank order), as the reference's GSPMD-partitioned CE computes them:
+    the local max's maximum over "model", then each rank's sum of
+    exponentials and gold logit (0 outside its shard), summed over
+    "model" in fp32 in one all-reduce."""
     logits = logits.to(torch.float32)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return logsumexp32(logits) - gold
+    if tp is None:
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return logsumexp32(logits) - gold
+    n = logits.shape[-1]
+    ids = labels.long() - tp.rank * n
+    inside = (ids >= 0) & (ids < n)
+    gold = torch.where(inside, torch.gather(
+        logits, -1, ids.clamp(0, n - 1)[..., None])[..., 0],
+        torch.zeros((), dtype=logits.dtype, device=logits.device))
+    total, amax = _exp_sum(logits, tp.max(logits.amax(dim=-1, keepdim=True)))
+    total, gold = tp.sum(torch.stack([total, gold]))
+    return torch.log(total) + amax - gold
 
 
-def _head_loss(cfg: ModelConfig, head, x, labels):
-    logits = L.dense(head, x)
+def _head_loss(cfg: ModelConfig, head, x, labels, tp=None):
+    """The head and the mean CE; ``tp``: ``head`` is this rank's
+    vocabulary shard (column-parallel), the padded slots masked by their
+    global index."""
+    logits = L.dense_column(head, x, tp)
     if cfg.padded_vocab != cfg.vocab_size:
         # padded vocab slots masked to -inf (exact CE over the true vocab)
-        viota = torch.arange(logits.shape[-1], device=logits.device)
+        n = logits.shape[-1]
+        lo = 0 if tp is None else tp.rank * n
+        viota = torch.arange(lo, lo + n, device=logits.device)
         logits = torch.where(viota < cfg.vocab_size, logits,
                              torch.full((), L.NEG_INF, dtype=logits.dtype,
                                         device=logits.device))
-    return softmax_cross_entropy(logits, labels).mean()
+    return softmax_cross_entropy(logits, labels, tp).mean()
 
 
 def loss_fn(params, cfg: ModelConfig, batch, batch_axes=None, mesh=None):
     """The reference's training loss: the full forward to the final norm,
     then the head and the CE under activation checkpointing (the (B, S,
     V) logits and the softmax internals are recomputed in the backward,
-    as under the reference's ``jax.checkpoint``), plus 0.01 times the MoE
-    load-balancing loss.  Returns (loss, {"ce", "aux"}), fp32 scalars."""
+    as under the reference's ``jax.checkpoint``; so are the CE's
+    collectives over "model"), plus 0.01 times the MoE load-balancing
+    loss.  Returns (loss, {"ce", "aux"}), fp32 scalars.  On a mesh with
+    model > 1 whose rules shard the head's vocabulary, the head and CE
+    are vocabulary-parallel (:func:`softmax_cross_entropy`)."""
     x, _, aux = forward(params, cfg, batch, mode="full",
                         batch_axes=batch_axes, mesh=mesh,
                         return_prelogits=True)
     labels = torch.as_tensor(batch["labels"], device=x.device)
-    ce = checkpoint(_head_loss, cfg,
-                    _gathered(params["lm_head"], batch_axes, mesh), x, labels,
+    tp = R.tensor_parallel(mesh)
+    if tp is not None and _sharded(params["lm_head"]["w"]):
+        head = _local(params["lm_head"], batch_axes)
+    else:
+        tp = None
+        head = _gathered(params["lm_head"], batch_axes, mesh)
+    ce = checkpoint(_head_loss, cfg, head, x, labels, tp,
                     use_reentrant=False)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
-

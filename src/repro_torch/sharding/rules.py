@@ -403,54 +403,104 @@ def full_tensor(t):
     return t.full_tensor() if is_dtensor(t) else t
 
 
-def gather(tree, batch=()):
+def gather(tree, batch=(), partial=()):
     """Every DTensor leaf of ``tree`` as its full tensor (the rest as it
     is).  Under autograd the gradient of a gathered leaf is summed over
     the mesh dims named in ``batch`` (each batch shard's rows contribute
     their part) and cut back to the leaf's placement: a reduce-scatter
     where the leaf is sharded on a batch axis, an all-reduce where it is
-    replicated there."""
+    replicated there.  ``partial`` names further mesh dims whose ranks
+    each hold a part of the gradient (a replicated leaf that each
+    "model" rank applies to its own heads only): it is summed over them
+    too."""
     from torch.distributed.tensor import Partial, Replicate
+    summed = tuple(batch) + tuple(partial)
 
     def one(t):
         if not is_dtensor(t):
             return t
         return t.full_tensor(grad_placements=[
-            Partial() if n in batch else Replicate()
+            Partial() if n in summed else Replicate()
             for n in t.device_mesh.mesh_dim_names])
 
     if isinstance(tree, dict):
-        return {k: gather(v, batch) for k, v in tree.items()}
+        return {k: gather(v, batch, partial) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [gather(v, batch) for v in tree]
+        return [gather(v, batch, partial) for v in tree]
     return one(tree)
 
 
-def model_shard(t, batch=()):
-    """A DTensor leaf sharded along dim 0 over "model" (the experts),
-    gathered over its other mesh dims only: this rank's dim-0 shard as a
-    plain tensor.  Its gradient is summed over the mesh dims named in
-    ``batch`` and cut back to the leaf's placement (a reduce-scatter over
-    a batch dim the leaf is sharded on); over "model" each rank's
-    gradient is its own shard's."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
+def model_dim(t) -> Optional[int]:
+    """The tensor dim a DTensor leaf is sharded on over "model" (a mesh
+    dim of size > 1), or None: a plain tensor, a mesh without "model",
+    or a leaf replicated there (its spec dropped "model", or the rules
+    name none)."""
+    from torch.distributed.tensor import Shard
+    if not is_dtensor(t):
+        return None
     names = t.device_mesh.mesh_dim_names
-    keep = [Shard(0) if n == "model" else Replicate() for n in names]
-    return t.redistribute(placements=keep).to_local(grad_placements=[
-        Shard(0) if n == "model" else Partial() if n in batch
-        else Replicate() for n in names])
+    if "model" not in names:
+        return None
+    i = names.index("model")
+    p = t.placements[i]
+    if t.device_mesh.size(i) == 1 or not isinstance(p, Shard):
+        return None
+    return p.dim
+
+
+def model_shard(t, batch=()):
+    """A DTensor leaf sharded over "model" (along the dim its placement
+    puts there: the experts, a column-parallel matrix's output dim, a
+    row-parallel one's input dim, the vocabulary), gathered over its
+    other mesh dims only: this rank's "model" shard as a plain tensor.
+    Its gradient is summed over the mesh dims named in ``batch`` and cut
+    back to the leaf's placement (a reduce-scatter over a batch dim the
+    leaf is sharded on); over "model" each rank's gradient is its own
+    shard's.  A mesh dim of size 1 keeps the leaf's placement (no
+    collective)."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = t.device_mesh
+    names = mesh.mesh_dim_names
+    one = [mesh.size(i) == 1 for i in range(len(names))]
+    keep = [p if n == "model" or one[i] else Replicate()
+            for i, (n, p) in enumerate(zip(names, t.placements))]
+    grads = [p if n == "model" or one[i] else
+             Partial() if n in batch else Replicate()
+             for i, (n, p) in enumerate(zip(names, t.placements))]
+    if keep != list(t.placements):
+        t = t.redistribute(placements=keep)
+    return t.to_local(grad_placements=grads)
 
 
 # -------------------------------------------------------- collectives --
 
-def sum_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+def sum_over(t: torch.Tensor, mesh, axes, wide: bool = False
+             ) -> torch.Tensor:
     """``t`` summed over the ranks of ``axes`` (in place, one all-reduce
-    an axis of size > 1)."""
+    an axis of size > 1).  ``wide``: a bf16 or fp16 tensor summed in fp32
+    and rounded once, as XLA:CPU promotes the reference's 16-bit
+    all-reduces."""
     import torch.distributed as dist
     sizes = mesh_shape(mesh)
     for a in axes or ():
         if sizes[a] > 1:
-            dist.all_reduce(t, group=mesh.get_group(a))
+            if wide and t.dtype in (torch.bfloat16, torch.float16):
+                buf = t.float()
+                dist.all_reduce(buf, group=mesh.get_group(a))
+                t.copy_(buf)
+            else:
+                dist.all_reduce(t, group=mesh.get_group(a))
+    return t
+
+
+def max_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``t``'s elementwise maximum over the ranks of ``axes`` (in place;
+    no gradient)."""
+    import torch.distributed as dist
+    sizes = mesh_shape(mesh)
+    for a in axes or ():
+        if sizes[a] > 1:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
     return t
 
 
@@ -508,12 +558,12 @@ class _SumOverReplicas(torch.autograd.Function):
     replicas over ``model``), so each part's cotangent is the sum's."""
 
     @staticmethod
-    def forward(ctx, t, mesh, axes):
-        return sum_over(t.clone(), mesh, axes)
+    def forward(ctx, t, mesh, axes, wide):
+        return sum_over(t.clone(), mesh, axes, wide)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return g, None, None, None
 
 
 class _ReplicaInput(torch.autograd.Function):
@@ -522,25 +572,71 @@ class _ReplicaInput(torch.autograd.Function):
     :class:`_SumOverReplicas` adds up."""
 
     @staticmethod
-    def forward(ctx, t, mesh, axes):
-        ctx.mesh, ctx.axes = mesh, axes
+    def forward(ctx, t, mesh, axes, wide):
+        ctx.mesh, ctx.axes, ctx.wide = mesh, axes, wide
         return t.view_as(t)
 
     @staticmethod
     def backward(ctx, g):
-        return sum_over(g.clone(), ctx.mesh, ctx.axes), None, None
+        return sum_over(g.clone(), ctx.mesh, ctx.axes, ctx.wide), None, \
+            None, None
 
 
 def sum_over_batch(t, mesh, axes):
     return _SumOverRanks.apply(t, mesh, tuple(axes or ()))
 
 
-def sum_over_replicas(t, mesh, axes):
-    return _SumOverReplicas.apply(t, mesh, tuple(axes))
+def sum_over_replicas(t, mesh, axes, wide: bool = False):
+    """The conjugate pair's sum (forward all-reduce, backward identity);
+    ``wide`` as :func:`sum_over`'s."""
+    return _SumOverReplicas.apply(t, mesh, tuple(axes), wide)
 
 
-def replica_input(t, mesh, axes):
-    return _ReplicaInput.apply(t, mesh, tuple(axes))
+def replica_input(t, mesh, axes, wide: bool = False):
+    """The conjugate pair's input (forward identity, backward
+    all-reduce); ``wide`` as :func:`sum_over`'s."""
+    return _ReplicaInput.apply(t, mesh, tuple(axes), wide)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """A block's tensor-parallel compute over the mesh's "model" axis
+    (Megatron's conjugate pair, :func:`replica_input` and
+    :func:`sum_over_replicas`): each rank holds its "model" shard of the
+    block's column-parallel matrices (output dim) and row-parallel ones
+    (input dim); an input every rank reads whole is marked with
+    :meth:`input` (its cotangent summed over "model" in the backward),
+    and a row-parallel product's partial result is summed over "model"
+    with :meth:`sum`, in the partial's dtype (bf16 summed in fp32 and
+    rounded once: :func:`sum_over`)."""
+    mesh: Any
+
+    @property
+    def size(self) -> int:
+        return mesh_shape(self.mesh)["model"]
+
+    @property
+    def rank(self) -> int:
+        return self.mesh.get_local_rank("model")
+
+    def input(self, t):
+        return replica_input(t, self.mesh, ("model",), wide=True)
+
+    def sum(self, t):
+        return sum_over_replicas(t, self.mesh, ("model",), wide=True)
+
+    def max(self, t):
+        """The elementwise maximum over "model" of a tensor that carries
+        no gradient."""
+        return max_over(t.detach().clone(), self.mesh, ("model",))
+
+
+def tensor_parallel(mesh) -> Optional[TensorParallel]:
+    """:class:`TensorParallel` on ``mesh`` when its "model" axis has more
+    than one rank, else None."""
+    if mesh is None or mesh_shape(mesh).get("model", 1) == 1:
+        return None
+    return TensorParallel(device_mesh(mesh))
 
 
 def mesh_device(mesh) -> torch.device:

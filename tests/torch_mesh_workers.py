@@ -18,7 +18,10 @@ import torch.distributed as dist
 #: qwen3-4b-smoke's three-step cases on the (1, 2) mesh: (adder, clip).
 STEP_CASES = (("off", 1e9), ("haloc_axa", 1e9), ("off", 1.0),
               ("haloc_axa", 1.0))
-STEPS = 3
+#: ``torch_mesh_reference``'s tensor-parallel whole-block cases (arch,
+#: adder) and its attention mixer with q/k/v biases.
+TP_BLOCKS = (("hubert-xlarge", "off"), ("hubert-xlarge", "haloc_axa"))
+TP_BIAS_ARCH = "qwen1.5-4b"
 #: The prefill/decode case: prompt length, decode steps, context.
 PROMPT, NEW, CTX = 12, 4, 16
 
@@ -44,10 +47,12 @@ def _rank_main(rank, world, port, jobs, out_dir, ref_path):
     ref = None
     try:
         for job in jobs:
-            t0 = time.perf_counter()
             if job in NEEDS_REF and ref is None:
-                with open(ref_path, "rb") as f:
-                    ref = pickle.load(f)
+                ref = _published(ref_path)
+            if job in NEEDS_RESULTS and "results" not in ref:
+                # the reference's results, beside its inputs
+                ref["results"] = _published(str(ref_path)[:-len(".inputs")])
+            t0 = time.perf_counter()
             out = JOBS[job](ref) if job in NEEDS_REF else JOBS[job]()
             out["seconds"] = time.perf_counter() - t0
             torch.save(out, os.path.join(out_dir, f"{job}.{rank}.pt"))
@@ -57,10 +62,32 @@ def _rank_main(rank, world, port, jobs, out_dir, ref_path):
 
 # ------------------------------------------------------------- helpers --
 
-def cfg_of(arch, adder="off", shard_map=False):
+#: How long a rank waits for the reference to publish a pickle.
+PUBLISH_TIMEOUT = 1200
+
+
+def _published(path, timeout=PUBLISH_TIMEOUT):
+    """The pickle at ``path`` once the reference has published it (with
+    a rename); raises after ``timeout`` seconds without it (the rank
+    then exits non-zero)."""
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"the reference published no {path} in "
+                               f"{timeout} s")
+        time.sleep(0.2)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def cfg_of(arch, adder="off", shard_map=False, pad=1):
+    """A smoke config: ``adder``'s residual adds (on the CPU), the
+    expert-parallel MoE, the vocabulary padded to a multiple of ``pad``."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.numerics.approx_ops import make_numerics
     cfg = get_smoke_config(arch)
+    if pad > 1:
+        cfg = dataclasses.replace(cfg, vocab_pad_multiple=pad)
     if adder != "off":
         cfg = cfg.with_approx(make_numerics(adder, "residual",
                                             backend="torch", device="cpu"))
@@ -181,12 +208,13 @@ def job_moe(ref):
     return out
 
 
-def _grads(ref, arch, shape, shard_map=False):
+def _grads(ref, arch, shape, shard_map=False, adder="off", pad=1):
     from repro_torch.launch import steps
     from repro_torch.sharding import rules as R
-    cfg = cfg_of(arch, shard_map=shard_map)
+    cfg = cfg_of(arch, adder, shard_map, pad)
     mesh = mesh_of(shape)
-    params = port_params(ref["params"][arch], cfg)
+    params = port_params(ref["pad_params"] if pad > 1 else
+                         ref["params"][arch], cfg)
     placed = R.place(params, R.tree_shardings(params, mesh, R.PARAM_RULES),
                      mesh)
     batch, axes = steps.split_batch(case_batch(cfg.vocab_size), mesh,
@@ -207,50 +235,165 @@ def job_grads4(ref):
                 _grads(ref, "granite-moe-1b-a400m", (2, 2), True)}
 
 
+#: The padded-vocab variant's multiple (qwen3-4b-smoke's 509 -> 512).
+PAD = 4
+
+
 def job_grads2(ref):
-    """Losses and gradients on the (2, 1) mesh, both configs."""
-    return {(arch, "2x1", False): _grads(ref, arch, (2, 1))
-            for arch in ("qwen3-4b", "granite-moe-1b-a400m")}
+    """Losses and gradients on the (2, 1) mesh, both configs; on the
+    (1, 2) mesh the (2, 2) cases' runs unsharded over "data" (granite
+    also with the expert-parallel MoE) and the padded-vocab variant of
+    qwen3-4b-smoke, exact and haloc_axa."""
+    out = {(arch, "2x1", False): _grads(ref, arch, (2, 1))
+           for arch in ("qwen3-4b", "granite-moe-1b-a400m")}
+    for arch, ep in (("qwen3-4b", False), ("granite-moe-1b-a400m", False),
+                     ("granite-moe-1b-a400m", True)):
+        out[(arch, "1x2", ep)] = _grads(ref, arch, (1, 2), ep)
+    for adder in ("off", "haloc_axa"):
+        out[("qwen3-4b+pad4", "1x2", adder)] = _grads(
+            ref, "qwen3-4b", (1, 2), adder=adder, pad=PAD)
+    return out
 
 
-def train_steps(cfg, opt, mesh, batches, seed=1):
-    """``init_state(seed)``, placed on ``mesh`` when there is one, and
-    one train step a batch: ([(loss, grad_norm)], final full leaves,
-    step 1's (loss, full gradients))."""
+def job_steps12(ref):
+    """qwen3-4b-smoke's STEP_CASES on the (1, 2) mesh on the reference's
+    batches, each step from the reference's state before it (its seed-1
+    state, then the states its jitted steps reach, published with its
+    results): {case: ([(loss, grad_norm)], [each step's full state
+    leaves after it], [each step's full gradients, as its update read
+    them])}."""
     from repro_torch.launch import steps
-    from repro_torch.sharding import rules as R
-    state = steps.init_state(seed, cfg, opt, device="cpu")
-    ba = None
-    if mesh is not None:
-        state = R.place_state(state, mesh)
-        ba = R.batch_axes(mesh)
-    b0, axes = steps.split_batch(batches[0], mesh, ba)
-    (loss0, _), g0 = steps.value_and_grad(state["params"], cfg, b0, axes,
-                                          mesh)
-    first = (float(loss0), full_leaves(g0))
-    fn = steps.make_train_step(cfg, opt, batch_axes=ba, mesh=mesh)
-    rows = []
-    for b in batches:
-        state, met = fn(state, b)
-        rows.append((float(met["loss"]), float(met["grad_norm"])))
-    return rows, full_leaves(state), first
-
-
-def step_batches(cfg):
-    from repro_torch.data.pipeline import DataConfig, synthetic_batch
-    data = DataConfig(seq_len=32, global_batch=2, seed=5)
-    return [synthetic_batch(cfg, data, s) for s in range(STEPS)]
-
-
-def job_steps12():
-    """qwen3-4b-smoke's STEP_CASES on the (1, 2) mesh."""
+    from repro_torch.models import weights as W
     from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import rules as R
+    want = ref["results"]["steps12"]
     mesh = mesh_of((1, 2))
     out = {}
     for adder, clip in STEP_CASES:
         cfg = cfg_of("qwen3-4b", adder)
         opt = AdamWConfig(warmup_steps=2, total_steps=10, clip_norm=clip)
-        out[(adder, clip)] = train_steps(cfg, opt, mesh, step_batches(cfg))
+        starts = [ref["shards"][("qwen3-4b", "full")]] + \
+            want[(adder, clip)]["states"][:-1]
+        rows, states, grads = [], [], []
+
+        def keep(g):
+            grads.append(full_leaves(g))
+            return g
+
+        fn = steps.make_train_step(cfg, opt, batch_axes=R.batch_axes(mesh),
+                                   grad_transform=keep, mesh=mesh)
+        for start, b in zip(starts, ref["step_batches"], strict=True):
+            state = R.place_state(
+                W.state_from_reference(start, cfg, device="cpu"), mesh)
+            state, met = fn(state, b)
+            rows.append((float(met["loss"]), float(met["grad_norm"])))
+            states.append(full_leaves(state))
+        out[(adder, clip)] = (rows, states, grads)
+    return out
+
+
+def job_tp12(ref):
+    """The tensor-parallel pieces on the (1, 2) mesh, each on its rules'
+    placements (a block's leaves under their block paths, as the step
+    holds them): qwen3-4b-smoke's first SwiGLU MLP and attention mixer,
+    qwen1.5-4b-smoke's attention mixer (q/k/v biases) and the whole first
+    block of hubert-xlarge-smoke (``TP_BLOCKS``) (output, and the
+    gradients of a cotangent for the parameters, gathered, and x), the
+    padded variant's vocabulary-parallel lookup
+    and head + CE; then the first step on the reference's state: the
+    replicated leaves' gradients as this rank holds them, and the global
+    norm of the sharded gradients beside the fp64 norm of the gathered
+    ones."""
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules as R
+    from repro_torch.tree import leaves, leaves_with_paths, unflatten
+    mesh = mesh_of((1, 2))
+    tp = R.tensor_parallel(mesh)
+    cfg = cfg_of("qwen3-4b")
+    params = port_params(ref["params"]["qwen3-4b"], cfg)
+    block = params["pattern"][0][0]
+    inp = {k: torch.from_numpy(np.array(v)) for k, v in ref["tp"].items()}
+    x = inp["x"].to(torch.bfloat16)
+    g = inp["g"].to(torch.bfloat16)
+    positions = torch.arange(x.shape[1], dtype=torch.int32)
+
+    def placed(tree):
+        return R.place(tree, R.tree_shardings(tree, mesh, R.PARAM_RULES),
+                       mesh)
+
+    def run(tree, fn):
+        tree = placed(tree)
+        flat = [t.detach().requires_grad_(True) for t in leaves(tree)]
+        xr = x.clone().requires_grad_(True)
+        y = fn(unflatten(tree, flat), xr)
+        grads = torch.autograd.grad(y, flat + [xr], g)
+        return (y.detach().float().numpy(),
+                {"params": [R.full_tensor(t).numpy() for t in grads[:-1]],
+                 "x": grads[-1].float().numpy()})
+
+    def attn(c, mixer):
+        return run({"mixer": mixer}, lambda b, xr: ATT.attn_apply(
+            {k: T._local(v, (), ("model",) if k in T.MODEL_PARTIAL_LEAVES
+                         else ())
+             for k, v in b["mixer"].items()}, c, c.pattern[0], xr,
+            positions, tp=tp))
+
+    def whole_block(c, blk):
+        """The block as the train step runs it: its leaves for
+        tensor-parallel compute (``transformer._block_gathered``)."""
+        spec = c.pattern[0]
+
+        def fn(b, xr):
+            tps = T.block_tensor_parallel(b, c, spec, "full", mesh)
+            assert None not in tps, "the block is not tensor-parallel"
+            return T.block_apply(
+                T._block_gathered(b, c, spec, xr.shape[1], "full", (), mesh,
+                                  tps), c, spec, xr,
+                {"positions": positions}, None, "full", (), mesh,
+                tp=tps)[0]
+
+        return run(blk, fn)
+
+    out = {
+        "swiglu": run({"mlp": block["mlp"]}, lambda b, xr: L.swiglu(
+            T._local(b["mlp"], ()), xr, tp)),
+        "attn": attn(cfg, block["mixer"]),
+    }
+    bcfg = cfg_of(TP_BIAS_ARCH)
+    out["attn_bias"] = attn(bcfg, port_params(
+        ref["params"][TP_BIAS_ARCH], bcfg)["pattern"][0][0]["mixer"])
+    for arch, adder in TP_BLOCKS:
+        bcfg = cfg_of(arch, adder)
+        out[(arch, adder)] = whole_block(bcfg, port_params(
+            ref["params"][arch], bcfg)["pattern"][0][0])
+    pcfg = cfg_of("qwen3-4b", pad=PAD)
+    pparams = port_params(ref["pad_params"], pcfg)
+    with torch.no_grad():
+        emb = placed({"embed": pparams["embed"]})
+        out["lookup"] = T.embed_input(
+            {"embed": T._local(emb["embed"], ())}, pcfg,
+            {"tokens": inp["tokens"]}, tp=tp)[0].float().numpy()
+        head = placed({"lm_head": pparams["lm_head"]})
+        out["ce"] = float(T._head_loss(pcfg, T._local(head["lm_head"], ()),
+                                       x, inp["labels"], tp))
+    state = placed(pparams)
+    batch, axes = steps.split_batch(case_batch(pcfg.vocab_size), mesh,
+                                    R.batch_axes(mesh))
+    _, grads = steps.value_and_grad(state, pcfg, batch, axes, mesh)
+    out["replicated"] = {
+        ".".join(map(str, path)): R.local(t).detach().clone()
+        for path, t in leaves_with_paths(grads)
+        if R.is_dtensor(t) and R.model_dim(t) is None}
+    out["sharded"] = sorted(".".join(map(str, path)) for path, t in
+                            leaves_with_paths(grads) if R.model_dim(t) is not
+                            None)
+    full = [R.full_tensor(t).double() for t in leaves(grads)]
+    out["norm"] = (float(adamw.torch_global_norm(grads)),
+                   float(torch.sqrt(sum((t * t).sum() for t in full))))
     return out
 
 
@@ -287,12 +430,14 @@ def serve_tokens(mesh):
 
 
 #: The collectives counted against the dry run's plan, on (2, 2): (arch,
-#: expert-parallel MoE, step kind); the batch is ``case_batch``'s 4 x 32.
-COLLECTIVE_CASES = (("qwen3-4b", False, "train"),
-                    ("qwen3-4b", False, "prefill"),
-                    ("qwen3-4b", False, "decode"),
-                    ("granite-moe-1b-a400m", True, "train"),
-                    ("granite-moe-1b-a400m", True, "prefill"))
+#: expert-parallel MoE, step kind, vocabulary padding multiple); the
+#: batch is ``case_batch``'s 4 x 32.
+COLLECTIVE_CASES = (("qwen3-4b", False, "train", 1),
+                    ("qwen3-4b", False, "prefill", 1),
+                    ("qwen3-4b", False, "decode", 1),
+                    ("granite-moe-1b-a400m", True, "train", 1),
+                    ("granite-moe-1b-a400m", True, "prefill", 1),
+                    ("qwen3-4b", False, "train", PAD))
 #: The context of the counted prefill and decode steps.
 COLLECTIVE_CTX = 48
 #: torch's collective ops (the functional ones DTensor issues and the
@@ -349,8 +494,8 @@ def job_collectives():
     mesh = mesh_of((2, 2))
     ba = R.batch_axes(mesh)
     out = {}
-    for arch, ep, kind in COLLECTIVE_CASES:
-        cfg = cfg_of(arch, shard_map=ep)
+    for arch, ep, kind, pad in COLLECTIVE_CASES:
+        cfg = cfg_of(arch, shard_map=ep, pad=pad)
         batch = case_batch(cfg.vocab_size)
         count = counting_mode()
         if kind == "train":
@@ -377,7 +522,7 @@ def job_collectives():
                     with count:
                         decode(p, {"tokens": tokens[:, :1]},
                                tokens.shape[1], cache)
-        out[(arch, ep, kind)] = (count.plan, count.other)
+        out[(arch, ep, kind, pad)] = (count.plan, count.other)
     return out
 
 
@@ -463,7 +608,9 @@ def job_fault():
 
 
 JOBS = {"placements": job_placements, "moe": job_moe, "grads4": job_grads4,
-        "grads2": job_grads2, "steps12": job_steps12,
+        "grads2": job_grads2, "steps12": job_steps12, "tp12": job_tp12,
         "serve21": job_serve21, "elastic": job_elastic, "fault": job_fault,
         "collectives": job_collectives}
-NEEDS_REF = ("placements", "moe", "grads4", "grads2")
+NEEDS_REF = ("placements", "moe", "grads4", "grads2", "steps12", "tp12")
+#: The jobs that also read the reference's results (its states).
+NEEDS_RESULTS = ("steps12",)
