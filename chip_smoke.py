@@ -389,8 +389,23 @@ mesh of two gloo ranks on the card, under deterministic algorithms:
    printed beside the unsharded loop's); the step's ms split forward /
    backward / update, a profiled step's launches and idle share and the
    peak memory a rank, printed beside a line saying that gloo stages the
-   collectives through the host and the ranks share one card.  A rank
-   that cannot join or fails fails the phase.
+   collectives through the host and the ranks share one card.  Then, in
+   the same two processes, the train state freed, tensor-parallel
+   serving: Qwen3-4B at full width cut to 4 layers, bf16 parameters from
+   seed 0 placed by the rules on (1, 2), a prefill of 4 x 128 tokens and
+   4 greedy decode steps with a cache of 4 x 132 positions, three times
+   (haloc_axa with the kernel, counted: 8 ``approx_add`` launches a
+   forward a rank; haloc_axa on the plain versions; exact): each rank's
+   cache bytes (its 4 of the 8 kv heads) equal to the dry run's
+   ``cache_bytes`` on (1, 2) exactly; the two ranks' logits and tokens
+   equal bit for bit at the prefill and every decode step; the kernel's
+   run equal to the plain version's (logits, tokens, every cache tensor)
+   bit for bit; the exact logits within the reference's rule (0.04) of
+   rank 0's unsharded pass on the whole parameters, teacher-forced with
+   the sharded run's tokens (the haloc_axa logits against it printed);
+   prefill ms, decode ms a step, a profiled decode step's launches and
+   idle share printed.  A rank that cannot join or fails fails the
+   phase.
 
 The entry-point slice adds phase 4m, its counts set to 0 just before each
 counted run and read just after (their launches join the ``kernels``
@@ -4799,6 +4814,9 @@ SHARD_LAUNCHER = ["-m", "torch.distributed.run", "--standalone",
 TP_MESH = (1, 2)
 TP_TIMEOUT = 600
 TP_DIR = ROOT / "build" / "tp_ranks"
+#: (d)'s serving: bf16 parameters from TP_SERVE_SEED, the prompt from
+#: TP_PROMPT_SEED, LM_BATCH x LM_PROMPT tokens and LM_NEW greedy steps.
+TP_SERVE_SEED, TP_PROMPT_SEED = 0, 29
 
 
 def one_rank_mesh(torch):
@@ -5129,6 +5147,136 @@ def tp_step_split(torch, cfg, opt, mesh, dev, reps=3):
             "profile": line}
 
 
+def tp_serve_run(torch, cfg, params, mesh, prompt, forced=None):
+    """(d)'s serving run: the prefill step of ``prompt`` with a cache of
+    LM_PROMPT + LM_NEW positions, then LM_NEW decode steps on the greedy
+    tokens (``forced``: these tokens instead); on ``mesh`` the sharded
+    steps, without one the unsharded.  Returns (each step's logits, the
+    greedy token of each, the cache)."""
+    from repro_torch.launch import steps
+    from repro_torch.sharding import rules as R
+    ba = None if mesh is None else R.batch_axes(mesh)
+    prefill = steps.make_prefill_step(cfg, LM_PROMPT + LM_NEW,
+                                      batch_axes=ba, mesh=mesh)
+    decode = steps.make_decode_step(cfg, batch_axes=ba, mesh=mesh)
+    with torch.no_grad():
+        logits, cache = prefill(params, prompt)
+        out = [logits]
+        for i in range(LM_NEW):
+            nxt = (logits[:, -1].float().argmax(-1)[:, None] if forced is None
+                   else forced[:, i:i + 1])
+            logits, cache = decode(params, {"tokens": nxt}, LM_PROMPT + i,
+                                   cache)
+            out.append(logits)
+    toks = torch.cat([lg[:, -1].float().argmax(-1)[:, None] for lg in out], 1)
+    return out, toks, cache
+
+
+def tp_digest(torch, t):
+    """The SHA-256 of a tensor's bytes (bf16 read as its bits)."""
+    import hashlib
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def tp_serve(torch, cut, hal, plain, mesh, dev, counts):
+    """(d)'s serving on this rank (the module docstring, 4l): the three
+    runs on the placed parameters, the cache's bytes beside the dry
+    run's, rank 0's unsharded passes and its times and profile.  Returns
+    its figures for JSON."""
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules as R
+    from repro_torch.tree import leaves
+    t0 = time.perf_counter()
+    params = T.init_params(TP_SERVE_SEED, cut, device=dev,
+                           dtype=torch.bfloat16)
+    placed = R.place(params, R.tree_shardings(params, mesh, R.PARAM_RULES),
+                     mesh)
+    rank0 = mesh.get_rank() == 0
+    if not rank0:
+        del params
+    prompt = lm_prompt(torch, cut, LM_BATCH, LM_PROMPT, dev, TP_PROMPT_SEED)
+    for f in counts.values():
+        f.launches = 0
+    h_logits, h_toks, h_cache = tp_serve_run(torch, hal, placed, mesh,
+                                                prompt)
+    torch.cuda.synchronize()
+    res = {"launches": {name: f.launches for name, f in counts.items()}}
+    p_logits, p_toks, p_cache = tp_serve_run(torch, plain, placed, mesh,
+                                                prompt)
+    res["plain_equal"] = (
+        all(torch.equal(a, b) for a, b in zip(h_logits, p_logits,
+                                              strict=True))
+        and torch.equal(h_toks, p_toks)
+        and all(torch.equal(a, b) for a, b in zip(
+            leaves(h_cache), leaves(p_cache), strict=True)))
+    del p_logits, p_cache
+    e_logits, e_toks, e_cache = tp_serve_run(torch, cut, placed, mesh,
+                                                prompt)
+    res["cache_bytes"] = (sum(t.nbytes for t in leaves(e_cache)),
+                          dryrun.cache_bytes(cut, LM_BATCH,
+                                             LM_PROMPT + LM_NEW, mesh),
+                          [list(t.shape) for t in leaves(e_cache)][:3])
+    res["digests"] = {label: [tp_digest(torch, lg) for lg in logits]
+                      for label, logits in (("haloc_axa", h_logits),
+                                            ("exact", e_logits))}
+    res["tokens"] = {"haloc_axa": h_toks.tolist(), "exact": e_toks.tolist()}
+    if rank0:   # the unsharded passes, teacher-forced with the sharded tokens
+        res["unsharded"] = {}
+        for label, cfg, logits, toks in (("exact", cut, e_logits, e_toks),
+                                         ("haloc_axa", hal, h_logits,
+                                          h_toks)):
+            u_logits = tp_serve_run(torch, cfg, params, None, prompt,
+                                    forced=toks)[0]
+            res["unsharded"][label] = [lm_rel(torch, a, b) for a, b in
+                                       zip(logits, u_logits, strict=True)]
+        del params
+    del h_logits, e_logits, h_cache, e_cache
+    res["seconds"] = time.perf_counter() - t0
+    # times: haloc_axa with the kernel, a cache with a spare slot for the
+    # profiled step; the ranks run the same calls (their collectives pair)
+    ba = R.batch_axes(mesh)
+    prefill = steps.make_prefill_step(hal, LM_PROMPT + LM_NEW + 1,
+                                      batch_axes=ba, mesh=mesh)
+    decode = steps.make_decode_step(hal, batch_axes=ba, mesh=mesh)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            got = fn()
+        torch.cuda.synchronize()
+        return got, (time.perf_counter() - t1) * 1e3
+
+    (logits, cache), prefill_ms = timed(lambda: prefill(placed, prompt))
+    ms = []
+    for i in range(LM_NEW):
+        nxt = logits[:, -1].float().argmax(-1)[:, None]
+        (logits, cache), t = timed(lambda: decode(
+            placed, {"tokens": nxt}, LM_PROMPT + i, cache))
+        ms.append(t)
+    step_ms = statistics.median(ms)
+
+    def step():
+        with torch.no_grad():
+            decode(placed, {"tokens": nxt}, LM_PROMPT + LM_NEW, cache)
+
+    if rank0:
+        prof = kernel_classes(device_times(torch, step, 1))
+        line = step_profile_line(prof, step_ms) if prof else \
+            "the profiler recorded no device time (not measured)"
+    else:
+        for _ in range(2):   # device_times' untimed call and its profiled one
+            step()
+        torch.cuda.synchronize()
+        line = None
+    res["times"] = {"prefill_ms": prefill_ms, "decode_ms": step_ms,
+                    "profile": line}
+    return res
+
+
 def tp_rank(rank, port, out):
     """One rank of (d), ``chip_smoke.py --tp-rank RANK PORT OUT``: joins
     the two-rank gloo group on the card, builds the TP_MESH mesh and runs
@@ -5193,6 +5341,8 @@ def tp_rank(rank, port, out):
         res["times"] = {label: tp_step_split(torch, cfg, opt, mesh, dev)
                         for label, cfg in (("haloc_axa", hal),
                                            ("exact", cut))}
+        torch.cuda.empty_cache()
+        res["serve"] = tp_serve(torch, cut, hal, plain, mesh, dev, counts)
     finally:
         dist.destroy_process_group()
     with open(out, "w") as f:
@@ -5283,6 +5433,7 @@ def tensor_parallel_case(torch, np, dev, card, unsharded):
         check(ranks[0][label] == ranks[1][label],
               f"(d) {label}: the two model ranks' losses differ: "
               f"{ranks[0][label]} / {ranks[1][label]}")
+    tp_serve_gates(np, ranks)
     r0 = ranks[0]
     got, want, n = r0["state_bytes"]
     h_rel = max(abs(a - b) / abs(b) for a, b in
@@ -5314,11 +5465,71 @@ def tensor_parallel_case(torch, np, dev, card, unsharded):
     log(f"  (d) peak memory a rank: {r0['peak'] / 2**30:.2f} GiB (rank 1 "
         f"{ranks[1]['peak'] / 2**30:.2f} GiB) in the counted loop; the "
         f"counted loop {r0['loop_s']:.1f} s")
+    tp_serve_log(ranks, card)
     log("  (d) the collectives go through the host (gloo stages each CUDA "
         "tensor in host memory) and the two ranks share one card, so these "
         "times say nothing of tensor-parallel speed")
-    return {k: sum(res["launches"][k] for res in ranks)
+    return {k: sum(res["launches"][k] + res["serve"]["launches"][k]
+                   for res in ranks)
             for k in ranks[0]["launches"]}
+
+
+def tp_serve_gates(np, ranks):
+    """(d)'s serving gates (the module docstring, 4l) on both ranks'
+    figures."""
+    forwards = 1 + LM_NEW
+    for res in ranks:
+        sv, r = res["serve"], res["rank"]
+        got, want, _ = sv["cache_bytes"]
+        check(got == want,
+              f"(d) serving, rank {r}: the cache holds {got} bytes, the dry "
+              f"run's cache_bytes on {TP_MESH} says {want}")
+        launches = sv["launches"]
+        check(launches["approx_add"] == 2 * SHARD_LAYERS * forwards
+              and all(c == 0 for k, c in launches.items()
+                      if k != "approx_add"),
+              f"(d) serving, rank {r}: {launches} in {forwards} forwards, "
+              f"not {2 * SHARD_LAYERS} approx_add launches a forward")
+        check(sv["plain_equal"],
+              f"(d) serving, rank {r}: the kernel's run differs from the "
+              f"plain version's (logits, tokens or a cache tensor)")
+    a, b = (res["serve"] for res in ranks)
+    for label in ("haloc_axa", "exact"):
+        same = [x == y for x, y in zip(a["digests"][label],
+                                       b["digests"][label], strict=True)]
+        check(all(same) and a["tokens"][label] == b["tokens"][label],
+              f"(d) serving, {label}: the two model ranks' logits or tokens "
+              f"differ (logits equal a step: {same})")
+    rel = a["unsharded"]["exact"]
+    check(all(np.isfinite(x) and x < LM_TOL for x in rel),
+          f"(d) serving, exact: the tensor-parallel logits against the "
+          f"unsharded pass's, each step {rel} (rule {LM_TOL})")
+
+
+def tp_serve_log(ranks, card):
+    a = ranks[0]["serve"]
+    got, want, shapes = a["cache_bytes"]
+    t = a["times"]
+    log(f"  (d) serving {TRAIN_ARCH} at full width cut to {SHARD_LAYERS} "
+        f"layers on {TP_MESH}, bf16 parameters placed by the rules: prefill "
+        f"{LM_BATCH} x {LM_PROMPT} and {LM_NEW} greedy decode steps, "
+        f"haloc_axa (kernel and plain) and exact ({a['seconds']:.1f} s on rank 0, "
+        f"{ranks[1]['serve']['seconds']:.1f} s on rank 1): each rank's cache "
+        f"{got} bytes ({shapes[0]} k and v a layer), the dry run's "
+        f"cache_bytes {want}; {a['launches']['approx_add']} approx_add "
+        f"launches a rank; the ranks' logits and tokens equal bit for bit at "
+        f"every step; the kernel's run equals the plain version's (logits, "
+        f"tokens, every cache tensor)")
+    log(f"  (d) serving against rank 0's unsharded pass (teacher-forced with "
+        f"the sharded tokens), max |d| / max(1, max |logit|) a step: exact "
+        f"{[f'{x:.5f}' for x in a['unsharded']['exact']]} (rule {LM_TOL}), "
+        f"haloc_axa {[f'{x:.5f}' for x in a['unsharded']['haloc_axa']]} "
+        f"(printed, not gated: the adder turns each rounding the sums over "
+        f"\"model\" move into changes of up to 2^m units)")
+    log(f"  (d) serving, haloc_axa with the kernel, rank 0: prefill "
+        f"{t['prefill_ms']:.3f} ms, decode {t['decode_ms']:.3f} ms a step "
+        f"(wall, median of {LM_NEW}; {card}); a profiled decode step: "
+        f"{t['profile']}")
 
 
 def sharding_phase(torch, np, dev, counts, card):

@@ -17,7 +17,12 @@ allocation), places them with the sharding rules on the abstract mesh
 - ``memory``: the per-device bytes of the parameters, the optimizer
   state, the cache and the batch under the rules' placements, and
   ``argument_size_in_bytes``, their sum over the step's arguments (the
-  reference's compiled ``memory_analysis`` field of that name);
+  reference's compiled ``memory_analysis`` field of that name).  The
+  cache is counted as a port rank holds it (:func:`cache_bytes`): a
+  mixer computed gathered over "model" (cross attention, RG-LRU, SSD)
+  keeps its cache whole there, where the reference's ``CACHE_RULES``
+  split it; a decode record also gives that ``CACHE_RULES`` figure,
+  ``cache_rules_bytes``;
 - ``collectives``: the port's own plan, the all-gathers, reduce-scatters
   and all-reduces its sharded step issues, each with its count and the
   bytes of its results on one device (:func:`collective_plan`).
@@ -39,6 +44,7 @@ import time
 import traceback
 from typing import Dict
 
+from repro_torch.models import transformer as T
 from repro_torch.models.moe import EXPERT_LEAVES
 from repro_torch.sharding import rules as R
 from repro_torch.tree import leaves_with_paths
@@ -117,30 +123,46 @@ def grad_plan(plan, leaf, spec, mesh, batch, times=1, keep=()):
             _plan_add(plan, "all-reduce", nbytes, times)
 
 
-def tensor_parallel_plan(cfg, params, specs, mesh, kind="train"):
-    """What a step of ``kind`` computes tensor-parallel over "model"
-    (none at model = 1, nor at prefill and decode): (each leaf's role in :func:`repro_torch.tree.leaves`
-    order -- "shard" for a leaf kept on its "model" shard, "partial" for
-    a replicated one whose gradient each "model" rank holds a part of
-    (the q/k norm scales of a tensor-parallel mixer), else None --, the
-    number of tensor-parallel mixers, of SwiGLU MLPs, of GELU MLPs,
-    whether the embedding and whether the head and CE are
-    vocabulary-parallel).  The step's choice:
-    :func:`repro_torch.models.transformer.tensor_parallel_parts`."""
-    from repro_torch.models import transformer as T
+def tensor_parallel_blocks(cfg, params, specs, mesh):
+    """Each block's (mixer, MLP) flags, in block order: whether it
+    computes tensor-parallel over "model" on ``mesh`` with its leaves
+    placed by ``specs`` (all False at model = 1): the steps' choice,
+    :func:`repro_torch.models.transformer.tensor_parallel_parts`, read
+    from the specs instead of the DTensors' placements."""
+    from repro_torch.tree import unflatten
+    m = R.mesh_shape(mesh).get("model", 1)
+    if m == 1:
+        return [(False, False)] * len(cfg.all_blocks())
+    sharded = unflatten(params, ["model" in _spec_axes(s)
+                                 for s in R.spec_leaves(specs)])
+    return [T.tensor_parallel_parts(cfg, spec, flags, m)
+            for spec, flags in zip(cfg.all_blocks(),
+                                   T.blocks_in_order(cfg, sharded),
+                                   strict=True)]
+
+
+def tensor_parallel_plan(cfg, params, specs, mesh):
+    """What a step computes tensor-parallel over "model" (none at model
+    = 1; the same blocks in the train, prefill and decode steps): (each
+    leaf's role in :func:`repro_torch.tree.leaves` order -- "shard" for
+    a leaf kept on its "model" shard, "partial" for a replicated one
+    whose gradient each "model" rank holds a part of (the q/k norm scales
+    of a tensor-parallel mixer), else None --, the number of
+    tensor-parallel mixers, of SwiGLU MLPs, of GELU MLPs, whether the
+    embedding and whether the head (and in training the CE) are
+    vocabulary-parallel).  The blocks: :func:`tensor_parallel_blocks`."""
     from repro_torch.models.config import SWIGLU
     from repro_torch.tree import leaves, unflatten
-    m = R.mesh_shape(mesh).get("model", 1)
     flat = R.spec_leaves(specs)
     roles = unflatten(params, [None] * len(flat))
-    if m == 1 or kind != "train":
+    if R.mesh_shape(mesh).get("model", 1) == 1:
         return leaves(roles), 0, 0, 0, False, False
     sharded = unflatten(params, ["model" in _spec_axes(s) for s in flat])
     n_attn = n_swiglu = n_gelu = 0
-    for spec, flags, role in zip(cfg.all_blocks(),
-                                 T.blocks_in_order(cfg, sharded),
-                                 T.blocks_in_order(cfg, roles)):
-        attn, mlp = T.tensor_parallel_parts(cfg, spec, flags, m)
+    for spec, flags, role, (attn, mlp) in zip(
+            cfg.all_blocks(), T.blocks_in_order(cfg, sharded),
+            T.blocks_in_order(cfg, roles),
+            tensor_parallel_blocks(cfg, params, specs, mesh)):
         parts = [("mixer", attn), ("mlp", mlp)]
         for part, on in parts:
             if not on:
@@ -161,6 +183,24 @@ def tensor_parallel_plan(cfg, params, specs, mesh, kind="train"):
             vocab.get("lm_head"))
 
 
+def serving_head(cfg, specs, mesh) -> str:
+    """How the sharded prefill and decode steps compute the head with its
+    leaves placed by ``specs`` on ``mesh`` (the choice of
+    :func:`repro_torch.models.transformer._serving_head`, from the specs):
+    "columns" where the rules shard its vocabulary over "model" (each
+    rank's logits gathered in bf16), "rows" where
+    :func:`repro_torch.models.transformer.head_rows_split` (fp32 partials
+    summed over "model"), else "whole"."""
+    w = specs["lm_head"]["w"]
+    m = R.mesh_shape(mesh).get("model", 1)
+    if m > 1 and "model" in _spec_axes(w[1:]):
+        return "columns"
+    if m > 1 and T.head_rows_split(cfg.d_model, R.shard_factor(w[:1], mesh),
+                                   m):
+        return "rows"
+    return "whole"
+
+
 def collective_plan(cfg, kind, mesh, params, specs, batch_specs, seq,
                     microbatches=1) -> dict:
     """The collectives of one step of the port's sharded path, per
@@ -169,9 +209,13 @@ def collective_plan(cfg, kind, mesh, params, specs, batch_specs, seq,
     dims but "model" only), in training the gradients' reductions and
     AdamW's norm, the loss's mean, the MoE layers' load-balancing sums
     and expert-parallel all-reduces, the tensor-parallel compute's sums
-    over "model" (:func:`tensor_parallel_plan`), and the logits' gather
-    at prefill and decode.  ``tests/test_torch_sharding.py`` counts what
-    the step issues on a (2, 2) mesh of gloo ranks against it."""
+    over "model" (:func:`tensor_parallel_plan`), and at prefill and
+    decode the head's logits made whole over "model" (a vocabulary-parallel
+    head's bf16 columns gathered; a row-parallel one's partials summed
+    in fp32, :func:`repro_torch.models.transformer.head_rows_split`) and
+    gathered over the batch axes.  ``tests/test_torch_sharding.py``
+    counts what the step issues on a (2, 2) mesh of gloo ranks against
+    it."""
     sizes = R.mesh_shape(mesh)
     ba = R.batch_axes(mesh) or ()
     rows = next(iter(batch_specs.values())).shape[0]
@@ -186,7 +230,7 @@ def collective_plan(cfg, kind, mesh, params, specs, batch_specs, seq,
           and seq > 1 and split and bool(ba) and "model" in sizes
           and mc.num_experts % m == 0)
     roles, n_attn, n_swiglu, n_gelu, tp_embed, tp_head = \
-        tensor_parallel_plan(cfg, params, specs, mesh, kind)
+        tensor_parallel_plan(cfg, params, specs, mesh)
     flat = [(t, spec, ("model",) if role == "shard" or (
                  ep and path[-2] == "mlp" and path[-1] in EXPERT_LEAVES)
              else (), role)
@@ -219,6 +263,21 @@ def collective_plan(cfg, kind, mesh, params, specs, batch_specs, seq,
                 _plan_add(plan, "all-reduce", 4 * len(flat))
         if axes:   # the loss, ce and aux's means
             _plan_add(plan, "all-reduce", 12 * len(axes), times)
+    else:
+        # the tensor-parallel sums over "model", in fp32: each mixer's and
+        # MLP's row-parallel output and the embedding's lookup; the head's
+        # logits (the last position's where the model is causal) made
+        # whole over "model"
+        s = 1 if kind == "decode" else seq
+        positions = 1 if cfg.causal else s
+        _plan_add(plan, "all-reduce", local_rows * s * cfg.d_model * 4,
+                  n_attn + n_swiglu + n_gelu + tp_embed)
+        logits = local_rows * positions * cfg.padded_vocab
+        head = serving_head(cfg, specs, mesh)
+        if head == "columns":
+            _plan_add(plan, "all-gather", logits * 2)
+        elif head == "rows":
+            _plan_add(plan, "all-reduce", logits * 4)
     moe_blocks = sum(s.mlp == "moe" for s in cfg.all_blocks())
     if moe_blocks:
         s = 1 if kind == "decode" else seq
@@ -249,6 +308,32 @@ def collective_plan(cfg, kind, mesh, params, specs, batch_specs, seq,
             _plan_add(plan, "all-gather",
                       rows * positions * cfg.padded_vocab * 2)
     return plan
+
+
+def cache_bytes(cfg, rows: int, ctx_len: int, mesh,
+                rules: bool = False) -> int:
+    """Per-device bytes of the cache of ``rows`` sequences of up to
+    ``ctx_len`` positions on ``mesh``, as a rank of the port's sharded
+    prefill and decode steps holds it
+    (:func:`repro_torch.models.transformer.cache_shardings`): a
+    tensor-parallel self-attention block's ``k``/``v`` over its rows and
+    KV/m heads, every other mixer's cache over its rows only, whole over
+    "model" (its compute is gathered there; the blocks from
+    :func:`tensor_parallel_blocks` on the rules' parameter placement).
+    ``rules``: placed by ``CACHE_RULES`` alone instead, "model" kept on
+    every leaf the axis divides (what the reference's sharded step
+    holds)."""
+    from repro_torch.launch.steps import cache_shapes, params_shapes
+    c_shapes = cache_shapes(cfg, rows, ctx_len)
+    if rules:
+        return R.tree_shard_bytes(c_shapes, R.cache_shardings(c_shapes,
+                                                              mesh), mesh)
+    p_shapes = params_shapes(cfg)
+    attn = [a for a, _ in tensor_parallel_blocks(
+        cfg, p_shapes, R.tree_shardings(p_shapes, mesh, R.PARAM_RULES),
+        mesh)]
+    return R.tree_shard_bytes(
+        c_shapes, T.cache_shardings(c_shapes, cfg, mesh, attn), mesh)
 
 
 def state_bytes(cfg, mesh) -> int:
@@ -288,8 +373,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str, approx: str,
     from repro_torch.configs import SHAPES
     from repro_torch.launch.input_specs import batch_specs
     from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.launch.steps import (cache_shapes, params_shapes,
-                                          state_shapes)
+    from repro_torch.launch.steps import params_shapes, state_shapes
     from repro_torch.optim.adamw import AdamWConfig
 
     t0 = time.time()
@@ -311,9 +395,9 @@ def run_cell(arch: str, shape: str, mesh_kind: str, approx: str,
         args = mem["params_bytes"] + b_bytes
         if kind == "decode":
             rows = specs["tokens"].shape[0]
-            c_shapes = cache_shapes(cfg, rows, seq)
-            mem["cache_bytes"] = R.tree_shard_bytes(
-                c_shapes, R.cache_shardings(c_shapes, mesh), mesh)
+            mem["cache_bytes"] = cache_bytes(cfg, rows, seq, mesh)
+            mem["cache_rules_bytes"] = cache_bytes(cfg, rows, seq, mesh,
+                                                   rules=True)
             pos = torch.empty((), dtype=torch.int32, device="meta")
             args += mem["cache_bytes"] + pos.element_size()
         mem["argument_size_in_bytes"] = args

@@ -14,17 +14,21 @@ each rank holds exactly the reference's shard; the batch (the whole
 global batch, the same on every rank) is cut to this rank's rows
 (:func:`split_batch`); each block's leaves are gathered just before it
 runs; each gradient leaf is summed over the batch axes and cut back to
-its placement (a reduce-scatter); AdamW runs on the local shards.  In
-the train step, on a mesh with model > 1, the self-attention mixers,
-the dense MLPs, the embedding and the head and CE compute
-tensor-parallel over "model" where the rules shard their leaves there
+its placement (a reduce-scatter); AdamW runs on the local shards.  On a
+mesh with model > 1 the self-attention mixers, the dense MLPs, the
+embedding and the head (in training with the CE) compute tensor-parallel
+over "model" where the rules shard their leaves there, in every step
 (``models.transformer``'s module docstring): such a leaf is gathered
-over the other mesh dims only, and its gradient stays on its "model"
-shard, reduced over the batch axes only; a replicated leaf gets the
-same full gradient on every "model" rank.  The prefill and decode steps
-gather every leaf (compute over "model" replicated, apart from the
-expert-parallel MoE) and return the whole batch's logits (gathered over
-the batch axes) and the rank's rows of the cache.
+over the other mesh dims only, and in training its gradient stays on
+its "model" shard, reduced over the batch axes only; a replicated leaf
+gets the same full gradient on every "model" rank.  The prefill and
+decode steps return the whole batch's logits (the vocabulary gathered
+over "model", the rows over the batch axes) and the rank's cache: a
+tree of plain tensors on its device holding its batch rows and, in each
+tensor-parallel self-attention block, its KV/m heads, as
+``CACHE_RULES`` places them (``transformer.cache_shardings``); the other
+mixers' caches are whole on every "model" rank.  Decode updates that
+cache in place.
 """
 
 from __future__ import annotations
@@ -160,14 +164,16 @@ def make_prefill_step(cfg: ModelConfig, ctx_len: int, batch_axes=None,
     cache of ``ctx_len`` positions on the parameters' device, filled
     (batch: ``tokens`` or an audio model's ``frames``, and a vision
     model's ``vision``; a non-causal model returns every position's
-    logits).  On a mesh: the rank's rows of the cache, the whole batch's
-    logits."""
+    logits).  On a mesh: the rank's cache (its rows, and its heads of
+    each tensor-parallel attention block: ``transformer.init_cache`` with
+    ``transformer.cache_tensor_parallel``), the whole batch's logits."""
 
     def prefill_step(params, batch):
         batch, axes = split_batch(batch, mesh, batch_axes)
         b = len(batch["tokens"] if "tokens" in batch else batch["frames"])
         cache = T.init_cache(cfg, b, ctx_len,
-                             device=T.params_device(params))
+                             device=T.params_device(params),
+                             tp=T.cache_tensor_parallel(params, cfg, mesh))
         logits, cache, _ = T.forward(params, cfg, batch, mode="prefill",
                                      cache=cache, batch_axes=axes,
                                      mesh=mesh)
@@ -180,7 +186,7 @@ def make_decode_step(cfg: ModelConfig, batch_axes=None, mesh=None):
     """``decode_step(params, batch, pos, cache) -> (logits, cache)``: one
     token per sequence at absolute position ``pos``; the cache is updated
     in place.  On a mesh ``batch`` is the whole batch's tokens and
-    ``cache`` the rank's rows (:func:`make_prefill_step`'s)."""
+    ``cache`` the rank's (:func:`make_prefill_step`'s)."""
 
     def decode_step(params, batch, pos, cache):
         batch, axes = split_batch(batch, mesh, batch_axes)

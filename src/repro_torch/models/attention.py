@@ -10,6 +10,14 @@ Cache layouts (lockstep batched serving):
 are computed from these absolute positions (``layers._mask_bias``), which
 makes the ring buffer and the linear cache share one code path.
 
+Under tensor parallelism over "model" a self-attention cache holds the
+rank's KV/m heads, (B, S_ctx, Hkv/m, Dh), as ``CACHE_RULES`` places
+``k``/``v`` and the reference's partitioned steps hold them: the
+prefill fills them with the rank's heads, a decode step writes one slot
+of them (the reference's ``dynamic-update-slice`` on the local heads)
+and reads only them; ``pos`` is replicated, every rank writing the same
+slot.
+
 The port writes a decode step's k/v/pos into the cache it is given, in
 place (the reference returns a new cache), and so does a prefill shorter
 than the cache; the returned cache is that same dict.  A decode position
@@ -62,22 +70,28 @@ def _qkv(p, cfg: ModelConfig, x, positions, spec: BlockSpec, rope=None,
     return q, k, v
 
 
+def _check_split(cfg: ModelConfig, tp) -> None:
+    """A ``ValueError`` when the q or kv heads do not split over ``tp``'s
+    model ranks (``layers._repeat_kv`` maps q head h to kv head
+    h // (H/KV), so a contiguous q shard reads exactly its contiguous kv
+    shard only when KV % m == 0)."""
+    if tp is not None and (cfg.num_heads % tp.size
+                           or cfg.num_kv_heads % tp.size):
+        raise ValueError(
+            f"{cfg.name}: {cfg.num_heads} q / {cfg.num_kv_heads} kv heads "
+            f"do not split over {tp.size} model ranks")
+
+
 def attn_apply(p, cfg: ModelConfig, spec: BlockSpec, x, positions,
                rope=None, tp=None):
     """Full-sequence self attention (scoring). positions: (S,).
 
     Under tensor parallelism (``tp``: ``p`` holds this rank's "model"
     shards, :func:`repro_torch.sharding.rules.model_shard`) the rank
-    computes its H/m q heads and KV/m kv heads: ``layers._repeat_kv``
-    maps q head h to kv head h // (H/KV), so a contiguous q shard reads
-    exactly its contiguous kv shard when KV % m == 0.  The q/k norms and
-    RoPE act per head; ``wo`` is row-parallel (one sum over "model",
-    :func:`layers.dense_row`)."""
-    if tp is not None and (cfg.num_heads % tp.size
-                           or cfg.num_kv_heads % tp.size):
-        raise ValueError(
-            f"{cfg.name}: {cfg.num_heads} q / {cfg.num_kv_heads} kv heads "
-            f"do not split over {tp.size} model ranks")
+    computes its H/m q heads and KV/m kv heads (:func:`_check_split`).
+    The q/k norms and RoPE act per head; ``wo`` is row-parallel (one sum
+    over "model", :func:`layers.dense_row`)."""
+    _check_split(cfg, tp)
     q, k, v = _qkv(p, cfg, x, positions, spec, rope, tp)
     out = L.attention_any(
         q, k, v, positions, positions, causal=cfg.causal,
@@ -87,9 +101,13 @@ def attn_apply(p, cfg: ModelConfig, spec: BlockSpec, x, positions,
 
 
 def attn_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,
-                    ctx_len: int, dtype=torch.bfloat16, device=None):
+                    ctx_len: int, dtype=torch.bfloat16, device=None,
+                    heads=None):
+    """An empty cache of ``heads`` kv heads (``None``: all of them; under
+    tensor parallelism the rank's KV/m)."""
     size = min(ctx_len, spec.window) if spec.window > 0 else ctx_len
-    shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
+    shape = (batch, size, cfg.num_kv_heads if heads is None else heads,
+             cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -98,13 +116,17 @@ def attn_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,
 
 
 def attn_prefill(p, cfg: ModelConfig, spec: BlockSpec, x, positions, cache,
-                 rope=None):
+                 rope=None, tp=None):
     """Prefill: full-sequence attention + populate the cache.
 
     The cache covers the LAST ``size`` positions (ring layout for windowed
     layers: slot = pos % size, which for a prefill of length S >= size is
-    a roll of the tail)."""
-    q, k, v = _qkv(p, cfg, x, positions, spec, rope)
+    a roll of the tail).  Under tensor parallelism (``tp``, as
+    :func:`attn_apply`'s) the rank computes and caches its KV/m kv heads
+    (the cache :func:`attn_cache_init` made with them) and ``wo`` is
+    row-parallel."""
+    _check_split(cfg, tp)
+    q, k, v = _qkv(p, cfg, x, positions, spec, rope, tp)
     out = L.attention_any(
         q, k, v, positions, positions, causal=cfg.causal,
         window=spec.window, kv_chunk=cfg.attn_kv_chunk)
@@ -124,7 +146,7 @@ def attn_prefill(p, cfg: ModelConfig, spec: BlockSpec, x, positions, cache,
         cache["v"][:, slots] = v.to(cache["v"].dtype)
         cache["pos"][slots] = positions.to(torch.int32)
     b = x.shape[0]
-    return L.dense(p["wo"], out.reshape(b, s, cfg.q_dim)), cache
+    return L.dense_row(p["wo"], out.reshape(b, s, -1), tp), cache
 
 
 def decode_slot(pos: int, size: int, window: int) -> int:
@@ -139,17 +161,21 @@ def decode_slot(pos: int, size: int, window: int) -> int:
 
 
 def attn_decode(p, cfg: ModelConfig, spec: BlockSpec, x, pos: int, cache,
-                positions=None, rope=None):
+                positions=None, rope=None, tp=None):
     """One decode step. x: (B,1,D); pos: the absolute position (an int);
     ``positions`` (``[pos]`` as an int32 tensor on x's device) and
-    ``rope`` (its tables), when the caller has them already."""
+    ``rope`` (its tables), when the caller has them already.  Under
+    tensor parallelism (``tp``) the rank writes and reads its KV/m kv
+    heads at the slot every rank writes (``pos`` is the same on all),
+    and ``wo`` is row-parallel."""
+    _check_split(cfg, tp)
     if positions is None:
         positions = torch.arange(pos, pos + 1, dtype=torch.int32,
                                  device=x.device)
     if rope is None:
         rope = L.rope_tables(range(pos, pos + 1), cfg.head_dim,
                              spec.rope_base, x.device)
-    q, k, v = _qkv(p, cfg, x, positions, spec, rope)
+    q, k, v = _qkv(p, cfg, x, positions, spec, rope, tp)
     size = cache["k"].shape[1]
     slot = decode_slot(pos, size, spec.window)
     cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
@@ -159,7 +185,7 @@ def attn_decode(p, cfg: ModelConfig, spec: BlockSpec, x, pos: int, cache,
         q, cache["k"], cache["v"], positions, cache["pos"],
         causal=cfg.causal, window=spec.window)
     b = x.shape[0]
-    return L.dense(p["wo"], out.reshape(b, 1, cfg.q_dim)), cache
+    return L.dense_row(p["wo"], out.reshape(b, 1, -1), tp), cache
 
 
 # ----------------------------------------------------------- cross attn --

@@ -42,31 +42,42 @@ gathered just before they are used (:func:`repro_torch.sharding.rules.gather`),
 their gradients summed over the batch axes and cut back to each leaf's
 placement.
 
-In a full-sequence pass (the training loss) on a mesh whose "model" axis
-has more than one rank, compute over "model" is tensor-parallel where
-the rules shard the leaves over it, as the reference's GSPMD-partitioned
-step computes: a self-attention mixer (its H/m q and KV/m kv heads) and
-a dense MLP (its d_ff/m shard) keep their "model" shards
-(:func:`repro_torch.sharding.rules.model_shard`, gathered over the other
-mesh dims only), the column-parallel products read the block's input
-whole and the row-parallel ones' bf16 partials are summed over "model"
-in fp32 and rounded once (``layers.dense_row``); the embedding looks up
-its vocabulary shard (other ids give 0, summed over "model"), and the
-head and CE compute on the rank's vocabulary shard, the max, the sum of
-exponentials and the gold logit combined over "model" (:func:`loss_fn`).
-Read from the reference's compiled (1, 2) and (2, 2) train steps: every
-"model" all-reduce there sums bf16-rounded partials of a product
-(promoted to fp32, rounded once), or fp32 sums of the CE and of the q/k
-norm scales' gradients.  In hubert-xlarge-smoke's (1, 2) step the GELU
-MLP's output bias is added after its sum, once: rounded to bf16 and
-added in fp32, the sum left unrounded for the approximate residual add
-that reads it (``layers.dense_row``'s ``sum32``); a column-parallel
-bias (``wi.b``, qwen1.5's ``wq.b``/``wk.b``/``wv.b``) is sliced with
-its matrix's columns.  A leaf the rules leave replicated over "model"
-(a vocabulary or width the axis does not divide) is computed whole on
-every rank, as the reference's is; so are the other mixers, the MoE's
-router and shared experts, and prefill and decode, whose leaves are
-gathered.  The expert-parallel MoE (``moe.use_shard_map``) reads its own
+On a mesh whose "model" axis has more than one rank, compute over
+"model" is tensor-parallel where the rules shard the leaves over it, in
+the training loss and at prefill and decode alike, as the reference's
+GSPMD-partitioned steps compute: a self-attention mixer (its H/m q and
+KV/m kv heads; at prefill and decode its cache holds those kv heads,
+:func:`init_cache`) and a dense MLP (its d_ff/m shard) keep their
+"model" shards (:func:`repro_torch.sharding.rules.model_shard`, gathered
+over the other mesh dims only), the column-parallel products read the
+block's input whole and the row-parallel ones' bf16 partials are summed
+over "model" in fp32 and rounded once (``layers.dense_row``); the
+embedding looks up its vocabulary shard (other ids give 0, summed over
+"model"); in training the head and CE compute on the rank's vocabulary
+shard, the max, the sum of exponentials and the gold logit combined over
+"model" (:func:`loss_fn`); at prefill and decode the head's columns are
+the rank's and are gathered over "model" in vocabulary order (no value
+changes), or, where the vocabulary stays whole but FSDP shards the
+head's rows over "data", the head is row-parallel over "model"
+(:func:`head_rows_split`).  Read from the reference's compiled (1, 2)
+and (2, 2) train, prefill and decode steps: every "model" all-reduce
+there sums bf16-rounded partials of a product (promoted to fp32,
+rounded once), or fp32 sums of the CE and of the q/k norm scales'
+gradients; no leaf computed tensor-parallel is gathered over "model".
+In hubert-xlarge-smoke's (1, 2) step the GELU MLP's output bias is added
+after its sum, once: rounded to bf16 and added in fp32, the sum left
+unrounded for the approximate residual add that reads it
+(``layers.dense_row``'s ``sum32``); a column-parallel bias (``wi.b``,
+qwen1.5's ``wq.b``/``wk.b``/``wv.b``) is sliced with its matrix's
+columns.  With exact adds a block whose MLP is tensor-parallel hands the
+next norm its last residual sum rounded to bf16, not the unrounded
+carry of the unsharded step (read from gemma3-27b-smoke's (1, 2) steps,
+prefill, decode and the training forward alike; :func:`block_apply`).
+A leaf the rules leave replicated over "model" (a vocabulary or width
+the axis does not divide) is computed whole on every rank, as the
+reference's is; so are the other mixers (cross attention, MLA, RG-LRU,
+SSD, whose caches each rank holds whole) and the MoE's router and shared
+experts.  The expert-parallel MoE (``moe.use_shard_map``) reads its own
 experts (:func:`repro_torch.models.moe.moe_apply_shard_map`).
 """
 
@@ -158,17 +169,26 @@ def tensor_parallel_parts(cfg: ModelConfig, spec: BlockSpec, sharded,
     return attn, mlp
 
 
-def block_tensor_parallel(p, cfg: ModelConfig, spec: BlockSpec, mode: str,
-                          mesh):
+def block_tensor_parallel(p, cfg: ModelConfig, spec: BlockSpec, mesh):
     """(the mixer's, the MLP's) :class:`repro_torch.sharding.rules.TensorParallel`
     for a block on ``mesh``, or None each (:func:`tensor_parallel_parts`):
-    only in a full-sequence pass on a mesh with model > 1."""
-    tp = R.tensor_parallel(mesh) if mode == "full" else None
+    only on a mesh with model > 1, in every mode."""
+    tp = R.tensor_parallel(mesh)
     if tp is None:
         return None, None
     attn, mlp = tensor_parallel_parts(cfg, spec, tree_map(_sharded, p),
                                       tp.size)
     return (tp if attn else None), (tp if mlp else None)
+
+
+def cache_tensor_parallel(params, cfg: ModelConfig, mesh) -> list:
+    """Each block's mixer's tensor parallelism on ``mesh``
+    (:func:`block_tensor_parallel`), in block order: what
+    :func:`init_cache` reads, so that a tensor-parallel attention block's
+    cache holds the rank's KV/m heads."""
+    return [block_tensor_parallel(p, cfg, spec, mesh)[0]
+            for p, spec in zip(blocks_in_order(cfg, params),
+                               cfg.all_blocks(), strict=True)]
 
 
 def _block_gathered(p, cfg, spec, s, mode, batch_axes, mesh, tp=(None, None)):
@@ -337,7 +357,7 @@ def param_count(params: Params) -> int:
 
 def block_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,
                      ctx_len: int, dtype=torch.bfloat16,
-                     device: Device = None) -> Params:
+                     device: Device = None, tp=None) -> Params:
     if spec.mixer == MLA:
         return MLAm.mla_cache_init(cfg, batch, ctx_len, dtype, device)
     if spec.mixer == RGLRU:
@@ -346,23 +366,48 @@ def block_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,
         return SSDm.ssd_cache_init(cfg, batch, dtype, device)
     if spec.mixer == CROSS:
         return ATT.cross_cache_init(cfg, batch, dtype, device)
-    return ATT.attn_cache_init(cfg, spec, batch, ctx_len, dtype, device)
+    heads = None if tp is None else cfg.num_kv_heads // tp.size
+    return ATT.attn_cache_init(cfg, spec, batch, ctx_len, dtype, device,
+                               heads)
 
 
 def init_cache(cfg: ModelConfig, batch: int, ctx_len: int,
-               dtype=torch.bfloat16, device: Device = None) -> Params:
+               dtype=torch.bfloat16, device: Device = None,
+               tp: Optional[list] = None) -> Params:
     """An empty cache for ``batch`` sequences of up to ``ctx_len``
-    positions, on ``device`` (``None``: the card)."""
+    positions, on ``device`` (``None``: the card).  ``tp``: each block's
+    mixer's tensor parallelism in block order (:func:`cache_tensor_parallel`):
+    a tensor-parallel self-attention block's ``k``/``v`` hold the rank's
+    KV/m heads, as ``CACHE_RULES`` places them over "model"; every other
+    leaf is whole (its mixer computes gathered over "model")."""
     check_ported(cfg)
     dev = resolve_device(device)
+    specs = cfg.all_blocks()
+    tps = [None] * len(specs) if tp is None else tp
+    return _cache_layout(cfg, [
+        block_cache_init(cfg, s, batch, ctx_len, dtype, dev, t)
+        for s, t in zip(specs, tps, strict=True)])
 
-    def one(s):
-        return block_cache_init(cfg, s, batch, ctx_len, dtype, dev)
 
-    return {"prefix": [one(s) for s in cfg.prefix],
-            "suffix": [one(s) for s in cfg.suffix],
-            "pattern": [[one(s) for _ in range(cfg.repeats)]
-                        for s in cfg.pattern]}
+def _cache_layout(cfg: ModelConfig, flat: list) -> Params:
+    """:func:`blocks_layout` in a cache's key order."""
+    tree = blocks_layout(cfg, flat)
+    return {k: tree[k] for k in ("prefix", "suffix", "pattern")}
+
+
+def cache_shardings(cache, cfg: ModelConfig, mesh,
+                    attn_tp: Optional[list] = None) -> Params:
+    """Each leaf's placement on ``mesh`` of the cache a rank of the
+    sharded serving steps holds (``cache``: the whole batch's, e.g.
+    ``launch.steps.cache_shapes``): ``CACHE_RULES``' (the batch axes'
+    rows), with "model" kept only in the blocks whose self-attention
+    computes tensor-parallel (``attn_tp``: a flag a block in block order,
+    ``launch.dryrun.tensor_parallel_blocks``; their ``k``/``v`` heads,
+    :func:`init_cache` with :func:`cache_tensor_parallel`)."""
+    blocks = blocks_in_order(cfg, cache)
+    flags = [False] * len(blocks) if attn_tp is None else attn_tp
+    return _cache_layout(cfg, [R.cache_shardings(c, mesh, model=t)
+                               for c, t in zip(blocks, flags, strict=True)])
 
 
 # ---------------------------------------------------------------- blocks --
@@ -470,16 +515,16 @@ def block_apply(p: Params, cfg: ModelConfig, spec: BlockSpec, x, ctx,
         _, apply, prefill, decode = _MIXERS[spec.mixer]
         rope = ctx.get("rope", {}).get((spec.rope_base,
                                         _rope_dim(cfg, spec)))
+        tp_mix = {} if tp[0] is None else {"tp": tp[0]}
         if mode == "full":
-            tp_mix = {} if tp[0] is None else {"tp": tp[0]}
             mix = apply(p["mixer"], cfg, spec, h, ctx["positions"], rope,
                         **tp_mix)
         elif mode == "prefill":
             mix, new_cache = prefill(p["mixer"], cfg, spec, h,
-                                     ctx["positions"], cache, rope)
+                                     ctx["positions"], cache, rope, **tp_mix)
         else:
             mix, new_cache = decode(p["mixer"], cfg, spec, h, ctx["pos"],
-                                    cache, ctx["positions"], rope)
+                                    cache, ctx["positions"], rope, **tp_mix)
 
     if cfg.approx.enabled:
         x = norm_in = cfg.approx.residual_add(
@@ -510,7 +555,10 @@ def block_apply(p: Params, cfg: ModelConfig, spec: BlockSpec, x, ctx,
             x = cfg.approx.residual_add(x, out).to(x.dtype)
         else:
             x, norm_in = _ExactResidual.apply(x, out)
-    return x, new_cache, aux, None if cfg.approx.enabled else norm_in
+    # under a tensor-parallel MLP XLA rounds the block's last sum (its
+    # all-reduced output added to the stream) before the next norm reads it
+    carried = not cfg.approx.enabled and (spec.mlp == NONE or tp[1] is None)
+    return x, new_cache, aux, norm_in if carried else None
 
 
 # --------------------------------------------------------------- forward --
@@ -591,7 +639,7 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "full",
         raise ValueError(f"bad forward mode {mode!r}")
     if mode != "full" and cache is None:
         raise ValueError(f"mode {mode!r} needs a cache (init_cache)")
-    tp = R.tensor_parallel(mesh) if mode == "full" else None
+    tp = R.tensor_parallel(mesh)
     vocab_tp = tp if tp is not None and "embed" in params \
         and _sharded(params["embed"]["table"]) else None
     inputs = {k: params[k] for k in ("embed", "frontend", "vis_adapter")
@@ -634,7 +682,7 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "full",
     for i, (p, spec, c, g) in enumerate(zip(blocks, specs, caches, gates,
                                             strict=True)):
         carry = sum32 if _reads_carry(cfg, i) else None
-        tps = block_tensor_parallel(p, cfg, spec, mode, mesh)
+        tps = block_tensor_parallel(p, cfg, spec, mesh)
         x, nc, a, sum32 = block_apply(
             _block_gathered(p, cfg, spec, x.shape[1], mode, batch_axes,
                             mesh, tps), cfg, spec, x, ctx, c, mode,
@@ -651,8 +699,48 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "full",
     new_cache = blocks_layout(cfg, new) if cache is not None else None
     if return_prelogits:
         return x, new_cache, aux
-    return L.dense(_gathered(params["lm_head"], batch_axes, mesh), x), \
+    return _serving_head(params["lm_head"], x, batch_axes, mesh), \
         new_cache, aux
+
+
+def head_rows_split(d_model: int, row_shards: int, m: int) -> bool:
+    """Whether the reference's partitioned prefill and decode steps
+    compute a head the rules leave whole over "model" row-parallel there
+    (each "model" rank its D/m rows of the head and of x, the bf16
+    partials summed over "model" in fp32 and rounded once): where the
+    rules shard its d_model rows ``row_shards`` ways (FSDP over "data")
+    and each "model" rank's rows lie in one such shard (m a multiple of
+    ``row_shards``), as GSPMD moves the rows over rather than gather
+    them.  Read from the reference's compiled prefill and decode steps
+    (``tests/torch_head_reference.py``): qwen3-4b-smoke (509 words) on
+    (2, 2), (2, 16), (4, 8), (4, 16), (8, 8), (16, 16) and (2, 16, 16)
+    row-parallel, the partials rounded to bf16 before the fp32 sum, and
+    on (4, 2), (8, 4) and (16, 8) (``row_shards`` > m) the rows gathered
+    and the product whole; mamba2-1.3b (50280 words) and hubert-xlarge
+    (504) at full width, one repeat, on (16, 16) and (2, 16, 16)
+    row-parallel as the predicate says (granite-moe-1b-a400m's vocabulary
+    pads to 51200, which "model" splits: columns).  Not read: a d_model
+    that m does not divide."""
+    return row_shards > 1 and m % row_shards == 0 and d_model % m == 0
+
+
+def _serving_head(head, x, batch_axes, mesh):
+    """The head's logits of the final norm's output ``x`` (every rank's
+    rows whole, as the unsharded path returns them; a padded
+    vocabulary's slots kept).  On a mesh with model > 1: vocabulary-parallel
+    where the rules shard the vocabulary over "model" (the rank's columns,
+    gathered over "model" in vocabulary order: no value changes);
+    row-parallel over d_model where :func:`head_rows_split`; else whole."""
+    tp = R.tensor_parallel(mesh)
+    if tp is not None and _sharded(head["w"]):
+        return tp.gather(L.dense_column(_local(head, batch_axes), x, tp))
+    if tp is not None and head_rows_split(
+            head["w"].shape[0], R.shards_of_dim(head["w"], 0), tp.size):
+        w = _gathered(head, batch_axes, mesh)["w"]
+        n = w.shape[0] // tp.size
+        rows = slice(tp.rank * n, (tp.rank + 1) * n)
+        return L.dense_row({"w": w[rows]}, x[..., rows], tp)
+    return L.dense(_gathered(head, batch_axes, mesh), x)
 
 
 # ------------------------------------------------------------------ loss --

@@ -26,6 +26,20 @@ A mesh is a ``DeviceMesh`` with ``mesh_dim_names`` or a
 a tree of full tensors into DTensors holding each rank's shard, and
 :func:`gather` the DTensors back into full tensors, with the gradient
 summed over the batch axes and scattered back to each leaf's placement.
+
+A cache is not placed as DTensors: the sharded serving steps keep a
+tree of plain local tensors on each rank, which decode writes in place,
+cut by ``CACHE_RULES`` (:func:`cache_shardings`, :func:`local_shape`):
+a self-attention block's ``k``/``v`` over the rank's batch rows and,
+where its compute is tensor-parallel, its KV/m heads.  Where the
+resolver drops "model" (KV heads the axis does not divide:
+recurrentgemma-9b's one) a leaf is whole on every "model" rank, as the
+reference holds it; so are the caches of the mixers whose compute stays
+gathered over "model" (cross attention's ``k``/``v``, the RG-LRU's
+``h``/``conv``, the SSD's ``conv_x``/``state``:
+``cache_shardings(model=False)``), which ``CACHE_RULES`` would split
+over "model" (MLA's ``ckv``/``krope`` it splits over the rows only).
+The dry run counts the cache so (``launch.dryrun.cache_bytes``).
 """
 
 from __future__ import annotations
@@ -269,8 +283,15 @@ def state_shardings(state_shapes, mesh):
     return out
 
 
-def cache_shardings(cache_shapes, mesh):
-    return tree_shardings(cache_shapes, mesh, CACHE_RULES)
+def cache_shardings(cache_shapes, mesh, model: bool = True):
+    """The specs of a cache tree (``CACHE_RULES``); ``model=False``: with
+    "model" dropped (:func:`without_model`), as the port holds the cache
+    of a mixer whose compute is gathered over "model"."""
+    specs = tree_shardings(cache_shapes, mesh, CACHE_RULES)
+    if model:
+        return specs
+    return unflatten(cache_shapes, [without_model(s)
+                                    for s in spec_leaves(specs)])
 
 
 # -------------------------------------------------------------- bytes --
@@ -287,8 +308,28 @@ def shard_factor(spec: Spec, mesh) -> int:
 
 def shard_bytes(leaf, spec: Spec, mesh) -> int:
     """The bytes of one device's shard of ``leaf`` (any tensor, meta
-    included) placed by ``spec``."""
-    return leaf.numel() * leaf.element_size() // shard_factor(spec, mesh)
+    included) placed by ``spec`` (:func:`local_shape`)."""
+    return math.prod(local_shape(leaf.shape, spec, mesh)) * \
+        leaf.element_size()
+
+
+def local_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of one device's shard of a leaf of ``shape`` placed by
+    ``spec`` (each dim divided by the sizes of the mesh axes named
+    there; any mesh, :class:`MeshShape` included)."""
+    sizes = mesh_shape(mesh)
+    return tuple(n // math.prod(sizes[a] for a in _axes(entry))
+                 for n, entry in zip(shape, spec))
+
+
+def without_model(spec: Spec) -> Spec:
+    """``spec`` with the "model" axis dropped: the placement of a leaf
+    whose compute is gathered over "model", held whole on each of its
+    ranks."""
+    def drop(entry):
+        axes = tuple(a for a in _axes(entry) if a != "model")
+        return None if not axes else axes if len(axes) > 1 else axes[0]
+    return tuple(drop(e) for e in spec)
 
 
 def tree_shard_bytes(tree, specs, mesh) -> int:
@@ -446,6 +487,17 @@ def model_dim(t) -> Optional[int]:
     if t.device_mesh.size(i) == 1 or not isinstance(p, Shard):
         return None
     return p.dim
+
+
+def shards_of_dim(t, dim: int) -> int:
+    """Into how many shards a DTensor leaf's placement cuts its dim
+    ``dim`` (1 for a plain tensor)."""
+    from torch.distributed.tensor import Shard
+    if not is_dtensor(t):
+        return 1
+    mesh = t.device_mesh
+    return math.prod(mesh.size(i) for i, p in enumerate(t.placements)
+                     if isinstance(p, Shard) and p.dim == dim)
 
 
 def model_shard(t, batch=()):
@@ -629,6 +681,19 @@ class TensorParallel:
         """The elementwise maximum over "model" of a tensor that carries
         no gradient."""
         return max_over(t.detach().clone(), self.mesh, ("model",))
+
+    def gather(self, t):
+        """Every "model" rank's ``t`` (the same shape on each) joined
+        along the last dim in rank order, in ``t``'s dtype (one
+        all-gather; no gradient): a column-parallel product's columns
+        made whole."""
+        import torch.distributed as dist
+        n = self.size
+        out = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
+        dist.all_gather_into_tensor(out, t.detach().contiguous(),
+                                    group=self.mesh.get_group("model"))
+        return out.reshape(n, *t.shape).movedim(0, -2).reshape(
+            *t.shape[:-1], n * t.shape[-1])
 
 
 def tensor_parallel(mesh) -> Optional[TensorParallel]:

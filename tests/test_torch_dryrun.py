@@ -12,7 +12,10 @@ each record:
 - ``argument_size_in_bytes`` equals the sum of the shard sizes derived
   from the reference's specs (``resolve_spec`` on a ``FakeMesh`` of the
   production shape, the inputs by ``data_sharding``'s rule) and shapes
-  (``eval_shape``, no compile), exactly.
+  (``eval_shape``, no compile), exactly, the cache as a port rank holds
+  it (a mixer computed gathered over "model" keeps its cache whole
+  there); a decode record's ``cache_rules_bytes`` equals the reference's
+  cache under ``CACHE_RULES`` exactly.
 """
 
 import functools
@@ -61,7 +64,9 @@ class FakeMesh:
         self.shape = dict(zip(axes, shape))
 
 
-def _shard_bytes(tree, mesh, rules):
+def _shard_bytes(tree, mesh, rules, model=True):
+    """A device's bytes of ``tree`` placed by ``rules``; ``model=False``:
+    held whole over "model"."""
     total = 0
     for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
         n = int(np.prod(leaf.shape)) * np.dtype(leaf.dtype).itemsize
@@ -70,9 +75,23 @@ def _shard_bytes(tree, mesh, rules):
             for axes in RR.resolve_spec(leaf.shape, logical, mesh):
                 for a in (() if axes is None else axes
                           if isinstance(axes, tuple) else (axes,)):
-                    n //= mesh.shape[a]
+                    if model or a != "model":
+                        n //= mesh.shape[a]
         total += n
     return total
+
+
+def _port_cache_bytes(cfg, cache, mesh):
+    """A device's bytes of the reference's ``cache`` as the port's ranks
+    hold it: a self-attention block's by ``CACHE_RULES`` (at these
+    meshes every block whose KV heads "model" divides computes
+    tensor-parallel), every other mixer's whole over "model" (computed
+    gathered there)."""
+    return sum(_shard_bytes(block, mesh, RR.CACHE_RULES,
+                            model=spec.mixer == "attn")
+               for part in ("prefix", "pattern", "suffix")
+               for block, spec in zip(cache[part], getattr(cfg, part),
+                                      strict=True))
 
 
 def _batch_bytes(specs, mesh):
@@ -98,20 +117,22 @@ def reference_record(arch, shape, mesh_kind):
     seqlen, gbatch, _ = REF_SHAPES[shape]
     tokens = gbatch * (1 if kind == "decode" else seqlen)
     args = _batch_bytes(specs, mesh)
+    cache = port_cache = 0
     if kind == "train":
         args += _shard_bytes(ref_steps.state_shapes(cfg, RefAdamWConfig()),
                              mesh, RR.PARAM_RULES)
     else:
         args += _shard_bytes(p, mesh, RR.PARAM_RULES)
         if kind == "decode":
-            args += 4 + _shard_bytes(
-                ref_steps.cache_shapes(cfg, specs["tokens"].shape[0], seq),
-                mesh, RR.CACHE_RULES)
+            c = ref_steps.cache_shapes(cfg, specs["tokens"].shape[0], seq)
+            cache = _shard_bytes(c, mesh, RR.CACHE_RULES)
+            port_cache = _port_cache_bytes(cfg, c, mesh)
+            args += 4 + port_cache
     return {"params_total": n_total, "params_active": n_active,
             "tokens": tokens, "kind": kind, "seq": seq,
             "model_flops": float((6 if kind == "train" else 2) * n_active
                                  * tokens),
-            "argument_size_in_bytes": args}
+            "argument_size_in_bytes": args, "cache_rules_bytes": cache}
 
 
 @pytest.fixture(scope="module")
@@ -145,6 +166,8 @@ def test_dryrun_record_equals_reference(sweep, arch, shape, mesh_kind):
         assert rec[key] == want[key], key
     assert rec["memory"]["argument_size_in_bytes"] \
         == want["argument_size_in_bytes"]
+    assert rec["memory"].get("cache_rules_bytes", 0) \
+        == want["cache_rules_bytes"]
     assert rec["devices"] == (256 if mesh_kind == "single" else 512)
     plan = rec["collectives"]
     assert set(plan) == {"all-gather", "reduce-scatter", "all-reduce"}

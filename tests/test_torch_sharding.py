@@ -41,8 +41,8 @@ with ``XLA_FLAGS=--xla_force_host_platform_device_count=4``
 - the prefill and decode steps on (2, 1): the unsharded port's tokens;
 - the collectives one train, prefill or decode step issues on each rank
   of (2, 2), counted at torch's collective ops: the dry run's plan,
-  counts and bytes exactly (a padded-vocab train step too); in training
-  no leaf gathered over "model";
+  counts and bytes exactly (a padded-vocab train, prefill and decode
+  step too); no leaf computed tensor-parallel gathered over "model";
 - elastic: ``choose_mesh_shape`` equal to the reference's; a state saved
   on (2, 1) and restored on (1, 2) bit for bit; ``reshard_state`` round
   trips; the train loop on (2, 1) recovers from a ``SimulatedFault`` to
@@ -454,8 +454,10 @@ def test_collectives_equal_the_dry_runs_plan(runs, arch, ep, kind, pad):
     """What one step issues on each rank of the (2, 2) mesh, counted at
     torch's collective ops: the dry run's ``collective_plan`` for the
     same config, mesh and batch, counts and result bytes exactly, and no
-    other collective.  In training no leaf the step computes
-    tensor-parallel is gathered over "model"."""
+    other collective.  No leaf the step computes tensor-parallel is
+    gathered over "model": in training every all-gather is a leaf's over
+    "data"; at prefill and decode so is every one but the logits' (over
+    the batch axes, and over "model" where the head is vocabulary-parallel)."""
     from repro_torch.launch.dryrun import collective_plan, tensor_parallel_plan
     cfg = TW.cfg_of(arch, shard_map=ep, pad=pad)
     mesh = M.make_host_mesh(2, 2)
@@ -470,13 +472,17 @@ def test_collectives_equal_the_dry_runs_plan(runs, arch, ep, kind, pad):
     for r, res in enumerate(TMR.load(runs["dir"], "collectives", 4)):
         got, other = res[(arch, ep, kind, pad)]
         assert got == want and not other, (r, got, want, other)
+    specs = R.tree_shardings(shapes, mesh, R.PARAM_RULES)
+    over_data = sum("data" in [a for e in sp for a in R._axes(e)]
+                    for sp in R.spec_leaves(specs))
+    roles, *_, tp_head = tensor_parallel_plan(cfg, shapes, specs, mesh)
+    assert "shard" in roles
     if kind == "train":
         # every all-gather is a leaf's over "data"; none over "model"
-        specs = R.tree_shardings(shapes, mesh, R.PARAM_RULES)
-        over_data = sum("data" in [a for e in sp for a in R._axes(e)]
-                        for sp in R.spec_leaves(specs))
         assert want["all-gather"]["count"] == over_data
-        assert "shard" in tensor_parallel_plan(cfg, shapes, specs, mesh)[0]
+    elif arch == "qwen3-4b":
+        # the leaves' over "data", then the logits'
+        assert want["all-gather"]["count"] == over_data + 1 + tp_head
 
 
 def test_prefill_and_decode_on_two_ranks_give_unsharded_tokens(runs):

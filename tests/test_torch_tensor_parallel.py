@@ -23,6 +23,10 @@ and padded-vocab ``grads`` cases), the port's in ``torch_mesh_workers.py``
   vocabulary-parallel head + CE within ``LOSS_TOL``, and the first step's
   loss (exact and haloc_axa) within ``LOSS_TOL`` of the reference's on
   the same mesh, every gradient leaf within ``GRAD_TOL``;
+- gemma3-27b-smoke's first step, exact adds (a tensor-parallel MLP's
+  residual sum rounded before the next norm reads it): the loss within
+  ``LOSS_TOL`` of the reference's on the same mesh, every gradient leaf
+  within ``GRAD_TOL``;
 - a replicated leaf's gradient (the norm scales; the q/k norm scales'
   summed over "model") equal on both ranks bit for bit, and the sharded
   global norm (``adamw.torch_global_norm``) within 1e-6 of the fp64 norm
@@ -106,6 +110,23 @@ def test_padded_vocab_first_step_against_reference(runs, adder):
     key = ("qwen3-4b+pad4", "1x2", adder)
     want = runs["ref"]["grads"][key]
     cfg = TW.cfg_of("qwen3-4b", pad=TW.PAD)
+    for res in TMR.load(runs["dir"], "grads2", 2):
+        loss, _, grads = res[key]
+        assert abs(loss - want["loss"]) <= LOSS_TOL * want["loss"]
+        worst = max(_rel(g, w) for g, w in zip(
+            grads, _port_leaves(want["grads"], cfg), strict=True))
+        assert worst < GRAD_TOL, worst
+
+
+def test_carried_sum_first_step_against_reference(runs):
+    """gemma3-27b-smoke's first step on (1, 2), exact adds: the loss
+    within LOSS_TOL of the reference's jitted step on the same mesh and
+    every gradient leaf within GRAD_TOL, on both ranks (after each
+    tensor-parallel MLP the next norm reads the rounded residual sum, not
+    the unrounded carry; the suffix block reads the pattern's)."""
+    key = (TW.CARRY_ARCH, "1x2", False)
+    want = runs["ref"]["grads"][key]
+    cfg = TW.cfg_of(TW.CARRY_ARCH)
     for res in TMR.load(runs["dir"], "grads2", 2):
         loss, _, grads = res[key]
         assert abs(loss - want["loss"]) <= LOSS_TOL * want["loss"]

@@ -38,7 +38,9 @@ Then ``OUT.pkl``:
   on (2, 1) and (2, 2), and granite's on (2, 2) with
   ``use_shard_map=True``, on ``case_batch``'s inputs and the seed-1
   parameters; and on (1, 2) qwen3-4b-smoke's padded-vocab variant,
-  exact and haloc_axa (``("qwen3-4b+pad4", "1x2", adder)``);
+  exact and haloc_axa (``("qwen3-4b+pad4", "1x2", adder)``), and
+  gemma3-27b-smoke, exact (``CARRY_ARCH``: its exact adds' carry
+  rounded after a tensor-parallel MLP);
 - ``steps12``: qwen3-4b-smoke on the (1, 2) mesh, exact and haloc_axa,
   from ``shards``' full state: the first step's loss and gradients, and
   three steps of ``make_train_step`` jitted with the state's and the
@@ -51,7 +53,12 @@ Then ``OUT.pkl``:
   block of hubert-xlarge-smoke, exact and haloc_axa (``TP_BLOCKS``; its
   GELU MLP's biases) (each: output and VJP on ``tp``'s input and
   cotangent), and the padded variant's embedding lookup and head + CE
-  (``loss_fn``'s ``head_loss``).
+  (``loss_fn``'s ``head_loss``);
+- ``serve``: SERVE_CASES, the prefill and decode steps jitted with the
+  rules' shardings as ``repro.launch.dryrun`` jits them, on the seed-1
+  parameters and ``serve_inputs`` (:func:`serve_cases`): each step's
+  logits and the cache after the prefill and after the last decode
+  step; for FULL_CASES the full-sequence forward's logits too.
 """
 
 import dataclasses
@@ -83,6 +90,28 @@ PAD = 4
 TP_BLOCKS = (("hubert-xlarge", "off"), ("hubert-xlarge", "haloc_axa"))
 #: The tensor-parallel attention mixer with q/k/v biases.
 TP_BIAS_ARCH = "qwen1.5-4b"
+#: The config whose first step on (1, 2) holds the carry's rounding after
+#: a tensor-parallel MLP (a suffix block reads the pattern's carry).
+CARRY_ARCH = "gemma3-27b"
+#: The serving cases (``torch_mesh_workers.SERVE_CASES``): the prefill of
+#: SERVE_ROWS x SERVE_PROMPT tokens (frames) with a cache of SERVE_CTX,
+#: then ``new`` teacher-forced decode steps: (arch, mesh, adder, vocab
+#: padding multiple, new).
+SERVE_CASES = (("qwen3-4b", "1x2", "off", 1, 4),
+               ("qwen3-4b", "1x2", "haloc_axa", 1, 4),
+               ("qwen3-4b", "2x2", "off", 1, 4),
+               ("qwen3-4b", "2x2", "haloc_axa", 1, 4),
+               ("qwen3-4b", "1x2", "off", 4, 4),
+               ("qwen1.5-4b", "1x2", "off", 1, 4),
+               ("gemma3-27b", "1x2", "off", 1, 4),
+               ("gemma3-27b", "1x2", "haloc_axa", 1, 4),
+               ("hubert-xlarge", "1x2", "off", 1, 0),
+               ("granite-moe-1b-a400m", "2x2", "off", 1, 0))
+SERVE_ROWS, SERVE_PROMPT, SERVE_CTX = 4, 32, 40
+#: The serving cases whose full-sequence forward (the train step's) is
+#: also compared: gemma3-27b-smoke's exact adds carried past a
+#: tensor-parallel MLP.
+FULL_CASES = (("gemma3-27b", "1x2", "off", 1),)
 
 
 def step_opt(AdamWConfig, clip):
@@ -103,6 +132,23 @@ def tp_inputs(d_model, vocab, seed=11, b=2, s=32):
     return {"x": bf16((b, s, d_model)), "g": bf16((b, s, d_model)),
             "tokens": rng.integers(0, vocab, (b, s)).astype(np.int32),
             "labels": rng.integers(0, vocab, (b, s)).astype(np.int32)}
+
+
+def serve_inputs(cfg, seed=13):
+    """A serving case's inputs: the prompt's ``tokens`` (int32), or an
+    audio model's ``frames`` (float32), and the decode steps' teacher-forced
+    ``decode`` tokens (int32), from ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    shape = (SERVE_ROWS, SERVE_PROMPT)
+    out = {"decode": rng.integers(0, cfg.vocab_size, (SERVE_ROWS, 4)).astype(
+        np.int32)}
+    if cfg.audio is not None:
+        out["frames"] = rng.standard_normal(
+            shape + (cfg.audio.feat_dim,)).astype(np.float32)
+    else:
+        out["tokens"] = rng.integers(0, cfg.vocab_size, shape).astype(
+            np.int32)
+    return out
 
 
 def case_batch(vocab, b=4, s=32, seed=7):
@@ -193,7 +239,8 @@ def main(path):
         inputs["shards"][(arch, "full")] = to_np(full)
     params = {arch: init(jax.random.key(1), smoke(arch))
               for arch in sorted(set(SHARD_ARCHS + MOE_ARCHS + (
-                  TP_BIAS_ARCH,) + tuple(a for a, _ in TP_BLOCKS)))}
+                  TP_BIAS_ARCH,) + tuple(a for a, _ in TP_BLOCKS)
+                  + tuple(c[0] for c in SERVE_CASES)))}
     inputs["params"] = {k: to_np(v) for k, v in params.items()}
     inputs["moe_x"] = {arch: moe_input(smoke(arch).d_model)
                        for arch in MOE_ARCHS}
@@ -247,6 +294,10 @@ def main(path):
         cfg = smoke("qwen3-4b", adder=adder, pad=PAD)
         res["grads"][("qwen3-4b+pad4", "1x2", adder)] = value_and_grad(
             cfg, pad_params, jnp_batch(case_batch(cfg.vocab_size)), one_two)
+    cfg = smoke(CARRY_ARCH)
+    res["grads"][(CARRY_ARCH, "1x2", False)] = value_and_grad(
+        cfg, params[CARRY_ARCH], jnp_batch(case_batch(cfg.vocab_size)),
+        one_two)
 
     res["steps12"] = {}
     full = inputs["shards"][("qwen3-4b", "full")]
@@ -275,7 +326,67 @@ def main(path):
 
     res["tp12"] = tp_cases(jax, jnp, RA, RL, R, smoke, params, pad_params,
                            inputs["tp"], one_two, to_np)
+    res["serve"] = serve_cases(jax, jnp, R, steps, smoke, params, pad_params,
+                               mesh_of, to_np)
     dump(res, path)
+
+
+def serve_cases(jax, jnp, R, steps, smoke, params, pad_params, mesh_of,
+                to_np):
+    """SERVE_CASES: the prefill step and the decode steps jitted with the
+    rules' shardings as ``repro.launch.dryrun`` jits them (the parameters
+    by ``PARAM_RULES``, the batch by ``data_sharding``, the cache by
+    ``cache_shardings``, the position replicated) on the seed-1
+    parameters and ``serve_inputs``: {case: {"logits": [the prefill's,
+    each decode step's] as float32, "prefill_cache": the cache after the
+    prefill, "cache": after the last decode step; for FULL_CASES "full":
+    ``forward(mode="full")``'s logits jitted the same way}}."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.models import transformer as RT
+
+    def f32(a):
+        return np.asarray(jnp.asarray(a, jnp.float32))
+
+    out = {}
+    for arch, name, adder, pad, new in SERVE_CASES:
+        cfg = smoke(arch, adder=adder, pad=pad)
+        mesh = mesh_of(name)
+        p = pad_params if pad > 1 else params[arch]
+        inp = serve_inputs(cfg)
+        batch = {k: jnp.asarray(v) for k, v in inp.items() if k != "decode"}
+        ba = R.batch_axes(mesh)
+        p_sh = R.tree_shardings(jax.eval_shape(lambda: p), mesh,
+                                R.PARAM_RULES)
+        with mesh:
+            prefill = jax.jit(steps.make_prefill_step(cfg, SERVE_CTX,
+                                                      batch_axes=ba),
+                              in_shardings=(p_sh, R.data_sharding(batch,
+                                                                  mesh)))
+            logits, cache = prefill(p, batch)
+            rec = {"logits": [f32(logits)], "prefill_cache": to_np(cache)}
+            if new:
+                c_sh = R.cache_shardings(jax.eval_shape(lambda: cache), mesh)
+                toks = jnp.asarray(inp["decode"])
+                decode = jax.jit(steps.make_decode_step(cfg, batch_axes=ba),
+                                 in_shardings=(
+                                     p_sh, R.data_sharding(
+                                         {"tokens": toks[:, :1]}, mesh),
+                                     NamedSharding(mesh, P()), c_sh),
+                                 donate_argnums=(3,))
+                for i in range(new):
+                    logits, cache = decode(p, {"tokens": toks[:, i:i + 1]},
+                                           jnp.int32(SERVE_PROMPT + i), cache)
+                    rec["logits"].append(f32(logits))
+            rec["cache"] = to_np(cache)
+            if (arch, name, adder, pad) in FULL_CASES:
+                rec["full"] = f32(jax.jit(
+                    lambda p, b: RT.forward(p, cfg, b, mode="full",
+                                            batch_axes=ba)[0],
+                    in_shardings=(p_sh, R.data_sharding(batch, mesh)))(
+                        p, batch))
+        out[(arch, name, adder, pad)] = rec
+    return out
 
 
 def tp_cases(jax, jnp, RA, RL, R, smoke, params, pad_params, inp, mesh,

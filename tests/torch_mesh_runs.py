@@ -1,12 +1,13 @@
-"""The mesh runs that ``test_torch_sharding.py`` and
-``test_torch_tensor_parallel.py`` read: the reference's host-mesh runs
-(``torch_mesh_reference.py``, a subprocess with four XLA host devices),
-the port's gloo ranks (``torch_mesh_workers.py``: groups of 2 and 4 CPU
-ranks) and the unsharded port's counterparts, made once per test run.
+"""The mesh runs that ``test_torch_sharding.py``,
+``test_torch_tensor_parallel.py`` and ``test_torch_tp_serving.py`` read:
+the reference's host-mesh runs (``torch_mesh_reference.py``, a
+subprocess with four XLA host devices), the port's gloo ranks
+(``torch_mesh_workers.py``: groups of 2 and 4 CPU ranks) and the
+unsharded port's counterparts, made once per test run.
 
-Under ``pytest-xdist`` the two files may run in two workers: the first
+Under ``pytest-xdist`` the files may run in several workers: the first
 to ask makes the runs in a directory beside the workers' temp dirs,
-under a file lock, and the other waits for it and reads what it wrote.
+under a file lock, and the others wait for it and read what it wrote.
 """
 
 import fcntl
@@ -67,16 +68,16 @@ def _make(d):
          str(ref_path)], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
     # steps12 waits for the reference's inputs after the others
-    ctxs = [TW.start(("serve21", "elastic", "fault", "steps12"), 2, d,
-                     inputs)]
+    ctxs = [TW.start(("serve21", "elastic", "fault", "cache12", "steps12"),
+                     2, d, inputs)]
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
         cpu = {"grads": {}, "tokens": TW.serve_tokens(None)}
         _wait_for(inputs, ref_proc)
-        ctxs.append(TW.start(("placements", "moe", "grads4", "collectives"),
-                             4, d, inputs))
-        ctxs.append(TW.start(("grads2", "tp12"), 2, d, inputs))
+        ctxs.append(TW.start(("placements", "moe", "grads4", "collectives",
+                              "serve22"), 4, d, inputs))
+        ctxs.append(TW.start(("grads2", "tp12", "serve12"), 2, d, inputs))
         with open(inputs, "rb") as f:
             params = pickle.load(f)["params"]
         for arch in ("qwen3-4b", "granite-moe-1b-a400m"):

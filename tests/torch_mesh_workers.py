@@ -22,8 +22,35 @@ STEP_CASES = (("off", 1e9), ("haloc_axa", 1e9), ("off", 1.0),
 #: adder) and its attention mixer with q/k/v biases.
 TP_BLOCKS = (("hubert-xlarge", "off"), ("hubert-xlarge", "haloc_axa"))
 TP_BIAS_ARCH = "qwen1.5-4b"
+#: ``torch_mesh_reference.CARRY_ARCH``: the first step on (1, 2) whose
+#: exact adds' carry is rounded after a tensor-parallel MLP.
+CARRY_ARCH = "gemma3-27b"
 #: The prefill/decode case: prompt length, decode steps, context.
 PROMPT, NEW, CTX = 12, 4, 16
+#: ``torch_mesh_reference``'s serving cases: (arch, mesh, adder, vocab
+#: padding multiple, decode steps), each prefilling SERVE_ROWS x
+#: SERVE_PROMPT tokens (frames) into a cache of SERVE_CTX positions.
+SERVE_CASES = (("qwen3-4b", "1x2", "off", 1, 4),
+               ("qwen3-4b", "1x2", "haloc_axa", 1, 4),
+               ("qwen3-4b", "2x2", "off", 1, 4),
+               ("qwen3-4b", "2x2", "haloc_axa", 1, 4),
+               ("qwen3-4b", "1x2", "off", 4, 4),
+               ("qwen1.5-4b", "1x2", "off", 1, 4),
+               ("gemma3-27b", "1x2", "off", 1, 4),
+               ("gemma3-27b", "1x2", "haloc_axa", 1, 4),
+               ("hubert-xlarge", "1x2", "off", 1, 0),
+               ("granite-moe-1b-a400m", "2x2", "off", 1, 0))
+SERVE_ROWS, SERVE_PROMPT, SERVE_CTX = 4, 32, 40
+SERVE_MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
+#: ``torch_mesh_reference.FULL_CASES``: the serving cases whose
+#: full-sequence forward is also compared.
+FULL_CASES = (("gemma3-27b", "1x2", "off", 1),)
+#: The configs whose caches the serving steps hold whole over "model"
+#: (mixers computed gathered there) where ``CACHE_RULES`` would split
+#: them, served on (1, 2) by ``job_cache12``: the RG-LRU (and one KV
+#: head), the SSD, MLA, cross attention.
+GATHERED_CACHE_ARCHS = ("recurrentgemma-9b", "mamba2-1.3b",
+                        "deepseek-v2-236b", "llama-3.2-vision-11b")
 
 
 def start(jobs, world, out_dir, ref_path):
@@ -128,6 +155,22 @@ def case_batch(vocab, b=4, s=32, seed=7):
     rng = np.random.default_rng(seed)
     return {"tokens": rng.integers(0, vocab, (b, s)).astype(np.int32),
             "labels": rng.integers(0, vocab, (b, s)).astype(np.int32)}
+
+
+def serve_inputs(cfg, seed=13):
+    """``torch_mesh_reference.serve_inputs``: the prompt's ``tokens`` (or
+    ``frames``) and the teacher-forced ``decode`` tokens."""
+    rng = np.random.default_rng(seed)
+    shape = (SERVE_ROWS, SERVE_PROMPT)
+    out = {"decode": rng.integers(0, cfg.vocab_size, (SERVE_ROWS, 4)).astype(
+        np.int32)}
+    if cfg.audio is not None:
+        out["frames"] = rng.standard_normal(
+            shape + (cfg.audio.feat_dim,)).astype(np.float32)
+    else:
+        out["tokens"] = rng.integers(0, cfg.vocab_size, shape).astype(
+            np.int32)
+    return out
 
 
 def first_moe_mlp(params, cfg):
@@ -242,8 +285,8 @@ PAD = 4
 def job_grads2(ref):
     """Losses and gradients on the (2, 1) mesh, both configs; on the
     (1, 2) mesh the (2, 2) cases' runs unsharded over "data" (granite
-    also with the expert-parallel MoE) and the padded-vocab variant of
-    qwen3-4b-smoke, exact and haloc_axa."""
+    also with the expert-parallel MoE), the padded-vocab variant of
+    qwen3-4b-smoke, exact and haloc_axa, and CARRY_ARCH, exact."""
     out = {(arch, "2x1", False): _grads(ref, arch, (2, 1))
            for arch in ("qwen3-4b", "granite-moe-1b-a400m")}
     for arch, ep in (("qwen3-4b", False), ("granite-moe-1b-a400m", False),
@@ -252,6 +295,7 @@ def job_grads2(ref):
     for adder in ("off", "haloc_axa"):
         out[("qwen3-4b+pad4", "1x2", adder)] = _grads(
             ref, "qwen3-4b", (1, 2), adder=adder, pad=PAD)
+    out[(CARRY_ARCH, "1x2", False)] = _grads(ref, CARRY_ARCH, (1, 2))
     return out
 
 
@@ -348,7 +392,7 @@ def job_tp12(ref):
         spec = c.pattern[0]
 
         def fn(b, xr):
-            tps = T.block_tensor_parallel(b, c, spec, "full", mesh)
+            tps = T.block_tensor_parallel(b, c, spec, mesh)
             assert None not in tps, "the block is not tensor-parallel"
             return T.block_apply(
                 T._block_gathered(b, c, spec, xr.shape[1], "full", (), mesh,
@@ -429,6 +473,143 @@ def serve_tokens(mesh):
     return torch.cat(toks, dim=1).numpy()
 
 
+def serve_case(ref, arch, mesh_name, adder, pad, new):
+    """One serving case on its gloo mesh: the prefill and decode steps on
+    the reference's seed-1 parameters placed by the rules and
+    ``serve_inputs`` (the teacher-forced tokens); {"logits": [the
+    prefill's, each decode step's] as float32 numpy, "prefill_cache" and
+    "cache": this rank's cache leaves after the prefill and after the last
+    decode step (``leaves`` order, numpy copies), "slices": each cache
+    leaf's (start, stop) a dim in the whole cache, as ``CACHE_RULES``
+    places it (:func:`local_slices`: the batch axes' rows and the "model"
+    rank's KV heads; every case's cache is its attention's), "bytes":
+    (the bytes this rank's cache holds, the dry run's ``cache_bytes``)};
+    for FULL_CASES also "full": ``forward(mode="full")``'s logits (the
+    whole batch's)."""
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules as R
+    from repro_torch.tree import leaves
+    cfg = cfg_of(arch, adder, pad=pad)
+    mesh = mesh_of(SERVE_MESHES[mesh_name])
+    params = port_params(ref["pad_params"] if pad > 1 else
+                         ref["params"][arch], cfg)
+    placed = R.place(params, R.tree_shardings(params, mesh, R.PARAM_RULES),
+                     mesh)
+    inp = serve_inputs(cfg)
+    batch = {k: torch.from_numpy(v) for k, v in inp.items() if k != "decode"}
+    ba = R.batch_axes(mesh)
+    prefill = steps.make_prefill_step(cfg, SERVE_CTX, batch_axes=ba,
+                                      mesh=mesh)
+    decode = steps.make_decode_step(cfg, batch_axes=ba, mesh=mesh)
+
+    def snapshot(cache):
+        return [t.clone().numpy() if t.dtype != torch.bfloat16 else
+                t.float().numpy() for t in leaves(cache)]
+
+    with torch.no_grad():
+        logits, cache = prefill(placed, batch)
+        out = {"logits": [logits.float().numpy()],
+               "prefill_cache": snapshot(cache)}
+        toks = torch.from_numpy(inp["decode"])
+        for i in range(new):
+            logits, cache = decode(placed, {"tokens": toks[:, i:i + 1]},
+                                   SERVE_PROMPT + i, cache)
+            out["logits"].append(logits.float().numpy())
+    out["cache"] = snapshot(cache)
+    if (arch, mesh_name, adder, pad) in FULL_CASES:
+        local, axes = steps.split_batch(batch, mesh, ba)
+        with torch.no_grad():
+            full = T.forward(placed, cfg, local, mode="full",
+                             batch_axes=axes, mesh=mesh)[0]
+        out["full"] = (full if axes is None else R.gather_rows(
+            full, mesh, axes)).float().numpy()
+    whole = steps.cache_shapes(cfg, SERVE_ROWS, SERVE_CTX)
+    specs = R.spec_leaves(R.cache_shardings(whole, mesh))
+    out["slices"] = [[(sl.start, sl.stop) for sl in local_slices(
+        t.shape, sp, mesh)] for t, sp in zip(leaves(whole), specs,
+                                             strict=True)]
+    out["bytes"] = (sum(t.nbytes for t in leaves(cache)),
+                    dryrun.cache_bytes(cfg, SERVE_ROWS, SERVE_CTX, mesh))
+    return out
+
+
+def local_slices(shape, spec, mesh):
+    """This rank's slice of each dim of a leaf of ``shape`` placed by
+    ``spec`` on a ``DeviceMesh``: a dim on several axes cut by the major
+    one first, as ``rules.local_shard`` cuts it."""
+    from repro_torch.sharding import rules as R
+    sizes = R.mesh_shape(mesh)
+    out = []
+    for n, entry in zip(shape, spec):
+        axes = R._axes(entry)
+        idx = 0
+        for a in axes:
+            idx = idx * sizes[a] + mesh.get_local_rank(a)
+        step = n // int(np.prod([sizes[a] for a in axes]))
+        out.append(slice(idx * step, (idx + 1) * step))
+    return tuple(out)
+
+
+def job_cache12():
+    """GATHERED_CACHE_ARCHS served on (1, 2): seed-1 parameters placed by
+    the rules, a prefill of SERVE_ROWS x 8 tokens (and a vision model's
+    embeddings) into a cache of 12 positions, then one decode step:
+    {arch: {"held": (this rank's cache bytes after the prefill, after
+    the decode step), "dryrun": the dry run's ``cache_bytes``, "rules":
+    its ``CACHE_RULES`` figure, "shapes": each cache leaf's local shape
+    after the decode step, "whole": its shape in the whole cache}}."""
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules as R
+    from repro_torch.tree import leaves
+    mesh = mesh_of((1, 2))
+    ba = R.batch_axes(mesh)
+    rng = np.random.default_rng(17)
+    prompt, ctx = 8, 12
+    out = {}
+    for arch in GATHERED_CACHE_ARCHS:
+        cfg = cfg_of(arch)
+        params = T.init_params(1, cfg, device="cpu", dtype=torch.bfloat16)
+        placed = R.place(params, R.tree_shardings(params, mesh,
+                                                  R.PARAM_RULES), mesh)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (SERVE_ROWS, prompt)).astype(np.int32))}
+        if cfg.vision is not None:
+            batch["vision"] = torch.from_numpy(rng.standard_normal(
+                (SERVE_ROWS, cfg.vision.seq_len, cfg.vision.embed_dim)
+            ).astype(np.float32)).to(torch.bfloat16)
+        with torch.no_grad():
+            logits, cache = steps.make_prefill_step(
+                cfg, ctx, batch_axes=ba, mesh=mesh)(placed, batch)
+            held = [sum(t.nbytes for t in leaves(cache))]
+            nxt = logits[:, -1].float().argmax(-1)[:, None].to(torch.int32)
+            _, cache = steps.make_decode_step(cfg, batch_axes=ba, mesh=mesh)(
+                placed, {"tokens": nxt}, prompt, cache)
+            held.append(sum(t.nbytes for t in leaves(cache)))
+        out[arch] = {
+            "held": tuple(held),
+            "dryrun": dryrun.cache_bytes(cfg, SERVE_ROWS, ctx, mesh),
+            "rules": dryrun.cache_bytes(cfg, SERVE_ROWS, ctx, mesh,
+                                        rules=True),
+            "shapes": [tuple(t.shape) for t in leaves(cache)],
+            "whole": [tuple(t.shape) for t in leaves(steps.cache_shapes(
+                cfg, SERVE_ROWS, ctx))]}
+    return out
+
+
+def job_serve12(ref):
+    """The (1, 2) SERVE_CASES (:func:`serve_case`) by case."""
+    return {c[:4]: serve_case(ref, *c) for c in SERVE_CASES
+            if c[1] == "1x2"}
+
+
+def job_serve22(ref):
+    """The (2, 2) SERVE_CASES (:func:`serve_case`) by case."""
+    return {c[:4]: serve_case(ref, *c) for c in SERVE_CASES
+            if c[1] == "2x2"}
+
+
 #: The collectives counted against the dry run's plan, on (2, 2): (arch,
 #: expert-parallel MoE, step kind, vocabulary padding multiple); the
 #: batch is ``case_batch``'s 4 x 32.
@@ -437,7 +618,9 @@ COLLECTIVE_CASES = (("qwen3-4b", False, "train", 1),
                     ("qwen3-4b", False, "decode", 1),
                     ("granite-moe-1b-a400m", True, "train", 1),
                     ("granite-moe-1b-a400m", True, "prefill", 1),
-                    ("qwen3-4b", False, "train", PAD))
+                    ("qwen3-4b", False, "train", PAD),
+                    ("qwen3-4b", False, "prefill", PAD),
+                    ("qwen3-4b", False, "decode", PAD))
 #: The context of the counted prefill and decode steps.
 COLLECTIVE_CTX = 48
 #: torch's collective ops (the functional ones DTensor issues and the
@@ -610,7 +793,9 @@ def job_fault():
 JOBS = {"placements": job_placements, "moe": job_moe, "grads4": job_grads4,
         "grads2": job_grads2, "steps12": job_steps12, "tp12": job_tp12,
         "serve21": job_serve21, "elastic": job_elastic, "fault": job_fault,
-        "collectives": job_collectives}
-NEEDS_REF = ("placements", "moe", "grads4", "grads2", "steps12", "tp12")
+        "collectives": job_collectives, "serve12": job_serve12,
+        "serve22": job_serve22, "cache12": job_cache12}
+NEEDS_REF = ("placements", "moe", "grads4", "grads2", "steps12", "tp12",
+             "serve12", "serve22")
 #: The jobs that also read the reference's results (its states).
 NEEDS_RESULTS = ("steps12",)
